@@ -1,14 +1,17 @@
-"""Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves the flagship.
+"""Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves and trains the flagship.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each (with the seconds it took), flushed as they end:
 
 1. preflight: torch, CUDA, nvcc and the card (name and power limit from nvidia-smi);
-2. build: compiles the greedy-NMS kernel (`drone_yolo_tpu_torch/csrc/greedy_nms.cu`) with nvcc;
-3. kernel_vs_plain: the kernel's keep mask against `greedy_keep_reference` on the card,
+2. build: compiles the greedy-NMS kernel (`drone_yolo_tpu_torch/csrc/greedy_nms.cu`) and the
+   stride-2 conv backward (`csrc/s2_bwd.cu`) with nvcc, in parallel, and prints both ptxas reports;
+3. kernel_vs_plain: the NMS kernel's keep mask against `greedy_keep_reference` on the card,
    B=8, K in {128, 640, 1024}, IoU thresholds {0.45, 0.7}: masks must be equal, and every
-   case must both keep and suppress;
+   case must both keep and suppress. The stride-2 backward kernel against `s2_bwd_reference`
+   at every dense stride-2 site of the flagship (batch 8, 640 px: 8 with k=3, 4 with k=1), in
+   float32 (TF32 off) and bfloat16, within the tolerances of `S2_TOL`;
 4. slice: `YOLO("yolov8s-p2-repvgg-sf.yaml")` at full width and depth, seed 0, on the card,
    fused, bfloat16, predicts on batches of 1 and 8 synthetic 720x1280 BGR frames, then once
    more with conf=0.0 so that all 1024 candidates per image are valid. Launch counts are
@@ -16,11 +19,19 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    equals the same step with the plain keep on the card; the float32 decoded predictions
    (TF32 off, weights redrawn so activations stay O(1)) match the port on the CPU, boxes
    in pixels and scores relative to their size; per-image times and img/s at batch 1 and 8;
-5. kernels: the NMS kernel's time per launch at the slice's shapes against the plain
-   version's and against its bound;
-6. profile: the device busy share of batch-8 predicts and the device time by kernel
-   (torch.profiler);
-7. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
+5. train: `BaseTrainer` on the flagship at full width and depth, 80 classes, imgsz 640, batch 8,
+   bfloat16 autocast, SGD with one optimizer step per batch (nbs 8), seed 0: 6 steps on a
+   synthetic batch with s2grad="cuda", then the same 6 steps from the same init with stock
+   autograd. Counts are set to 0 before each run and read after it: the kernel run must call
+   the stride-2 backward 8 (k=3) and 4 (k=1) times per step, the stock run never. Checks:
+   finite losses, each step's loss within `TRAIN_LOSS_RTOL` of the stock run's; step ms,
+   img/s and peak memory both ways, then both paths timed again in turns (kernel, stock,
+   stock, kernel; 5 steps each);
+6. kernels: each kernel's time at the main path's shapes against its plain version, its
+   bound and (stride-2 backward) cuDNN's `convolution_backward` at the same sites;
+7. profile: the device busy share and the device time by kernel of batch-8 predicts and of
+   train steps with the kernel (torch.profiler);
+8. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 Any failure ends the script with a traceback and a non-zero exit code. Without a CUDA
@@ -35,15 +46,32 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 FLAGSHIP = "yolov8s-p2-repvgg-sf.yaml"
 FRAME_HW = (720, 1280)
-# H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor cores, bf16 dense tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+TRAIN = dict(batch=8, imgsz=640, nc=80, steps=6)
+# stride-2 backward, kernel vs plain on the same inputs. float32: tests/test_conv_s2.py:115-116 (both sum in
+# float32, in different orders). bfloat16: tests/test_conv_s2.py:51-67 (both sum the same bf16 inputs in float32;
+# dx is rounded to bf16 once, so the two may differ by one bf16 step).
+# Those were set for reductions of ~100 terms; dw at the flagship's sites sums up to 819,200 products (layer 0,
+# batch 8), whose float32 sums in two orders differ by ~1e-6 of the largest entry (1.8e-3 at a largest |dw| near
+# 2,700 in the first chip run): atol grows by S2_SUM_FLOOR x the largest |plain| entry. The float32 cases also
+# report both versions' distance from a float64 evaluation.
+S2_TOL = {"float32": {"dx": dict(rtol=1e-5, atol=1e-4), "dw": dict(rtol=1e-4, atol=1e-3)},
+          "bfloat16": {"dx": dict(rtol=0.05, atol=0.05), "dw": dict(rtol=0.05, atol=0.15)}}
+S2_SUM_FLOOR = 2e-6
+# the 6 bf16 steps with the kernel against the 6 with stock autograd: the first step's forward is the same; the
+# backward differs by bf16 rounding (cuDNN's bf16 dw against the kernel's float32 sums), which moves later losses
+# by far less than this
+TRAIN_LOSS_RTOL = 2e-2
 IOU_OPS = 14  # per IoU and compare: 4 min/max, 2 sub, 2 clamp, mul, add, sub, add, div, compare
 # float32 decoded predictions, card (TF32 off) vs CPU, with weights spread to O(1) activations:
 # the two sum in different orders, ~1e-5 relative at the head; a box coordinate is stride
@@ -100,6 +128,26 @@ def ious_needed(off_boxes, valid, keep, thr) -> int:
     return int((alive & keep[:, :, None]).sum())
 
 
+def synthetic_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n_max: int = 24) -> dict:
+    """A train batch in the collate format: uint8 RGB frames, 1..n_max GT boxes per image of 4-64 px sides
+    (at most imgsz/2) with random classes, padded to `round_label_slots(n_max, 1.0)` slots. Shared with the tests."""
+    from drone_yolo_tpu_torch.data.dataset import round_label_slots
+
+    slots = round_label_slots(n_max, 1.0)
+    cls = np.zeros((batch, slots), np.float32)
+    boxes = np.zeros((batch, slots, 4), np.float32)
+    mask = np.zeros((batch, slots), np.float32)
+    for i in range(batch):
+        n = int(rng.integers(1, n_max + 1))
+        wh = rng.uniform(4, min(64, imgsz / 2), (n, 2))
+        xy = rng.uniform(0, imgsz - wh)
+        boxes[i, :n] = np.concatenate([xy, xy + wh], 1)
+        cls[i, :n] = rng.integers(0, nc, n)
+        mask[i, :n] = 1.0
+    img = rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+    return {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
+
+
 def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
     """A redrawn float32 state dict of an unfused model whose activations stay O(1) through the
     depth: LeCun-normal kernels, BN statistics away from identity; the biases of the head's last
@@ -118,29 +166,83 @@ def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
     return out
 
 
-def profile_step(model, frames, steps: int = 5, top: int = 15) -> dict:
-    """torch.profiler over `steps` batch predicts: device busy share and the kernels that take the time."""
+def profile_device(fn, steps: int, top: int = 15) -> dict:
+    """torch.profiler over `steps` calls of `fn` (after one warm-up call): device busy share and the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
-    model.predict(frames, verbose=False)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t_wall = time.perf_counter()
         for _ in range(steps):
-            model.predict(frames, verbose=False)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t_wall) * 1e3
     rows = []
     for evt in prof.key_averages():  # device-side events only: kernels and copies, not the ops that launch them
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue  # a user annotation on the device (Optimizer.step) spans kernels counted on their own
         dev_us = getattr(evt, "self_device_time_total", None)
         dev_us = evt.self_cuda_time_total if dev_us is None else dev_us
         rows.append({"name": evt.key[:90], "calls": evt.count, "device_ms": dev_us / 1e3 / steps})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
-    return {"batch": len(frames), "steps": steps, "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy_ms,
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy_ms,
             "device_idle_share": 1.0 - busy_ms * steps / wall_ms, "top": rows[:top]}
+
+
+def s2_sites(model, batch: int, imgsz: int) -> list[dict]:
+    """The convs of `model` that the stride-2 backward covers (`ops.conv_s2.covers`) in a train-mode forward of a
+    (batch, 3, imgsz, imgsz) image, in forward order: name, k, the shapes of x, w and dy, and whether dx is needed.
+    Traced on the meta device (no arithmetic)."""
+    from drone_yolo_tpu_torch.nn import modules as M
+    from drone_yolo_tpu_torch.ops.conv_s2 import covers
+
+    sites = []
+
+    def hook(mod, args, name):
+        x = args[0]
+        if covers(mod.conv, x):
+            k = mod.conv.kernel_size[0]
+            sites.append({"name": name, "k": k, "x": tuple(x.shape), "w": tuple(mod.conv.weight.shape),
+                          "dy": (x.shape[0], mod.conv.out_channels, x.shape[2] // 2, x.shape[3] // 2),
+                          "need_dx": x.requires_grad})
+
+    handles = [m.register_forward_pre_hook(lambda m, a, name=n: hook(m, a, name))
+               for n, m in model.named_modules() if isinstance(m, M.Conv)]
+    state = {k: torch.empty_like(v, device="meta").requires_grad_(v.requires_grad)
+             for k, v in model.state_dict(keep_vars=True).items()}
+    was_training = model.training
+    try:
+        model.train()
+        with M.collect_bn_stats():
+            torch.func.functional_call(model, state, (torch.empty(batch, 3, imgsz, imgsz, device="meta"),))
+    finally:
+        model.train(was_training)
+        for h in handles:
+            h.remove()
+    return sites
+
+
+def s2_site_inputs(site: dict, dtype: torch.dtype, seed: int):
+    """Random x, w, dy of a site on the card: unit normals, w scaled by 1/sqrt(fan-in)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(site["x"], generator=g, device="cuda").to(dtype)
+    w = (torch.randn(site["w"], generator=g, device="cuda") / math.sqrt(np.prod(site["w"][1:]))).to(dtype)
+    dy = torch.randn(site["dy"], generator=g, device="cuda").to(dtype)
+    return x, w, dy
+
+
+def s2_cost(site: dict) -> tuple[int, int]:
+    """(bytes, operations) of one bf16 backward at a site: x, w, dy read once, dx (when needed) and the float32 dw
+    written once; 2 operations per multiply-add, B*Ho*Wo*Co*Ci*k*k of them for dw and again for dx."""
+    b, ci, h, w = site["x"]
+    numel = lambda shape: int(np.prod(shape))  # noqa: E731
+    n_bytes = 2 * (numel(site["x"]) + numel(site["w"]) + numel(site["dy"])) + 4 * numel(site["w"])
+    macs = numel(site["dy"]) * ci * site["k"] ** 2
+    if site["need_dx"]:
+        n_bytes += 2 * numel(site["x"])
+    return n_bytes, 2 * macs * (2 if site["need_dx"] else 1)
 
 
 def main() -> None:
@@ -148,7 +250,10 @@ def main() -> None:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(1)
     from drone_yolo_tpu_torch import YOLO
-    from drone_yolo_tpu_torch.ops import cuda_nms
+    from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+    from drone_yolo_tpu_torch.nn.model import DetectionModel
+    from drone_yolo_tpu_torch.ops import cuda_build, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.conv_s2 import KINDS, s2_bwd_reference
     from drone_yolo_tpu_torch.ops.nms import (
         compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates)
 
@@ -159,17 +264,20 @@ def main() -> None:
     # 1. preflight -----------------------------------------------------------
     t = time.perf_counter()
     smi = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader").splitlines()[0]
-    nvcc_version = sh(cuda_nms.find_nvcc(), "--version").splitlines()[-1]
+    nvcc_version = sh(cuda_build.find_nvcc(), "--version").splitlines()[-1]
     emit("preflight", t, python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=nvcc_version, device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), nvidia_smi=smi)
 
-    # 2. build ---------------------------------------------------------------
+    # 2. build: one nvcc per source, started together ---------------------------
     t = time.perf_counter()
-    lib = cuda_nms.build()
-    cuda_nms.load()
-    emit("build", t, library=lib.name, ptxas=cuda_nms.report_path(lib).read_text().strip().splitlines())
+    libraries = (cuda_nms.LIBRARY, cuda_s2bwd.LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(lambda lib: lib.build(), libraries))
+    for lib in libraries:
+        lib.load()
+    emit("build", t, libraries={p.name: cuda_build.report_path(p).read_text().strip().splitlines() for p in built})
 
-    # 3. kernel vs plain -----------------------------------------------------
+    # 3. kernels vs plain -----------------------------------------------------
     t = time.perf_counter()
     rng = np.random.default_rng(0)
     cases = []
@@ -186,7 +294,37 @@ def main() -> None:
             if kept == 0 or suppressed == 0:
                 raise AssertionError(f"K={k} thr={thr}: case must keep and suppress (kept {kept}, suppressed {suppressed})")
             cases.append({"B": 8, "K": k, "thr": thr, "kept": kept, "suppressed": suppressed, "equal": True})
-    emit("kernel_vs_plain", t, cases=cases)
+    sites = s2_sites(DetectionModel(FLAGSHIP, nc=TRAIN["nc"]), TRAIN["batch"], TRAIN["imgsz"])
+    n_sites = {k: sum(s["k"] == k for s in sites) for k in KINDS}
+    if n_sites != {3: 8, 1: 4}:
+        raise AssertionError(f"the flagship should have 8 k=3 and 4 k=1 stride-2 sites, found {n_sites}")
+    s2_cases = []
+    for i, site in enumerate(sites):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy = s2_site_inputs(site, dtype, seed=i)
+            dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, site["k"], site["need_dx"])
+            torch.cuda.synchronize()
+            dx_p, dw_p = s2_bwd_reference(x, w, dy, site["k"], site["need_dx"])
+            name = str(dtype).split(".")[1]
+            row = {"site": site["name"], "k": site["k"], "dtype": name, "x": site["x"]}
+            pairs = [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else [])
+            if dtype == torch.float32:
+                dx64, dw64 = s2_bwd_reference(x.double(), w.double(), dy.double(), site["k"], site["need_dx"])
+                truth = {"dw": dw64, "dx": dx64}
+            for what, got, want in pairs:
+                tol = dict(S2_TOL[name][what])
+                tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{site['name']} {name} {what}: {m}")
+                row.update({f"{what}_err": float((got - want).abs().max()), f"{what}_scale": float(want.abs().max()),
+                            f"{what}_atol": tol["atol"]})
+                if dtype == torch.float32:
+                    row.update({f"{what}_err_f64": float((got.double() - truth[what]).abs().max()),
+                                f"{what}_plain_err_f64": float((want.double() - truth[what]).abs().max())})
+            if not site["need_dx"] and dx is not None:
+                raise AssertionError(f"{site['name']}: dx computed where it is not needed")
+            s2_cases.append(row)
+            del x, w, dy, dx, dw, dx_p, dw_p
+    emit("kernel_vs_plain", t, nms_cases=cases, s2_tolerances=S2_TOL, s2_sum_floor=S2_SUM_FLOOR, s2_cases=s2_cases)
 
     # 4. slice: the port's predict path, end to end ---------------------------
     t = time.perf_counter()
@@ -237,6 +375,7 @@ def main() -> None:
         x1 = x[:1].float()
         preds_card = f32(x1)[0].cpu()
         preds_cpu = f32.cpu()(x1.cpu())[0]
+    del f32
     box_err = float((preds_card[..., :4] - preds_cpu[..., :4]).abs().max())
     score_rel_err = float(((preds_card[..., 4:] - preds_cpu[..., 4:]).abs() / preds_cpu[..., 4:]).max())
     if not (box_err <= BOX_ATOL_PX and score_rel_err <= SCORE_RTOL):
@@ -247,7 +386,47 @@ def main() -> None:
                            "score_rtol": SCORE_RTOL, "score_range": [float(preds_cpu[..., 4:].min()), float(preds_cpu[..., 4:].max())]},
          anchors=int(preds.shape[1]))
 
-    # 5. the kernel at the slice's shapes --------------------------------------
+    # 5. train: the port's train step, with the kernel and with stock autograd --------
+    t = time.perf_counter()
+    batch = synthetic_batch(np.random.default_rng(0), TRAIN["batch"], TRAIN["imgsz"], TRAIN["nc"])
+    runs, s2_calls, s2_launches, trainers = {}, {}, {}, {}
+    for mode in ("cuda", None):
+        trainer = BaseTrainer(overrides=dict(model=FLAGSHIP, batch=TRAIN["batch"], imgsz=TRAIN["imgsz"], nbs=TRAIN["batch"],
+                                             optimizer="SGD", amp=True, s2grad=mode),
+                              train_loader=[batch] * TRAIN["steps"], data={"nc": TRAIN["nc"]})
+        torch.cuda.reset_peak_memory_stats()
+        cuda_s2bwd.reset_counts()
+        steps = trainer.run_steps()
+        s2_calls[mode], s2_launches[mode] = dict(cuda_s2bwd.s2_bwd_cuda.calls), dict(cuda_s2bwd.s2_bwd_cuda.launches)
+        ms = [r["ms"] for r in steps[1:]]  # the first step builds cuDNN's plans
+        runs[mode] = {"loss": [r["loss"] for r in steps], "items": [r["items"] for r in steps],
+                      "step_ms_median": float(np.median(ms)), "img_per_s": TRAIN["batch"] / float(np.median(ms)) * 1e3,
+                      "first_step_ms": steps[0]["ms"], "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "s2_calls": s2_calls[mode], "s2_launches": s2_launches[mode], "contiguous_copies": cuda_s2bwd.s2_bwd_cuda.copies}
+        trainers[mode] = trainer
+    per_step = {cuda_s2bwd.NAMES[k]: n_sites[k] for k in KINDS}
+    want_launches = {cuda_s2bwd.NAMES[k]: TRAIN["steps"] * sum(3 if s["need_dx"] else 2 for s in sites if s["k"] == k) for k in KINDS}
+    if s2_calls["cuda"] != {n: TRAIN["steps"] * c for n, c in per_step.items()} or s2_launches["cuda"] != want_launches:
+        raise AssertionError(f"kernel run: stride-2 backward calls {s2_calls['cuda']} and launches {s2_launches['cuda']}, "
+                             f"expected {per_step} calls per step and {want_launches} launches")
+    if any(s2_calls[None].values()):
+        raise AssertionError(f"the stock run called the stride-2 backward kernel: {s2_calls[None]}")
+    loss_k, loss_s = np.array(runs["cuda"]["loss"]), np.array(runs[None]["loss"])
+    if not (np.isfinite(loss_k).all() and np.isfinite(loss_s).all()):
+        raise AssertionError(f"non-finite train losses: kernel {loss_k}, stock {loss_s}")
+    loss_rel = np.abs(loss_k - loss_s) / np.abs(loss_s)
+    if not (loss_rel <= TRAIN_LOSS_RTOL).all():
+        raise AssertionError(f"train losses with the kernel {loss_k} differ from stock {loss_s} by {loss_rel}")
+    in_turns = {"kernel": [], "stock": []}  # both paths again, in turns on one card: median ms of 5 steps each
+    for mode in ("cuda", None, None, "cuda"):
+        in_turns["kernel" if mode else "stock"].append(float(np.median([r["ms"] for r in trainers[mode].run_steps(5)])))
+    emit("train", t, model=FLAGSHIP, **{k: v for k, v in TRAIN.items()}, dtype="bfloat16 autocast", optimizer="SGD",
+         kernel=runs["cuda"], stock=runs[None], loss_rel_diff=loss_rel.tolist(), loss_rtol=TRAIN_LOSS_RTOL,
+         s2_calls_per_step=per_step, in_turns_step_ms=in_turns)
+    kernel_trainer = trainers.pop("cuda")
+    del trainers
+
+    # 6. the kernels at the main path's shapes ------------------------------------
     t = time.perf_counter()
     thr = args.iou
     keep = greedy_keep(off_boxes, valid, thr)
@@ -267,13 +446,47 @@ def main() -> None:
     }]
     if not kernels[0]["match"]:
         raise AssertionError("kernel and plain keep masks differ at the slice's shapes")
+    replaces = {3: "drone_yolo_tpu/ops/pallas_s2bwd.py:203", 1: "drone_yolo_tpu/ops/pallas_s2bwd.py:220"}
+    for kind in KINDS:
+        name = cuda_s2bwd.NAMES[kind]
+        per_site, totals = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+        for i, site in enumerate(s for s in sites if s["k"] == kind):
+            x, w, dy = s2_site_inputs(site, torch.bfloat16, seed=100 + i)
+            need = site["need_dx"]
+            p = KINDS[kind]
+            row = {"site": site["name"], "x": site["x"], "w": site["w"], "need_dx": need,
+                   "ms": cuda_ms(lambda: cuda_s2bwd.s2_bwd_cuda(x, w, dy, kind, need), reps=20),
+                   "plain_ms": cuda_ms(lambda: s2_bwd_reference(x, w, dy, kind, need), reps=3, warmup=1),
+                   "library_ms": cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                       dy, x, w, None, [2, 2], [p, p], [1, 1], False, [0, 0], 1, [need, True, False]), reps=20)}
+            n_bytes, n_ops = s2_cost(site)
+            row.update(bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, ops_ms=n_ops / PEAK_BF16_PER_S * 1e3)
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            for key in totals:
+                totals[key] += row[key]
+            per_site.append(row)
+        bf16 = [c for c in s2_cases if c["k"] == kind and c["dtype"] == "bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda", "impl": "cuda", "source": "drone_yolo_tpu_torch/csrc/s2_bwd.cu",
+            "replaces": replaces[kind], "launches": s2_launches["cuda"][name], "calls": s2_calls["cuda"][name],
+            "launches_per_step": s2_launches["cuda"][name] // TRAIN["steps"], "calls_per_step": per_step[name],
+            "max_abs_err": max(max(c["dw_err"], c.get("dx_err", 0.0)) for c in bf16), "match": True,
+            "ms": totals["ms"], "plain_ms": totals["plain_ms"], "library_ms": totals["library_ms"],
+            "bound_ms": sum(r["bound_ms"] for r in per_site),
+            "bound_by": "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations",
+            "per": "train step: the sum over the flagship's sites of one bf16 call each (batch 8, 640 px)",
+            "sites": per_site,
+        })
     emit("kernels", t, kernels=kernels)
 
-    # 6. profile ---------------------------------------------------------------
+    # 7. profile ---------------------------------------------------------------
     t = time.perf_counter()
-    emit("profile", t, **profile_step(model, frames))
+    train_hyp = kernel_trainer._warmup_hyp(kernel_trainer.ni, 0)
+    emit("profile", t, predict={"batch": len(frames), **profile_device(lambda: model.predict(frames, verbose=False), steps=5)},
+         train={"batch": TRAIN["batch"], "s2grad": "cuda",
+                **profile_device(lambda: kernel_trainer.train_step(batch, *train_hyp)[0].item(), steps=3)})
 
-    # 7. imports ---------------------------------------------------------------
+    # 8. imports ---------------------------------------------------------------
     t = time.perf_counter()
     loaded = sorted(m for m in ("jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml") if m in sys.modules)
     if loaded:
@@ -281,7 +494,7 @@ def main() -> None:
     emit("imports", t, absent=["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml"], total_s=round(time.perf_counter() - T0, 3))
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "sites"} for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,8 +1,9 @@
-"""Predict configuration: the predict keys of the JAX package's `cfg/default.yaml`.
+"""Predict and train configuration: the keys of the JAX package's `cfg/default.yaml` that the port reads.
 
-The defaults are a Python dict, so reading them needs no YAML parser. Keys of the
-modes that are not ported yet (train, val, export, track) are refused by name
-rather than silently ignored.
+The defaults are Python dicts, so reading them needs no YAML parser. Keys of the
+modes and options that are not ported yet (val, export, track; the train loop's
+data, epochs of validation, multi-scale, device augmentation) are refused by
+name rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -43,4 +44,45 @@ def get_cfg(cfg: dict | SimpleNamespace | None = None, overrides: dict | None = 
         merged[k] = int(merged[k])
     if merged["dtype"] not in ("bfloat16", "float32"):
         raise ValueError(f"dtype={merged['dtype']!r} must be 'bfloat16' or 'float32'")
+    return SimpleNamespace(**merged)
+
+
+TRAIN_CFG = {
+    "model": "yolov8n.yaml",  # (str) model yaml
+    "device": None,  # (str) "cuda" (the default) or "cpu"
+    "epochs": 100,  # (int) epochs, for the lr schedule and the 'auto' optimizer choice
+    "batch": 16,  # (int) images per batch
+    "imgsz": 640,  # (int) square train size; the head's bias priors follow it
+    "seed": 0,  # (int) seed of the weight init
+    "optimizer": "auto",  # (str) SGD, AdamW or auto
+    "lr0": 0.01,  # (float) initial learning rate
+    "lrf": 0.01,  # (float) final learning rate fraction (lr0 * lrf)
+    "momentum": 0.937,  # (float) SGD momentum / AdamW beta1
+    "weight_decay": 0.0005,  # (float) weight decay of the conv weights, scaled by batch * accumulate / nbs
+    "warmup_epochs": 3.0,  # (float) warmup epochs (fractions ok)
+    "warmup_momentum": 0.8,  # (float) warmup initial momentum
+    "warmup_bias_lr": 0.1,  # (float) warmup initial bias lr
+    "box": 7.5,  # (float) box loss gain
+    "cls": 0.5,  # (float) cls loss gain
+    "dfl": 1.5,  # (float) dfl loss gain
+    "nbs": 64,  # (int) nominal batch size: gradients accumulate over round(nbs / batch) batches
+    "amp": True,  # (bool) bfloat16 autocast
+    "cos_lr": False,  # (bool) cosine lr schedule
+    "s2grad": None,  # (str) backward of the dense stride-2 convs: None (stock autograd) or "cuda" (the kernel)
+}
+
+_TRAIN_TYPES = {"epochs": int, "batch": int, "imgsz": int, "seed": int, "nbs": int, "amp": bool, "cos_lr": bool,
+                **{k: float for k in ("lr0", "lrf", "momentum", "weight_decay", "warmup_epochs", "warmup_momentum",
+                                      "warmup_bias_lr", "box", "cls", "dfl")}}
+
+
+def get_train_cfg(cfg: dict | SimpleNamespace | None = None, overrides: dict | None = None) -> SimpleNamespace:
+    """Merge the train defaults, a config and overrides into a checked namespace."""
+    cfg = vars(cfg) if isinstance(cfg, SimpleNamespace) else dict(cfg or {})
+    merged = {**TRAIN_CFG, **cfg, **(overrides or {})}
+    unknown = sorted(set(merged) - set(TRAIN_CFG))
+    if unknown:
+        raise KeyError(f"unsupported train arguments {unknown}; supported: {sorted(TRAIN_CFG)}")
+    for k, typ in _TRAIN_TYPES.items():
+        merged[k] = typ(merged[k])
     return SimpleNamespace(**merged)

@@ -10,6 +10,8 @@ HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `rbr_dense/rbr_1x1/rbr_identity`, and the head's sequences drop the JAX `m`
 level. Names are the reference torch names (`model.<i>....`), which
 `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back.
+`from_jax_train_state` maps a whole JAX train state (params, optimizer state,
+EMA, accumulated gradients) the same way.
 """
 
 from __future__ import annotations
@@ -72,6 +74,20 @@ def from_jax_variables(variables: dict) -> dict:
             a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))  # HWIO -> OIHW
         sd[_torch_name(parts)] = torch.from_numpy(a)
     return sd
+
+
+def from_jax_train_state(state: dict) -> dict:
+    """JAX train state (`drone_yolo_tpu/engine/trainer.py`: params, opt, ema, acc, count, step) -> the layout of
+    `engine.trainer.BaseTrainer.train_state`. The SGD momentum tree, the Adam moments, the EMA and the
+    accumulator have the structure of the params and map by the same names; Adam's `t` is the step count."""
+    opt = state["opt"]
+    if isinstance(opt, dict) and set(opt) == {"m", "v", "t"}:
+        opt = {"m": from_jax_variables(opt["m"]), "v": from_jax_variables(opt["v"]), "t": int(np.asarray(opt["t"]))}
+    else:
+        opt = {"momentum": from_jax_variables(opt)}
+    return {"params": from_jax_variables(state["params"]), "opt": opt, "ema": from_jax_variables(state["ema"]),
+            "acc": from_jax_variables(state["acc"]), "count": int(np.asarray(state["count"])),
+            "step": int(np.asarray(state["step"]))}
 
 
 def load_checkpoint(path):

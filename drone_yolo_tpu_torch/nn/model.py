@@ -17,18 +17,26 @@ from drone_yolo_tpu_torch.nn.build import parse_model, yaml_model_load
 
 
 class DetectionModel(nn.Module):
-    """Executable detection graph, built in eval mode: its BatchNorm has no train form yet."""
+    """Executable detection graph, built in eval mode.
+
+    `nc` overrides the yaml's class count, as in the JAX package. `s2grad="cuda"` (or
+    `set_s2grad`) routes the backward of the dense stride-2 sites through the CUDA
+    kernel (`ops/conv_s2.py`); the default, None, keeps stock autograd.
+    """
 
     task = "detect"
 
-    def __init__(self, cfg="yolov8n.yaml"):
+    def __init__(self, cfg="yolov8n.yaml", nc: int | None = None, s2grad: str | None = None):
         super().__init__()
         self.yaml = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
+        if nc:
+            self.yaml["nc"] = int(nc)
         modules, self.froms, self.save, self.nc, self.ch_list = parse_model(self.yaml, ch=3)
         self.model = nn.ModuleList(modules)
         self.names = {i: f"class{i}" for i in range(self.nc)}
         self.eval()
         self._probe_strides()
+        self.set_s2grad(s2grad)
 
     @property
     def head(self) -> M.Detect:
@@ -57,10 +65,21 @@ class DetectionModel(nn.Module):
                 mod.reset_parameters()
         self.head.bias_init(imgsz)
 
-    def forward(self, x: torch.Tensor, raw: bool = False):
-        """(B, 3, H, W) -> ((B, A, 4 + nc) decoded predictions, per-level maps); `raw=True` gives the maps only.
+    def set_s2grad(self, mode: str | None) -> DetectionModel:
+        """Backward of the dense stride-2 sites: "cuda" (the kernel; its plain version on CPU tensors) or None (stock)."""
+        if mode not in M.S2GRAD_MODES:
+            raise ValueError(f"s2grad={mode!r} must be one of {M.S2GRAD_MODES}")
+        for mod in self.modules():
+            if isinstance(mod, M.Conv):
+                mod.s2grad = mode
+        return self
 
-        The input is cast to the parameters' dtype, the compute dtype.
+    def forward(self, x: torch.Tensor, raw: bool = False):
+        """(B, 3, H, W) -> ((B, A, 4 + nc) decoded predictions, per-level maps); `raw=True`, and train
+        mode, give the per-level (B, 4 * reg_max + nc, H, W) maps only.
+
+        The input is cast to the parameters' dtype, the compute dtype. Train mode runs under
+        `nn.modules.collect_bn_stats()`.
         """
         if x.dim() != 4 or x.shape[1] != 3:
             raise ValueError(f"expected a (B, 3, H, W) batch, got shape {tuple(x.shape)}")
@@ -70,10 +89,17 @@ class DetectionModel(nn.Module):
             if f != -1:
                 out = y[f] if isinstance(f, int) else [out if j == -1 else y[j] for j in f]
             if mod is self.head:
-                return mod.raw_maps(out) if raw else mod(out)
+                return mod.raw_maps(out) if raw or self.training else mod(out)
             out = mod(out)
             y.append(out if i in self.save else None)
         raise AssertionError("the last layer is the head")
+
+    @torch.no_grad()
+    def merge_bn_updates(self, stats: dict, momentum: float = M.BN_MOMENTUM) -> None:
+        """Fold collected batch statistics into the running ones: new = (1 - m) * old + m * batch."""
+        for bn, (mean, var) in stats.items():
+            bn.running_mean.copy_((1 - momentum) * bn.running_mean + momentum * mean)
+            bn.running_var.copy_((1 - momentum) * bn.running_var + momentum * var)
 
     @torch.no_grad()
     def fuse(self) -> DetectionModel:

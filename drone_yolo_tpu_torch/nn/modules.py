@@ -7,12 +7,21 @@ package's `Conv2dRaw` (the head's output layers) is `nn.Conv2d` here, and its
 `max_pool2d` is `F.max_pool2d`, whose padding never wins the max either.
 
 Precision follows the JAX package: activations flow in the parameters' dtype
-(bfloat16 on the card after `fuse()` and a cast), BatchNorm runs in float32 and
-the detection decode (DFL expectation, anchors, sigmoid) in float32.
+(bfloat16 on the card after `fuse()` and a cast, or under bf16 autocast in
+training), BatchNorm runs in float32 and the detection decode (DFL expectation,
+anchors, sigmoid) in float32.
+
+Train mode: BatchNorm normalizes with batch statistics and hands them to the
+collector of `collect_bn_stats` (the JAX package's `Ctx.updates`); the running
+statistics change only in `DetectionModel.merge_bn_updates`. A `Conv` whose
+`s2grad` is "cuda" routes its stride-2 sites (`ops.conv_s2.covers`) through
+`ops.conv_s2.conv2d_s2`, whose backward is the hand-written CUDA kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -20,8 +29,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from drone_yolo_tpu_torch.ops.anchors import dist2bbox, make_anchors
+from drone_yolo_tpu_torch.ops.conv_s2 import conv2d_s2, covers
 
 BN_EPS = 1e-3  # reference initialize_weights sets BatchNorm2d eps=1e-3
+BN_MOMENTUM = 0.03  # reference: momentum=0.03; new = (1 - m) * old + m * batch
+S2GRAD_MODES = (None, "cuda")
+
+_BN_STATS: contextvars.ContextVar[dict | None] = contextvars.ContextVar("bn_stats", default=None)
+
+
+@contextlib.contextmanager
+def collect_bn_stats():
+    """Collect the batch statistics of train-mode BatchNorms: yields {module: (mean, var)}, float32, detached."""
+    stats: dict = {}
+    token = _BN_STATS.set(stats)
+    try:
+        yield stats
+    finally:
+        _BN_STATS.reset(token)
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """`t` in float32, the precision of BN and of the decode and loss, or wider if it is (a float64 check)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def autopad(k: int, p: int | None = None, d: int = 1) -> int:
@@ -38,11 +68,14 @@ def bn_fold(bn: BatchNorm2d, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-form BatchNorm over NCHW in float32: (x - mean) * rsqrt(var + eps) * weight + bias.
+    """BatchNorm over NCHW in float32: (x - mean) * rsqrt(var + eps) * weight + bias.
 
     Holds exactly the four tensors the JAX package keeps (`scale, bias, mean,
-    var`), under the torch names. Train-mode batch statistics belong to the
-    train slice and are not ported yet.
+    var`), under the torch names. Eval mode uses the running statistics. Train
+    mode (`_bn_apply` of the JAX package) uses the batch's: two independent float32
+    sums over N, H and W, and the biased one-pass variance max(E[x^2] - E[x]^2, 0),
+    which also goes to the running update. They are handed to `collect_bn_stats`;
+    the forward writes no buffer.
     """
 
     def __init__(self, c: int):
@@ -60,24 +93,41 @@ class BatchNorm2d(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = wide(x)
         if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported yet; call .eval()")
-        inv = torch.rsqrt(self.running_var.float() + BN_EPS) * self.weight.float()
-        y = (x.float() - self.running_mean.float()[:, None, None]) * inv[:, None, None] + self.bias.float()[:, None, None]
+            stats = _BN_STATS.get()
+            if stats is None:
+                raise RuntimeError("train-mode BatchNorm runs under collect_bn_stats(), which receives its batch statistics")
+            n = x.numel() // x.shape[1]
+            mean = xf.sum((0, 2, 3)) / n
+            var = (xf.square().sum((0, 2, 3)) / n - mean.square()).clamp(min=0.0)
+            stats[self] = (mean.detach(), var.detach())
+        else:
+            mean, var = wide(self.running_mean), wide(self.running_var)
+        inv = torch.rsqrt(var + BN_EPS) * wide(self.weight)
+        y = (xf - mean[:, None, None]) * inv[:, None, None] + wide(self.bias)[:, None, None]
         return y.to(x.dtype)
 
 
+def conv_forward(mod: nn.Conv2d, x: torch.Tensor, s2grad: str | None) -> torch.Tensor:
+    """`mod(x)`; with s2grad="cuda" a site that `covers` accepts runs `conv2d_s2` (stock forward, kernel backward)."""
+    if s2grad == "cuda" and covers(mod, x):
+        return conv2d_s2(x, mod.weight, mod.padding[0])
+    return mod(x)
+
+
 class Conv(nn.Module):
-    """Conv2d + BN + SiLU; after `fuse()` a conv with bias + SiLU."""
+    """Conv2d + BN + SiLU; after `fuse()` a conv with bias + SiLU. `s2grad` picks the backward of its stride-2 sites."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = BatchNorm2d(c2)
         self.act = act
+        self.s2grad = None
 
     def forward(self, x):
-        y = self.conv(x)
+        y = conv_forward(self.conv, x, self.s2grad)
         if self.bn is not None:
             y = self.bn(y)
         return F.silu(y) if self.act else y
@@ -217,8 +267,8 @@ class RepVGGBlock(nn.Module):
 
 def dfl_expectation(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     """(..., 4 * reg_max) logits -> (..., 4) expected distances: softmax . arange in float32."""
-    x = box_logits.float().unflatten(-1, (4, reg_max))
-    return x.softmax(-1) @ torch.arange(reg_max, dtype=torch.float32, device=x.device)
+    x = wide(box_logits).unflatten(-1, (4, reg_max))
+    return x.softmax(-1) @ torch.arange(reg_max, dtype=x.dtype, device=x.device)
 
 
 class Detect(nn.Module):

@@ -21,9 +21,17 @@ def make_anchors(feat_shapes, strides, device=None):
     return torch.cat(anchor_points), torch.cat(stride_tensor)
 
 
-def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tensor:
-    """(l, t, r, b) distances around anchor points -> (cx, cy, w, h) boxes."""
+def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = True) -> torch.Tensor:
+    """(l, t, r, b) distances around anchor points -> (cx, cy, w, h) boxes, or (x1, y1, x2, y2) with xywh=False."""
     lt, rb = distance.chunk(2, -1)
     x1y1 = anchor_points - lt
     x2y2 = anchor_points + rb
+    if not xywh:
+        return torch.cat((x1y1, x2y2), -1)
     return torch.cat(((x1y1 + x2y2) * 0.5, x2y2 - x1y1), -1)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances from anchor points, clamped to [0, reg_max - 0.01] (the DFL targets)."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat((anchor_points - x1y1, x2y2 - anchor_points), -1).clamp(0, reg_max - 0.01)

@@ -1,6 +1,8 @@
-"""Box format conversion, clipping and rescaling on (..., 4) tensors."""
+"""Box format conversion, clipping, rescaling and the CIoU of the box loss, on (..., 4) tensors."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,3 +28,27 @@ def scale_boxes(img1_shape, boxes: torch.Tensor, img0_shape) -> torch.Tensor:
     pad_h = round((img1_shape[0] - img0_shape[0] * gain) / 2 - 0.1)
     boxes = boxes - torch.tensor([pad_w, pad_h, pad_w, pad_h], dtype=boxes.dtype, device=boxes.device)
     return clip_boxes(boxes / gain, img0_shape)
+
+
+def bbox_ciou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise complete IoU of broadcastable xyxy boxes (..., 4) -> (...).
+
+    Counterpart of `drone_yolo_tpu/ops/boxes.py:bbox_iou` with xywh=False, CIoU=True, operation
+    for operation (heights carry +eps; the aspect term's alpha is a constant for the gradient).
+    """
+    b1x1, b1y1, b1x2, b1y2 = box1.unbind(-1)
+    b2x1, b2y1, b2x2, b2y2 = box2.unbind(-1)
+    w1, h1 = b1x2 - b1x1, (b1y2 - b1y1) + eps
+    w2, h2 = b2x2 - b2x1, (b2y2 - b2y1) + eps
+    inter = (torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0) * (
+        torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0)
+    union = w1 * (b1y2 - b1y1) + w2 * (b2y2 - b2y1) - inter + eps
+    iou = inter / union
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)  # enclosing width
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)  # enclosing height
+    c2 = cw**2 + ch**2 + eps
+    rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+    v = (4 / math.pi**2) * (torch.atan(w2 / (h2 + eps)) - torch.atan(w1 / (h1 + eps))) ** 2
+    with torch.no_grad():
+        alpha = v / (v - iou + (1 + eps))
+    return iou - (rho2 / c2 + v * alpha)

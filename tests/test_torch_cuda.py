@@ -1,4 +1,4 @@
-"""The port's CUDA greedy-NMS kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, and a train step through them, on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device. The module
 imports neither JAX nor the JAX package, so it runs on a machine that has only
@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import clustered_boxes
-from drone_yolo_tpu_torch.ops import cuda_nms
+from chip_smoke import S2_TOL, clustered_boxes, synthetic_batch
+from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+from drone_yolo_tpu_torch.ops import conv_s2, cuda_nms, cuda_s2bwd
 from drone_yolo_tpu_torch.ops.nms import compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates
 
 pytestmark = pytest.mark.cuda
@@ -23,6 +24,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -54,3 +56,54 @@ def test_nms_step_matches_plain_keep(cuda_device):
     cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, 0.0, 1024)
     dets_ref, n_ref = compact(greedy_keep_reference(off_boxes, valid, 0.7), cand_boxes, top_scores, cls_idx, 300)
     assert torch.equal(n, n_ref) and torch.equal(dets, dets_ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,ci,co,h,w,need_dx", [(3, 3, 8, 16, 16, False), (3, 8, 16, 20, 20, True), (3, 5, 7, 12, 20, True),
+                                                 (1, 8, 16, 16, 16, True), (3, 67, 130, 10, 6, True), (1, 3, 70, 2, 34, True)])
+def test_s2_kernel_matches_plain(cuda_device, k, ci, co, h, w, need_dx, dtype):
+    """Small shapes, odd channel counts and tiles with ragged edges, at chip_smoke.S2_TOL."""
+    g = torch.Generator(device=cuda_device).manual_seed(ci * co + h)
+    dt = getattr(torch, dtype)
+    x = torch.randn(2, ci, h, w, generator=g, device=cuda_device).to(dt)
+    wt = (torch.randn(co, ci, k, k, generator=g, device=cuda_device) * 0.1).to(dt)
+    dy = torch.randn(2, co, h // 2, w // 2, generator=g, device=cuda_device).to(dt)
+    calls = dict(cuda_s2bwd.s2_bwd_cuda.calls)
+    dx, dw = conv_s2.s2_bwd(x, wt, dy, k, need_dx)
+    torch.cuda.synchronize()
+    name = cuda_s2bwd.NAMES[k]
+    assert cuda_s2bwd.s2_bwd_cuda.calls[name] == calls[name] + 1
+    dx_p, dw_p = conv_s2.s2_bwd_reference(x, wt, dy, k, need_dx)
+    assert dw.dtype == torch.float32
+    torch.testing.assert_close(dw, dw_p, **S2_TOL[dtype]["dw"])
+    if need_dx:
+        assert dx.dtype == dt
+        torch.testing.assert_close(dx.float(), dx_p.float(), **S2_TOL[dtype]["dx"])
+    else:
+        assert dx is None
+
+
+def test_s2_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 4, 6, 6, device=cuda_device)
+    with pytest.raises(ValueError, match="even"):
+        cuda_s2bwd.s2_bwd_cuda(x[..., :5], torch.zeros(8, 4, 3, 3, device=cuda_device), torch.zeros(1, 8, 3, 3, device=cuda_device), 3)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_s2bwd.s2_bwd_cuda(x.half(), torch.zeros(8, 4, 3, 3, device=cuda_device).half(), torch.zeros(1, 8, 3, 3, device=cuda_device).half(), 3)
+
+
+def test_train_step_with_the_kernel_matches_stock(cuda_device):
+    """Flagship (scale n), imgsz 64, batch 2, float32 (TF32 off): 2 steps with s2grad="cuda" against 2 with stock
+    autograd (cuDNN) from the same init; the kernel runs 8 k=3 and 4 k=1 times a step."""
+    loader = [synthetic_batch(np.random.default_rng(i), 2, 64, 2) for i in range(2)]
+    states = {}
+    for mode in ("cuda", None):
+        trainer = BaseTrainer(overrides=dict(model="yolov8n-p2-repvgg-sf.yaml", batch=2, imgsz=64, nbs=2, optimizer="SGD",
+                                             amp=False, s2grad=mode), train_loader=loader, data={"nc": 2})
+        cuda_s2bwd.reset_counts()
+        steps = trainer.run_steps()
+        assert cuda_s2bwd.s2_bwd_cuda.calls == ({"s2_bwd_k3": 16, "s2_bwd_k1": 8} if mode else {"s2_bwd_k3": 0, "s2_bwd_k1": 0})
+        states[mode] = (steps, trainer.train_state())
+    (steps_k, st_k), (steps_s, st_s) = states["cuda"], states[None]
+    np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
+    for name, want in st_s["params"].items():
+        torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)

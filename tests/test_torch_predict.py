@@ -11,6 +11,7 @@ through the JAX package's npz checkpoint.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -155,8 +156,13 @@ import chip_smoke
 from drone_yolo_tpu_torch import YOLO
 frames = [np.random.default_rng(0).integers(0, 256, (96, 160, 3), dtype=np.uint8)] * 2
 res = YOLO("yolov8n-p2-repvgg-sf.yaml", device="cpu").predict(source=frames, imgsz=128, conf=0.0, dtype="float32", verbose=False)
-print(json.dumps({"modules": mods, "n": [len(r.boxes) for r in res],
-                  "loaded": sorted(m for m in BLOCKED if m in sys.modules)}))
+from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+batch = chip_smoke.synthetic_batch(np.random.default_rng(0), 2, 64, 2)
+trainer = BaseTrainer(overrides=dict(model="yolov8n-p2-repvgg-sf.yaml", batch=2, imgsz=64, nbs=2, device="cpu", amp=False,
+                                     optimizer="SGD", s2grad="cuda"), train_loader=[batch], data={"nc": 2})
+steps = trainer.run_steps()
+print(json.dumps({"modules": mods, "n": [len(r.boxes) for r in res], "train_loss": [s["loss"] for s in steps],
+                  "optimizer_steps": trainer.step, "loaded": sorted(m for m in BLOCKED if m in sys.modules)}))
 """
 
 
@@ -165,8 +171,10 @@ def test_port_runs_without_jax_cv2_pil_yaml():
     proc = subprocess.run([sys.executable, "-c", RUN_PORT], cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert {"drone_yolo_tpu_torch.ops.cuda_nms", "drone_yolo_tpu_torch.engine.predictor"} <= set(out["modules"])
+    assert {"drone_yolo_tpu_torch.ops.cuda_nms", "drone_yolo_tpu_torch.engine.predictor", "drone_yolo_tpu_torch.ops.cuda_s2bwd",
+            "drone_yolo_tpu_torch.engine.trainer"} <= set(out["modules"])
     assert out["loaded"] == [] and all(n > 0 for n in out["n"])
+    assert out["optimizer_steps"] == 1 and all(math.isfinite(v) for v in out["train_loss"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
