@@ -1,37 +1,52 @@
-"""Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves and trains the flagship.
+"""Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
+validates the flagship.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each (with the seconds it took), flushed as they end:
 
 1. preflight: torch, CUDA, nvcc and the card (name and power limit from nvidia-smi);
-2. build: compiles the greedy-NMS kernel (`drone_yolo_tpu_torch/csrc/greedy_nms.cu`) and the
-   stride-2 conv backward (`csrc/s2_bwd.cu`) with nvcc, in parallel, and prints both ptxas reports;
+2. build: compiles the greedy-NMS kernel (`drone_yolo_tpu_torch/csrc/greedy_nms.cu`), the
+   stride-2 conv backward (`csrc/s2_bwd.cu`) and the BN statistics (`csrc/bn_stats.cu`) with
+   nvcc, in parallel, and prints the three ptxas reports;
 3. kernel_vs_plain: the NMS kernel's keep mask against `greedy_keep_reference` on the card,
-   B=8, K in {128, 640, 1024}, IoU thresholds {0.45, 0.7}: masks must be equal, and every
-   case must both keep and suppress. The stride-2 backward kernel against `s2_bwd_reference`
-   at every dense stride-2 site of the flagship (batch 8, 640 px: 8 with k=3, 4 with k=1), in
-   float32 (TF32 off) and bfloat16, within the tolerances of `S2_TOL`;
+   B=8, K in {128, 640, 1024, 4096, 8192} (staged in shared memory), IoU thresholds {0.45, 0.7}:
+   masks must be equal, and every case must both keep and suppress. The stride-2 backward
+   kernel against `s2_bwd_reference` at every dense stride-2 site of the flagship (batch 8,
+   640 px: 8 with k=3, 4 with k=1), in float32 (TF32 off) and bfloat16, within `S2_TOL`. The
+   BN-statistics kernel against `bn_stats_reference` at all 77 train-mode BN inputs of the
+   flagship (batch 8, 640 px), in bfloat16 and float32, within `BN_RTOL` and `BN_ATOL`, and the
+   `bn_stats` Function's gradient against autograd of the plain version at the largest site;
 4. slice: `YOLO("yolov8s-p2-repvgg-sf.yaml")` at full width and depth, seed 0, on the card,
    fused, bfloat16, predicts on batches of 1 and 8 synthetic 720x1280 BGR frames, then once
-   more with conf=0.0 so that all 1024 candidates per image are valid. Launch counts are
-   set to 0 before these calls and read after them. Checks: the NMS step with the kernel
-   equals the same step with the plain keep on the card; the float32 decoded predictions
-   (TF32 off, weights redrawn so activations stay O(1)) match the port on the CPU, boxes
-   in pixels and scores relative to their size; per-image times and img/s at batch 1 and 8;
+   more with conf=0.0 so that all 1024 candidates per image are valid, then on a mixed batch
+   of a 720x1280 and a 1080x1920 frame (the uint8 letterbox). Launch counts are set to 0
+   before these calls and read after them. Checks: the NMS step with the kernel equals the
+   same step with the plain keep on the card; the uint8 letterbox of both mixed frames on the
+   card equals the same function on the CPU exactly; the float32 decoded predictions (TF32
+   off, weights redrawn so activations stay O(1)) match the port on the CPU, boxes in pixels
+   and scores relative to their size; per-image times and img/s at batch 1 and 8;
 5. train: `BaseTrainer` on the flagship at full width and depth, 80 classes, imgsz 640, batch 8,
    bfloat16 autocast, SGD with one optimizer step per batch (nbs 8), seed 0: 6 steps on a
-   synthetic batch with s2grad="cuda", then the same 6 steps from the same init with stock
-   autograd. Counts are set to 0 before each run and read after it: the kernel run must call
-   the stride-2 backward 8 (k=3) and 4 (k=1) times per step, the stock run never. Checks:
-   finite losses, each step's loss within `TRAIN_LOSS_RTOL` of the stock run's; step ms,
-   img/s and peak memory both ways, then both paths timed again in turns (kernel, stock,
-   stock, kernel; 5 steps each);
-6. kernels: each kernel's time at the main path's shapes against its plain version, its
-   bound and (stride-2 backward) cuDNN's `convolution_backward` at the same sites;
-7. profile: the device busy share and the device time by kernel of batch-8 predicts and of
-   train steps with the kernel (torch.profiler);
-8. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
+   synthetic batch with s2grad="cuda", the same 6 steps from the same init with stock
+   autograd, and again with s2grad="cuda" and bnstats="cuda". Counts are set to 0 before each
+   run and read after it: the kernel runs must call the stride-2 backward 8 (k=3) and 4 (k=1)
+   times per step, the stock run never; the third run must call the BN-statistics kernel 77
+   times per step (2 launches each), the other two never. Checks: finite losses, each step's
+   loss within `TRAIN_LOSS_RTOL` of the stock run's; step ms, img/s and peak memory of each
+   run, then the three paths timed again in turns (kernel, stock, both, both, stock, kernel; 5 steps each);
+6. validate: `trainer.validate()` on the third run's EMA weights, over 4 synthetic batches of 8
+   at 640 px with 80 classes, at conf 0.001 and again at conf 0.0 (all 4096 multi-label
+   candidates of each image valid: the NMS kernel's real work), counts set to 0 before each.
+   Checks: K = 4096 in both, one NMS launch per batch, the NMS step with the kernel equal to
+   the step with the plain keep on the same predictions, P, R, mAP50 and mAP50-95 finite and in
+   [0, 1]; the validator's per-image times and img/s;
+7. kernels: each kernel's time at the main path's shapes against its plain version, its
+   bound and the library call where there is one (cuDNN's `convolution_backward` at the
+   stride-2 sites, `torch.batch_norm_stats` at the BN sites);
+8. profile: the device busy share and the device time by kernel of batch-8 predicts, of
+   train steps with the stride-2 kernel, and of train steps with both kernels (torch.profiler);
+9. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 Any failure ends the script with a traceback and a non-zero exit code. Without a CUDA
@@ -73,6 +88,14 @@ S2_SUM_FLOOR = 2e-6
 # by far less than this
 TRAIN_LOSS_RTOL = 2e-2
 IOU_OPS = 14  # per IoU and compare: 4 min/max, 2 sub, 2 clamp, mul, add, sub, add, div, compare
+NMS_KS = (128, 640, 1024, 4096, 8192)  # predict's K = 1024, validate's K = 4096 (pre_nms_topk), one K above it
+# BN statistics, kernel vs plain on the same inputs, per channel: both sum the same values in float32 in different
+# orders (sums of up to 819,200 terms at the flagship's largest site), so the difference is held to BN_RTOL of the
+# sum of |x| (for the sums) or of x^2 (for the sums of squares), plus BN_ATOL; the result is no scale for a sum
+# that cancels.
+BN_RTOL, BN_ATOL = 1e-5, 1e-6
+BN_OPS = 3  # per element: add to the sum, multiply and add to the sum of squares
+VAL = dict(batches=4, batch=8, imgsz=640, nc=80, pre_nms_topk=4096)
 # float32 decoded predictions, card (TF32 off) vs CPU, with weights spread to O(1) activations:
 # the two sum in different orders, ~1e-5 relative at the head; a box coordinate is stride
 # (<= 32) x a DFL expectation over 16 bins. The class priors keep scores near sigmoid(-13), where
@@ -116,6 +139,18 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: the summed durations of the kernels and copies that `reps` calls of `fn`
+    run (torch.profiler, after one warm-up call), without the gaps in which the card waits for the host."""
+    return profile_device(fn, steps=reps)["device_ms_per_step"]
+
+
+def kernel_times(fn, reps: int, prefix: str = "") -> dict:
+    """`fn`'s device time per call (`device_ms`) as `<prefix>ms`, and its time by CUDA events around back-to-back
+    calls (`cuda_ms`, which also counts the card's waits for the host) as `<prefix>event_ms`."""
+    return {f"{prefix}ms": device_ms(fn, reps), f"{prefix}event_ms": cuda_ms(fn, reps, warmup=1)}
+
+
 def ious_needed(off_boxes, valid, keep, thr) -> int:
     """IoUs a sequential greedy sweep computes on this data: for each kept row i, the j > i still alive."""
     from drone_yolo_tpu_torch.ops.nms import iou_matrix
@@ -128,9 +163,11 @@ def ious_needed(off_boxes, valid, keep, thr) -> int:
     return int((alive & keep[:, :, None]).sum())
 
 
-def synthetic_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n_max: int = 24) -> dict:
+def synthetic_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n_max: int = 24, val: bool = False) -> dict:
     """A train batch in the collate format: uint8 RGB frames, 1..n_max GT boxes per image of 4-64 px sides
-    (at most imgsz/2) with random classes, padded to `round_label_slots(n_max, 1.0)` slots. Shared with the tests."""
+    (at most imgsz/2) with random classes, padded to `round_label_slots(n_max, 1.0)` slots; with `val` also
+    `ori_shapes` (imgsz, imgsz) and `ratio_pads` (1.0, (0.0, 0.0)) per image, as the validator reads them.
+    Shared with the tests."""
     from drone_yolo_tpu_torch.data.dataset import round_label_slots
 
     slots = round_label_slots(n_max, 1.0)
@@ -145,7 +182,27 @@ def synthetic_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n
         cls[i, :n] = rng.integers(0, nc, n)
         mask[i, :n] = 1.0
     img = rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8)
-    return {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
+    out = {"img": img, "cls": cls, "bboxes": boxes, "mask": mask}
+    if val:
+        out.update(ori_shapes=[(imgsz, imgsz)] * batch, ratio_pads=[(1.0, (0.0, 0.0))] * batch)
+    return out
+
+
+def bn_stats_errors(x: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> dict:
+    """The largest difference of (s, q) from `bn_stats_reference(x)` per channel, and the largest ratio of that
+    difference to its tolerance BN_RTOL * (sum |x| or sum x^2) + BN_ATOL (<= 1 passes). Shared with the tests."""
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+
+    with torch.no_grad():
+        s_p, q_p = bn_stats_reference(x)
+        xf = x.float()
+        scales = (xf.abs().sum((0, 2, 3)), q_p)
+    out = {}
+    for name, got, want, scale in (("sum", s, s_p, scales[0]), ("sumsq", q, q_p, scales[1])):
+        err = (got - want).abs()
+        out[f"{name}_err"] = float(err.max())
+        out[f"{name}_err_over_tol"] = float((err / (BN_RTOL * scale + BN_ATOL)).max())
+    return out
 
 
 def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
@@ -224,6 +281,33 @@ def s2_sites(model, batch: int, imgsz: int) -> list[dict]:
     return sites
 
 
+def bn_sites(model, batch: int, imgsz: int) -> list[dict]:
+    """The train-mode BatchNorms of `model` in a forward of a (batch, 3, imgsz, imgsz) image, in forward order:
+    name and input shape. Traced on the meta device (no arithmetic)."""
+    from drone_yolo_tpu_torch.nn import modules as M
+
+    sites = []
+    handles = [m.register_forward_pre_hook(lambda m, a, name=n: sites.append({"name": name, "x": tuple(a[0].shape)}))
+               for n, m in model.named_modules() if isinstance(m, M.BatchNorm2d)]
+    state = {k: torch.empty_like(v, device="meta") for k, v in model.state_dict(keep_vars=True).items()}
+    was_training = model.training
+    try:
+        model.train()
+        with M.collect_bn_stats():
+            torch.func.functional_call(model, state, (torch.empty(batch, 3, imgsz, imgsz, device="meta"),))
+    finally:
+        model.train(was_training)
+        for h in handles:
+            h.remove()
+    return sites
+
+
+def site_input(shape, dtype: torch.dtype, seed: int) -> torch.Tensor:
+    """A BN input on the card: normals of mean 0.5 and scale 2 (a conv output's spread), cast to `dtype`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+
+
 def s2_site_inputs(site: dict, dtype: torch.dtype, seed: int):
     """Random x, w, dy of a site on the card: unit normals, w scaled by 1/sqrt(fan-in)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -252,8 +336,10 @@ def main() -> None:
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
     from drone_yolo_tpu_torch.nn.model import DetectionModel
-    from drone_yolo_tpu_torch.ops import cuda_build, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_build, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
     from drone_yolo_tpu_torch.ops.conv_s2 import KINDS, s2_bwd_reference
+    from drone_yolo_tpu_torch.ops.letterbox import letterbox_u8
     from drone_yolo_tpu_torch.ops.nms import (
         compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates)
 
@@ -270,20 +356,21 @@ def main() -> None:
 
     # 2. build: one nvcc per source, started together ---------------------------
     t = time.perf_counter()
-    libraries = (cuda_nms.LIBRARY, cuda_s2bwd.LIBRARY)
+    libraries = (cuda_nms.LIBRARY, cuda_s2bwd.LIBRARY, cuda_bnstats.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         built = list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
         lib.load()
-    emit("build", t, libraries={p.name: cuda_build.report_path(p).read_text().strip().splitlines() for p in built})
+    emit("build", t, libraries={p.name: cuda_build.report_path(p).read_text().strip().splitlines() for p in built},
+         nms_max_staged_k=cuda_nms.max_staged_k())
 
     # 3. kernels vs plain -----------------------------------------------------
     t = time.perf_counter()
     rng = np.random.default_rng(0)
     cases = []
-    for k in (128, 640, 1024):
+    for k in NMS_KS:
         for thr in (0.45, 0.7):
-            boxes = clustered_boxes(rng, 8, k).to(dev)
+            boxes = clustered_boxes(rng, 8, k, clusters=12 if k <= 1024 else 48).to(dev)
             valid = torch.from_numpy(rng.random((8, k)) > 0.1).to(dev)
             got = greedy_keep(boxes, valid, thr)
             torch.cuda.synchronize()
@@ -293,7 +380,9 @@ def main() -> None:
                 raise AssertionError(f"K={k} thr={thr}: kernel and plain keep masks differ in {int((got != want).sum())} places")
             if kept == 0 or suppressed == 0:
                 raise AssertionError(f"K={k} thr={thr}: case must keep and suppress (kept {kept}, suppressed {suppressed})")
-            cases.append({"B": 8, "K": k, "thr": thr, "kept": kept, "suppressed": suppressed, "equal": True})
+            cases.append({"B": 8, "K": k, "thr": thr, "kept": kept, "suppressed": suppressed, "equal": True,
+                          "staged": k <= cuda_nms.max_staged_k()})
+            del boxes, valid, got, want
     sites = s2_sites(DetectionModel(FLAGSHIP, nc=TRAIN["nc"]), TRAIN["batch"], TRAIN["imgsz"])
     n_sites = {k: sum(s["k"] == k for s in sites) for k in KINDS}
     if n_sites != {3: 8, 1: 4}:
@@ -324,7 +413,33 @@ def main() -> None:
                 raise AssertionError(f"{site['name']}: dx computed where it is not needed")
             s2_cases.append(row)
             del x, w, dy, dx, dw, dx_p, dw_p
-    emit("kernel_vs_plain", t, nms_cases=cases, s2_tolerances=S2_TOL, s2_sum_floor=S2_SUM_FLOOR, s2_cases=s2_cases)
+    bn = bn_sites(DetectionModel(FLAGSHIP, nc=TRAIN["nc"]), TRAIN["batch"], TRAIN["imgsz"])
+    if len(bn) != 77:
+        raise AssertionError(f"the flagship should have 77 train-mode BN sites, found {len(bn)}")
+    bn_cases = []
+    for i, site in enumerate(bn):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = site_input(site["x"], dtype, seed=i)
+            s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
+            torch.cuda.synchronize()
+            errs = bn_stats_errors(x, s_k, q_k)
+            if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
+                raise AssertionError(f"BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
+            bn_cases.append({"site": site["name"], "x": site["x"], "dtype": str(dtype).split(".")[1], **errs})
+            del x, s_k, q_k
+    largest = max(bn, key=lambda b: math.prod(b["x"]))
+    x = site_input(largest["x"], torch.bfloat16, seed=1000)
+    g = torch.Generator(device="cuda").manual_seed(1001)
+    g_s, g_q = (torch.randn(largest["x"][1], generator=g, device="cuda") for _ in range(2))
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    torch.autograd.backward(bn_stats(xa), (g_s, g_q))
+    torch.autograd.backward(bn_stats_reference(xb), (g_s, g_q))
+    torch.testing.assert_close(xa.grad.float(), xb.grad.float(), rtol=2**-8, atol=1e-6)  # one bf16 step
+    bn_grad = {"site": largest["name"], "x": largest["x"], "dtype": "bfloat16",
+               "max_abs_err": float((xa.grad.float() - xb.grad.float()).abs().max()), "rtol": 2**-8}
+    del x, xa, xb
+    emit("kernel_vs_plain", t, nms_cases=cases, s2_tolerances=S2_TOL, s2_sum_floor=S2_SUM_FLOOR, s2_cases=s2_cases,
+         bn_rtol=BN_RTOL, bn_atol=BN_ATOL, bn_sites=len(bn), bn_cases=bn_cases, bn_grad=bn_grad)
 
     # 4. slice: the port's predict path, end to end ---------------------------
     t = time.perf_counter()
@@ -348,7 +463,16 @@ def main() -> None:
             "n_det": [len(r.boxes) for r in res],
         }
     res0 = model.predict(frames, conf=0.0, verbose=False)
+    mixed = [frames[0], rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)]
+    res_mixed = model.predict(mixed, conf=0.0, verbose=False)
     launches = cuda_nms.greedy_keep_cuda.launches
+    if [r.orig_shape for r in res_mixed] != [(720, 1280), (1080, 1920)] or not all(
+            len(r.boxes) > 0 and np.isfinite(r.boxes.data).all() for r in res_mixed):
+        raise AssertionError("mixed-shape predict gave wrong shapes, no or non-finite detections")
+    for frame in mixed:
+        on_card = letterbox_u8(torch.from_numpy(frame).to(dev)[None], model.predictor.imgsz).cpu()
+        if not torch.equal(on_card, letterbox_u8(torch.from_numpy(frame)[None], model.predictor.imgsz)):
+            raise AssertionError(f"uint8 letterbox of a {frame.shape} frame differs between the card and the CPU")
     if launches == 0:
         raise AssertionError("the predict path never launched the greedy-NMS kernel")
     if not all(len(r.boxes) > 0 and r.boxes.data.shape[1] == 6 and np.isfinite(r.boxes.data).all() for r in res0):
@@ -382,111 +506,211 @@ def main() -> None:
         raise AssertionError(f"float32 predictions card vs CPU: box err {box_err} px, score relative err {score_rel_err}")
     emit("slice", t, model=FLAGSHIP, dtype="bfloat16", frame_hw=list(FRAME_HW), imgsz=pred.imgsz,
          nms_launches=launches, timings=timings, conf0_n_valid=n_valid.tolist(), step_equals_plain_keep=True,
+         mixed_shapes={"frames": [list(f.shape[:2]) for f in mixed], "n_det": [len(r.boxes) for r in res_mixed],
+                       "letterbox_u8_card_equals_cpu": True},
          fp32_card_vs_cpu={"box_err_px": box_err, "score_rel_err": score_rel_err, "box_atol_px": BOX_ATOL_PX,
                            "score_rtol": SCORE_RTOL, "score_range": [float(preds_cpu[..., 4:].min()), float(preds_cpu[..., 4:].max())]},
          anchors=int(preds.shape[1]))
 
-    # 5. train: the port's train step, with the kernel and with stock autograd --------
+    # 5. train: the port's train step, with the kernels and with stock autograd --------
     t = time.perf_counter()
     batch = synthetic_batch(np.random.default_rng(0), TRAIN["batch"], TRAIN["imgsz"], TRAIN["nc"])
-    runs, s2_calls, s2_launches, trainers = {}, {}, {}, {}
-    for mode in ("cuda", None):
+    modes = {"kernel": ("cuda", None), "stock": (None, None), "both": ("cuda", "cuda")}  # (s2grad, bnstats)
+    runs, s2_calls, s2_launches, bn_counts, trainers = {}, {}, {}, {}, {}
+    for run, (s2grad, bnstats) in modes.items():
         trainer = BaseTrainer(overrides=dict(model=FLAGSHIP, batch=TRAIN["batch"], imgsz=TRAIN["imgsz"], nbs=TRAIN["batch"],
-                                             optimizer="SGD", amp=True, s2grad=mode),
+                                             optimizer="SGD", amp=True, s2grad=s2grad, bnstats=bnstats),
                               train_loader=[batch] * TRAIN["steps"], data={"nc": TRAIN["nc"]})
         torch.cuda.reset_peak_memory_stats()
         cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
         steps = trainer.run_steps()
-        s2_calls[mode], s2_launches[mode] = dict(cuda_s2bwd.s2_bwd_cuda.calls), dict(cuda_s2bwd.s2_bwd_cuda.launches)
+        s2_calls[run], s2_launches[run] = dict(cuda_s2bwd.s2_bwd_cuda.calls), dict(cuda_s2bwd.s2_bwd_cuda.launches)
+        bn_counts[run] = {"calls": cuda_bnstats.bn_stats_cuda.calls, "launches": cuda_bnstats.bn_stats_cuda.launches,
+                          "contiguous_copies": cuda_bnstats.bn_stats_cuda.copies}
         ms = [r["ms"] for r in steps[1:]]  # the first step builds cuDNN's plans
-        runs[mode] = {"loss": [r["loss"] for r in steps], "items": [r["items"] for r in steps],
-                      "step_ms_median": float(np.median(ms)), "img_per_s": TRAIN["batch"] / float(np.median(ms)) * 1e3,
-                      "first_step_ms": steps[0]["ms"], "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "s2_calls": s2_calls[mode], "s2_launches": s2_launches[mode], "contiguous_copies": cuda_s2bwd.s2_bwd_cuda.copies}
-        trainers[mode] = trainer
+        runs[run] = {"s2grad": s2grad, "bnstats": bnstats, "loss": [r["loss"] for r in steps], "items": [r["items"] for r in steps],
+                     "step_ms_median": float(np.median(ms)), "img_per_s": TRAIN["batch"] / float(np.median(ms)) * 1e3,
+                     "first_step_ms": steps[0]["ms"], "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "s2_calls": s2_calls[run], "s2_launches": s2_launches[run], "s2_contiguous_copies": cuda_s2bwd.s2_bwd_cuda.copies,
+                     "bn_stats": bn_counts[run]}
+        trainers[run] = trainer
     per_step = {cuda_s2bwd.NAMES[k]: n_sites[k] for k in KINDS}
     want_launches = {cuda_s2bwd.NAMES[k]: TRAIN["steps"] * sum(3 if s["need_dx"] else 2 for s in sites if s["k"] == k) for k in KINDS}
-    if s2_calls["cuda"] != {n: TRAIN["steps"] * c for n, c in per_step.items()} or s2_launches["cuda"] != want_launches:
-        raise AssertionError(f"kernel run: stride-2 backward calls {s2_calls['cuda']} and launches {s2_launches['cuda']}, "
-                             f"expected {per_step} calls per step and {want_launches} launches")
-    if any(s2_calls[None].values()):
-        raise AssertionError(f"the stock run called the stride-2 backward kernel: {s2_calls[None]}")
-    loss_k, loss_s = np.array(runs["cuda"]["loss"]), np.array(runs[None]["loss"])
-    if not (np.isfinite(loss_k).all() and np.isfinite(loss_s).all()):
-        raise AssertionError(f"non-finite train losses: kernel {loss_k}, stock {loss_s}")
-    loss_rel = np.abs(loss_k - loss_s) / np.abs(loss_s)
-    if not (loss_rel <= TRAIN_LOSS_RTOL).all():
-        raise AssertionError(f"train losses with the kernel {loss_k} differ from stock {loss_s} by {loss_rel}")
-    in_turns = {"kernel": [], "stock": []}  # both paths again, in turns on one card: median ms of 5 steps each
-    for mode in ("cuda", None, None, "cuda"):
-        in_turns["kernel" if mode else "stock"].append(float(np.median([r["ms"] for r in trainers[mode].run_steps(5)])))
+    for run in ("kernel", "both"):
+        if s2_calls[run] != {n: TRAIN["steps"] * c for n, c in per_step.items()} or s2_launches[run] != want_launches:
+            raise AssertionError(f"{run} run: stride-2 backward calls {s2_calls[run]} and launches {s2_launches[run]}, "
+                                 f"expected {per_step} calls per step and {want_launches} launches")
+    if any(s2_calls["stock"].values()):
+        raise AssertionError(f"the stock run called the stride-2 backward kernel: {s2_calls['stock']}")
+    want_bn = {"calls": TRAIN["steps"] * len(bn), "launches": 2 * TRAIN["steps"] * len(bn)}
+    if {k: bn_counts["both"][k] for k in want_bn} != want_bn:
+        raise AssertionError(f"both run: BN-statistics kernel {bn_counts['both']}, expected {want_bn}")
+    if bn_counts["kernel"]["calls"] or bn_counts["stock"]["calls"]:
+        raise AssertionError(f"runs without bnstats called the BN-statistics kernel: {bn_counts}")
+    loss_s = np.array(runs["stock"]["loss"])
+    loss_rel = {}
+    for run in ("kernel", "both"):
+        loss_k = np.array(runs[run]["loss"])
+        if not (np.isfinite(loss_k).all() and np.isfinite(loss_s).all()):
+            raise AssertionError(f"non-finite train losses: {run} {loss_k}, stock {loss_s}")
+        loss_rel[run] = np.abs(loss_k - loss_s) / np.abs(loss_s)
+        if not (loss_rel[run] <= TRAIN_LOSS_RTOL).all():
+            raise AssertionError(f"train losses of the {run} run {loss_k} differ from stock {loss_s} by {loss_rel[run]}")
+    in_turns = {run: [] for run in modes}  # the three paths again, in turns on one card: median ms of 5 steps each
+    for run in (*modes, *reversed(modes)):
+        in_turns[run].append(float(np.median([r["ms"] for r in trainers[run].run_steps(5)])))
     emit("train", t, model=FLAGSHIP, **{k: v for k, v in TRAIN.items()}, dtype="bfloat16 autocast", optimizer="SGD",
-         kernel=runs["cuda"], stock=runs[None], loss_rel_diff=loss_rel.tolist(), loss_rtol=TRAIN_LOSS_RTOL,
-         s2_calls_per_step=per_step, in_turns_step_ms=in_turns)
-    kernel_trainer = trainers.pop("cuda")
+         kernel=runs["kernel"], stock=runs["stock"], both=runs["both"],
+         loss_rel_diff={k: v.tolist() for k, v in loss_rel.items()}, loss_rtol=TRAIN_LOSS_RTOL,
+         s2_calls_per_step=per_step, bn_stats_calls_per_step=len(bn), in_turns_step_ms=in_turns)
+    kernel_trainer, both_trainer = trainers["kernel"], trainers["both"]
     del trainers
 
-    # 6. the kernels at the main path's shapes ------------------------------------
+    # 6. validate: the EMA weights of the run with both kernels, multi-label NMS at K = 4096 --------
     t = time.perf_counter()
-    thr = args.iou
-    keep = greedy_keep(off_boxes, valid, thr)
-    kernel_ms = cuda_ms(lambda: greedy_keep(off_boxes, valid, thr), reps=200)
-    plain_ms = cuda_ms(lambda: greedy_keep_reference(off_boxes, valid, thr), reps=10, warmup=1)
-    b, k = valid.shape
-    n_bytes = b * k * (16 + 1 + 1)  # boxes and valid read once, keep written once
-    n_ops = IOU_OPS * ious_needed(off_boxes, valid, keep, thr)
-    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_PER_S * 1e3
+    both_trainer.val_loader = [synthetic_batch(np.random.default_rng(100 + i), VAL["batch"], VAL["imgsz"], VAL["nc"], val=True)
+                               for i in range(VAL["batches"])]
+    validation = {}
+    for conf in (0.001, 0.0):
+        if both_trainer.validator is not None:
+            both_trainer.validator.args.conf = conf
+        cuda_nms.greedy_keep_cuda.launches = 0
+        t_call = time.perf_counter()
+        metrics = both_trainer.validate()
+        wall = time.perf_counter() - t_call
+        val_launches = cuda_nms.greedy_keep_cuda.launches
+        validator = both_trainer.validator
+        if validator.args.conf != conf or validator.args.pre_nms_topk != VAL["pre_nms_topk"]:
+            raise AssertionError(f"validator ran at conf {validator.args.conf}, pre_nms_topk {validator.args.pre_nms_topk}")
+        if val_launches != VAL["batches"]:
+            raise AssertionError(f"validation launched the greedy-NMS kernel {val_launches} times for {VAL['batches']} batches")
+        values = [metrics[k] for k in validator.metrics.keys]
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+            raise AssertionError(f"validation metrics out of [0, 1]: {metrics}")
+        with torch.inference_mode():  # one batch's predictions: the NMS step with the kernel and with the plain keep
+            x = validator.preprocess(both_trainer.val_loader[0])
+            val_preds = validator.forward(x)
+            dets, n_valid = validator.postprocess(val_preds)
+            cand_boxes, top_scores, cls_idx, val_valid, val_off = select_candidates(
+                val_preds, conf, VAL["pre_nms_topk"], multi_label=True)
+            val_keep_plain = greedy_keep_reference(val_off, val_valid, validator.args.iou)
+            dets_plain, n_plain = compact(val_keep_plain, cand_boxes, top_scores, cls_idx, validator.args.max_det)
+        if val_valid.shape != (VAL["batch"], VAL["pre_nms_topk"]):
+            raise AssertionError(f"validation NMS ran on {tuple(val_valid.shape)} candidates, expected K = {VAL['pre_nms_topk']}")
+        if not (torch.equal(dets, dets_plain) and torch.equal(n_valid, n_plain)):
+            raise AssertionError(f"conf {conf}: validation NMS step with the kernel differs from the step with the plain keep")
+        if conf == 0.0 and not bool(val_valid.all()):
+            raise AssertionError(f"conf=0.0 should make all {VAL['pre_nms_topk']} candidates valid, got {int(val_valid.sum())}")
+        validation[str(conf)] = {"metrics": metrics, "nms_launches": val_launches, "K": int(val_valid.shape[1]),
+                                 "valid_candidates": int(val_valid.sum()), "n_det": n_valid.tolist(),
+                                 "step_equals_plain_keep": True, "speed_ms_per_img": validator.speed,
+                                 "img_per_s": validator.seen / wall, "images": validator.seen}
+    emit("validate", t, model=FLAGSHIP, dtype=validator.args.dtype, weights="EMA of the s2grad+bnstats run",
+         iou=validator.args.iou, max_det=validator.args.max_det, runs=validation)
+
+    # 7. the kernels at the main path's shapes ------------------------------------
+    t = time.perf_counter()
+
+    def nms_timing(boxes, valid, thr, keep_plain) -> dict:
+        """The greedy-NMS kernel at one shape of the main path: its time, its plain version's, and its bound."""
+        keep = greedy_keep(boxes, valid, thr)
+        if not torch.equal(keep, keep_plain):
+            raise AssertionError(f"kernel and plain keep masks differ at B, K = {tuple(valid.shape)}")
+        b, k = valid.shape
+        n_bytes = b * k * (16 + 1 + 1)  # boxes and valid read once, keep written once
+        n_ops = IOU_OPS * ious_needed(boxes, valid, keep, thr)
+        bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_PER_S * 1e3
+        return {"B": b, "K": k, "thr": thr, "kept": int(keep.sum()), "valid": int(valid.sum()),
+                "max_abs_err": float((keep.int() - keep_plain.int()).abs().max()),
+                **kernel_times(lambda: greedy_keep(boxes, valid, thr), reps=20),
+                **kernel_times(lambda: greedy_keep_reference(boxes, valid, thr), reps=3, prefix="plain_"),
+                "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    nms_predict = nms_timing(off_boxes, valid, args.iou, keep_plain)  # predict: B=8, K=1024, conf 0
+    nms_val = nms_timing(val_off, val_valid, validator.args.iou, val_keep_plain)  # validate: B=8, K=4096, conf 0
+    del val_off, val_valid, val_keep_plain
+    val_launches = sum(v["nms_launches"] for v in validation.values())
     kernels = [{
         "name": "greedy_nms", "route": "cuda", "impl": "cuda", "source": "drone_yolo_tpu_torch/csrc/greedy_nms.cu",
-        "replaces": "drone_yolo_tpu/ops/pallas_nms.py:89", "launches": launches,
-        "max_abs_err": float((keep.int() - keep_plain.int()).abs().max()), "match": bool(torch.equal(keep, keep_plain)),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
-        "shape": {"B": b, "K": k, "thr": thr, "kept": int(keep.sum())},
+        "replaces": "drone_yolo_tpu/ops/pallas_nms.py:89", "launches": launches + val_launches,
+        "launches_by_path": {"predict": launches, "validate": val_launches}, "match": True,
+        **{k: nms_predict[k] for k in ("max_abs_err", "ms", "event_ms", "plain_ms", "plain_event_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": nms_predict, "shape_k4096": nms_val,
     }]
-    if not kernels[0]["match"]:
-        raise AssertionError("kernel and plain keep masks differ at the slice's shapes")
     replaces = {3: "drone_yolo_tpu/ops/pallas_s2bwd.py:203", 1: "drone_yolo_tpu/ops/pallas_s2bwd.py:220"}
     for kind in KINDS:
         name = cuda_s2bwd.NAMES[kind]
-        per_site, totals = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-        for i, site in enumerate(s for s in sites if s["k"] == kind):
-            x, w, dy = s2_site_inputs(site, torch.bfloat16, seed=100 + i)
-            need = site["need_dx"]
-            p = KINDS[kind]
-            row = {"site": site["name"], "x": site["x"], "w": site["w"], "need_dx": need,
-                   "ms": cuda_ms(lambda: cuda_s2bwd.s2_bwd_cuda(x, w, dy, kind, need), reps=20),
-                   "plain_ms": cuda_ms(lambda: s2_bwd_reference(x, w, dy, kind, need), reps=3, warmup=1),
-                   "library_ms": cuda_ms(lambda: torch.ops.aten.convolution_backward(
-                       dy, x, w, None, [2, 2], [p, p], [1, 1], False, [0, 0], 1, [need, True, False]), reps=20)}
+        p = KINDS[kind]
+        kind_sites = [s for s in sites if s["k"] == kind]
+        inputs = [s2_site_inputs(site, torch.bfloat16, seed=100 + i) for i, site in enumerate(kind_sites)]
+        calls = {  # one train step's calls at these sites: the kernel, its plain version, cuDNN's backward
+            "": lambda: [cuda_s2bwd.s2_bwd_cuda(x, w, dy, kind, site["need_dx"]) for site, (x, w, dy) in zip(kind_sites, inputs)],
+            "plain_": lambda: [s2_bwd_reference(x, w, dy, kind, site["need_dx"]) for site, (x, w, dy) in zip(kind_sites, inputs)],
+            "library_": lambda: [torch.ops.aten.convolution_backward(dy, x, w, None, [2, 2], [p, p], [1, 1], False, [0, 0], 1,
+                                                                     [site["need_dx"], True, False])
+                                 for site, (x, w, dy) in zip(kind_sites, inputs)]}
+        times = {}
+        for prefix, fn in calls.items():
+            times.update(kernel_times(fn, reps=2 if prefix == "plain_" else 5, prefix=prefix))
+        per_site = []
+        for site in kind_sites:
             n_bytes, n_ops = s2_cost(site)
-            row.update(bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, ops_ms=n_ops / PEAK_BF16_PER_S * 1e3)
-            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            for key in totals:
-                totals[key] += row[key]
-            per_site.append(row)
+            per_site.append({"site": site["name"], "x": site["x"], "w": site["w"], "need_dx": site["need_dx"],
+                             "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": n_ops / PEAK_BF16_PER_S * 1e3})
+            per_site[-1]["bound_ms"] = max(per_site[-1]["bytes_ms"], per_site[-1]["ops_ms"])
+        del inputs
         bf16 = [c for c in s2_cases if c["k"] == kind and c["dtype"] == "bfloat16"]
         kernels.append({
             "name": name, "route": "cuda", "impl": "cuda", "source": "drone_yolo_tpu_torch/csrc/s2_bwd.cu",
-            "replaces": replaces[kind], "launches": s2_launches["cuda"][name], "calls": s2_calls["cuda"][name],
-            "launches_per_step": s2_launches["cuda"][name] // TRAIN["steps"], "calls_per_step": per_step[name],
-            "max_abs_err": max(max(c["dw_err"], c.get("dx_err", 0.0)) for c in bf16), "match": True,
-            "ms": totals["ms"], "plain_ms": totals["plain_ms"], "library_ms": totals["library_ms"],
+            "replaces": replaces[kind], "launches": s2_launches["kernel"][name], "calls": s2_calls["kernel"][name],
+            "launches_per_step": s2_launches["kernel"][name] // TRAIN["steps"], "calls_per_step": per_step[name],
+            "max_abs_err": max(max(c["dw_err"], c.get("dx_err", 0.0)) for c in bf16), "match": True, **times,
             "bound_ms": sum(r["bound_ms"] for r in per_site),
-            "bound_by": "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations",
-            "per": "train step: the sum over the flagship's sites of one bf16 call each (batch 8, 640 px)",
+            "bound_by": "bytes" if sum(r["bytes_ms"] for r in per_site) >= sum(r["ops_ms"] for r in per_site) else "operations",
+            "per": "train step: one bf16 call at each of the flagship's sites (batch 8, 640 px); ms is device time "
+                   "(torch.profiler), event_ms CUDA events around back-to-back calls; library: cuDNN convolution_backward",
             "sites": per_site,
         })
+    xs = [site_input(site["x"], torch.bfloat16, seed=200 + i) for i, site in enumerate(bn)]
+    times = {}  # one train step's 77 calls: the kernel, its plain version (the stock path's cast and two reductions),
+    for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],  # and torch.batch_norm_stats
+                       "plain_": lambda: [bn_stats_reference(x) for x in xs],
+                       "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
+        times.update(kernel_times(fn, reps=5, prefix=prefix))
+    per_site = [{"site": site["name"], "x": site["x"],
+                 "bytes_ms": (2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3,  # bf16 x read, (2, C) f32 written
+                 "ops_ms": BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3} for site, x in zip(bn, xs)]
+    del xs
+    for row in per_site:
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    kernels.append({
+        "name": "bn_stats", "route": "cuda", "impl": "cuda", "source": "drone_yolo_tpu_torch/csrc/bn_stats.cu",
+        "replaces": "tools/bn_stat_probe.py:70", "launches": bn_counts["both"]["launches"], "calls": bn_counts["both"]["calls"],
+        "launches_per_step": bn_counts["both"]["launches"] // TRAIN["steps"], "calls_per_step": len(bn),
+        "max_abs_err": max(max(c["sum_err"], c["sumsq_err"]) for c in bn_cases if c["dtype"] == "bfloat16"),
+        "max_err_over_tol": max(max(c["sum_err_over_tol"], c["sumsq_err_over_tol"]) for c in bn_cases), "match": True,
+        **times, "bound_ms": sum(r["bound_ms"] for r in per_site),
+        "bound_by": "bytes" if sum(r["bytes_ms"] for r in per_site) >= sum(r["ops_ms"] for r in per_site) else "operations",
+        "per": "train step: one bf16 call at each of the flagship's 77 BN inputs (batch 8, 640 px); ms is device time "
+               "(torch.profiler), event_ms CUDA events around back-to-back calls; plain: the stock path's cast and two "
+               "reductions; library: torch.batch_norm_stats",
+        "sites": per_site,
+    })
     emit("kernels", t, kernels=kernels)
 
-    # 7. profile ---------------------------------------------------------------
+    # 8. profile ---------------------------------------------------------------
     t = time.perf_counter()
     train_hyp = kernel_trainer._warmup_hyp(kernel_trainer.ni, 0)
+    both_hyp = both_trainer._warmup_hyp(both_trainer.ni, 0)
     emit("profile", t, predict={"batch": len(frames), **profile_device(lambda: model.predict(frames, verbose=False), steps=5)},
          train={"batch": TRAIN["batch"], "s2grad": "cuda",
-                **profile_device(lambda: kernel_trainer.train_step(batch, *train_hyp)[0].item(), steps=3)})
+                **profile_device(lambda: kernel_trainer.train_step(batch, *train_hyp)[0].item(), steps=3)},
+         train_both={"batch": TRAIN["batch"], "s2grad": "cuda", "bnstats": "cuda",
+                     **profile_device(lambda: both_trainer.train_step(batch, *both_hyp)[0].item(), steps=3)})
 
-    # 8. imports ---------------------------------------------------------------
+    # 9. imports ---------------------------------------------------------------
     t = time.perf_counter()
     loaded = sorted(m for m in ("jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml") if m in sys.modules)
     if loaded:

@@ -1,9 +1,9 @@
-"""Predict and train configuration: the keys of the JAX package's `cfg/default.yaml` that the port reads.
+"""Predict, validate and train configuration: the keys of the JAX package's `cfg/default.yaml` that the port reads.
 
 The defaults are Python dicts, so reading them needs no YAML parser. Keys of the
-modes and options that are not ported yet (val, export, track; the train loop's
-data, epochs of validation, multi-scale, device augmentation) are refused by
-name rather than silently ignored.
+modes and options that are not ported yet (export, track; the validator's data
+files, plots and COCO JSON; the train loop's data, epochs, multi-scale, device
+augmentation) are refused by name rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -23,27 +23,55 @@ DEFAULT_CFG = {
     "classes": None,  # (list[int]) keep only these classes
     "verbose": True,
     "dtype": "bfloat16",  # (str) compute dtype: bfloat16 or float32
-    "pre_nms_topk": 4096,  # (int) score top-k fed to NMS (capped at 1024)
+    "pre_nms_topk": 4096,  # (int) score top-k fed to NMS (predict caps it at 1024, as the JAX predictor)
 }
 
 _FLOAT_KEYS = {"conf", "iou"}
 _INT_KEYS = {"max_det", "pre_nms_topk"}
 
 
+def _merge(defaults: dict, cfg, overrides: dict | None, mode: str) -> dict:
+    """defaults, then a config (dict or namespace), then overrides; a key the defaults lack is refused by name."""
+    cfg = vars(cfg) if isinstance(cfg, SimpleNamespace) else dict(cfg or {})
+    merged = {**defaults, **cfg, **(overrides or {})}
+    unknown = sorted(set(merged) - set(defaults))
+    if unknown:
+        raise KeyError(f"unsupported {mode} arguments {unknown}; supported: {sorted(defaults)}")
+    if merged.get("dtype", "float32") not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype={merged['dtype']!r} must be 'bfloat16' or 'float32'")
+    return merged
+
+
 def get_cfg(cfg: dict | SimpleNamespace | None = None, overrides: dict | None = None) -> SimpleNamespace:
     """Merge defaults, a config and overrides into a checked namespace."""
-    cfg = vars(cfg) if isinstance(cfg, SimpleNamespace) else dict(cfg or {})
-    merged = {**DEFAULT_CFG, **cfg, **(overrides or {})}
-    unknown = sorted(set(merged) - set(DEFAULT_CFG))
-    if unknown:
-        raise KeyError(f"unsupported predict arguments {unknown}; supported: {sorted(DEFAULT_CFG)}")
+    merged = _merge(DEFAULT_CFG, cfg, overrides, "predict")
     for k in _FLOAT_KEYS:
         if merged[k] is not None:
             merged[k] = float(merged[k])
     for k in _INT_KEYS:
         merged[k] = int(merged[k])
-    if merged["dtype"] not in ("bfloat16", "float32"):
-        raise ValueError(f"dtype={merged['dtype']!r} must be 'bfloat16' or 'float32'")
+    return SimpleNamespace(**merged)
+
+
+VAL_CFG = {
+    "imgsz": 640,  # (int) square letterbox size of the batches
+    "device": None,  # (str) "cuda" (the default) or "cpu"
+    "conf": None,  # (float) confidence threshold, 0.001 when unset
+    "iou": 0.7,  # (float) NMS IoU threshold
+    "max_det": 300,  # (int) detection slots per image
+    "pre_nms_topk": 4096,  # (int) (anchor, class) candidates fed to multi-label NMS, uncapped
+    "dtype": "bfloat16",  # (str) compute dtype: bfloat16 or float32
+    "verbose": True,  # (bool) per-class rows in the printed results
+}
+
+
+def get_val_cfg(cfg: dict | SimpleNamespace | None = None, overrides: dict | None = None) -> SimpleNamespace:
+    """Merge the validate defaults, a config and overrides into a checked namespace."""
+    merged = _merge(VAL_CFG, cfg, overrides, "val")
+    merged["conf"] = 0.001 if merged["conf"] is None else float(merged["conf"])
+    merged["iou"] = float(merged["iou"])
+    for k in ("imgsz", "max_det", "pre_nms_topk"):
+        merged[k] = int(merged[k])
     return SimpleNamespace(**merged)
 
 
@@ -69,6 +97,7 @@ TRAIN_CFG = {
     "amp": True,  # (bool) bfloat16 autocast
     "cos_lr": False,  # (bool) cosine lr schedule
     "s2grad": None,  # (str) backward of the dense stride-2 convs: None (stock autograd) or "cuda" (the kernel)
+    "bnstats": None,  # (str) batch sums of train-mode BatchNorm: None (stock reductions) or "cuda" (the kernel)
 }
 
 _TRAIN_TYPES = {"epochs": int, "batch": int, "imgsz": int, "seed": int, "nbs": int, "amp": bool, "cos_lr": bool,
@@ -78,11 +107,7 @@ _TRAIN_TYPES = {"epochs": int, "batch": int, "imgsz": int, "seed": int, "nbs": i
 
 def get_train_cfg(cfg: dict | SimpleNamespace | None = None, overrides: dict | None = None) -> SimpleNamespace:
     """Merge the train defaults, a config and overrides into a checked namespace."""
-    cfg = vars(cfg) if isinstance(cfg, SimpleNamespace) else dict(cfg or {})
-    merged = {**TRAIN_CFG, **cfg, **(overrides or {})}
-    unknown = sorted(set(merged) - set(TRAIN_CFG))
-    if unknown:
-        raise KeyError(f"unsupported train arguments {unknown}; supported: {sorted(TRAIN_CFG)}")
+    merged = _merge(TRAIN_CFG, cfg, overrides, "train")
     for k, typ in _TRAIN_TYPES.items():
         merged[k] = typ(merged[k])
     return SimpleNamespace(**merged)

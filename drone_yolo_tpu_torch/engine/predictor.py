@@ -23,7 +23,7 @@ import torch
 from drone_yolo_tpu_torch.cfg import get_cfg
 from drone_yolo_tpu_torch.engine.results import Results
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
-from drone_yolo_tpu_torch.ops.letterbox import letterbox
+from drone_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_u8
 from drone_yolo_tpu_torch.ops.nms import non_max_suppression
 
 LOGGER = logging.getLogger("drone_yolo_tpu_torch")
@@ -91,15 +91,17 @@ class DetectionPredictor:
     def preprocess(self, imgs) -> torch.Tensor:
         """BGR frames -> letterboxed RGB (B, 3, h, w) float32 in [0, 1] on the device.
 
-        Frames of one shape are letterboxed as one batch; mixed shapes one by one.
+        Frames of one shape are letterboxed as one float batch (`ops.letterbox.letterbox`, the JAX
+        package's device path); frames of mixed shapes one by one in uint8 (`letterbox_u8`, its
+        `cv2.resize` path), then normalised.
         """
-        groups = [imgs] if len({im.shape for im in imgs}) == 1 else [[im] for im in imgs]
-        out = []
-        for group in groups:
-            raw = torch.from_numpy(np.ascontiguousarray(np.stack(group))).to(self.device)
+        if len({im.shape for im in imgs}) == 1:
+            raw = torch.from_numpy(np.ascontiguousarray(np.stack(imgs))).to(self.device)
             x = raw.flip(-1).permute(0, 3, 1, 2).float() / 255.0  # BGR -> RGB, NHWC -> NCHW
-            out.append(letterbox(x, self.imgsz))
-        return torch.cat(out) if len(out) > 1 else out[0]
+            return letterbox(x, self.imgsz)
+        raw = torch.cat([letterbox_u8(torch.from_numpy(np.ascontiguousarray(im)).to(self.device)[None], self.imgsz)
+                         for im in imgs])
+        return raw.flip(-1).permute(0, 3, 1, 2).float() / 255.0
 
     @torch.inference_mode()
     def inference(self, x: torch.Tensor):

@@ -12,9 +12,12 @@ take this micro-step's batch statistics last, on every micro-step: the EMA sees
 them as they were before the merge, as in the JAX step.
 
 `train_loader` is any sized iterable of batches in the collate format
-(`data/dataset.py`). `run_steps` walks it with the warmup schedule; the epoch loop,
-validation, checkpoints, multi-scale resizing and device augmentation come with
-the trainer loop.
+(`data/dataset.py`). `run_steps` walks it with the warmup schedule. `validate`
+runs `engine/validator.py` on the EMA weights over `val_loader`, an iterable of
+collate-format batches with `ori_shapes` and `ratio_pads`, and sets `metrics` and
+`fitness` (`drone_yolo_tpu/engine/trainer.py:validate`). The epoch loop, early
+stopping, checkpoints, multi-scale resizing and device augmentation come with the
+trainer loop.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from drone_yolo_tpu_torch.cfg import get_train_cfg
 from drone_yolo_tpu_torch.engine.model import select_device
 from drone_yolo_tpu_torch.engine.predictor import Profile
+from drone_yolo_tpu_torch.engine.validator import DetectionValidator
 from drone_yolo_tpu_torch.nn.model import DetectionModel
 from drone_yolo_tpu_torch.nn.modules import collect_bn_stats
 from drone_yolo_tpu_torch.utils.ema import ModelEMA
@@ -44,19 +48,23 @@ class BaseTrainer:
 
     loss_names = ("box_loss", "cls_loss", "dfl_loss")
 
-    def __init__(self, cfg=None, overrides=None, train_loader=None, data: dict | None = None):
+    def __init__(self, cfg=None, overrides=None, train_loader=None, data: dict | None = None, val_loader=None):
         self.args = get_train_cfg(cfg, overrides)
         self.device = select_device(self.args.device)
         self.batch_size = self.args.batch
         self.epochs = self.args.epochs
         self.train_loader = train_loader
+        self.val_loader = val_loader
         self.data = dict(data or {})
         self.model = None
+        self.validator = None
+        self.metrics, self.fitness = {}, None
         self.ni = 0  # batches seen, for the warmup
 
     def setup_model(self) -> None:
         """The model from `args.model` with the data's class count, seeded init, on the device, in train mode."""
-        self.model = DetectionModel(self.args.model, nc=self.data.get("nc"), s2grad=self.args.s2grad)
+        self.model = DetectionModel(self.args.model, nc=self.data.get("nc"), s2grad=self.args.s2grad,
+                                    bnstats=self.args.bnstats)
         self.model.init(self.args.seed, imgsz=self.args.imgsz)
         self.model.to(self.device).train()
 
@@ -133,6 +141,21 @@ class BaseTrainer:
             self.ni += 1
             out.append({"loss": float(loss), "items": items.tolist(), "ms": dt.dt * 1e3})
         return out
+
+    def get_validator(self) -> DetectionValidator:
+        """A validator over `val_loader` at the train size and device, in bfloat16 when `amp` is set, conf 0.001."""
+        return DetectionValidator(self.val_loader, args=dict(imgsz=self.args.imgsz, device=str(self.device), conf=0.001,
+                                                             dtype="bfloat16" if self.args.amp else "float32"))
+
+    def validate(self) -> dict:
+        """Validate the EMA weights on `val_loader`: sets and returns `metrics`, and sets `fitness`."""
+        if self.model is None:
+            self._setup_train()
+        if self.validator is None:
+            self.validator = self.get_validator()
+        self.metrics = self.validator(model=self.model, ema_state=self.ema.state)
+        self.fitness = self.metrics.get("fitness", 0.0)
+        return self.metrics
 
     def train_state(self) -> dict:
         """The step's state by the port's names: params (the state dict), opt, ema, acc (the gradients

@@ -1,0 +1,152 @@
+"""Detection validator: the forward and multi-label NMS on the device, TP matching and mAP on the host.
+
+Counterpart of `drone_yolo_tpu/engine/validator.py` (BaseValidator, DetectionValidator)
+for the detect task. A batch goes to the device as uint8 and is normalised there; the
+model, an eval-mode fused copy in `args.dtype`, gives (B, A, 4 + nc) predictions;
+`ops/nms.py` keeps up to `max_det` per image from the top `pre_nms_topk` (anchor,
+class) candidates (K = 4096 by default, the greedy-keep kernel on the card); only the
+detections and their counts come back to the host, where `update_metrics` rescales
+them and the GT to the original frames and matches them, and `get_stats` computes
+P, R, mAP50 and mAP50-95 with `utils/metrics.py`.
+
+`dataloader` is any iterable of batches in the collate format
+(`drone_yolo_tpu/data/dataset.py:YOLODataset.collate`): `img` (B, H, W, 3) uint8 RGB,
+`cls` (B, M), `bboxes` (B, M, 4) letterboxed pixel xyxy, `mask` (B, M), and per image
+`ori_shapes` (h, w) and `ratio_pads` (gain, (pad_w, pad_h)) or None. The file dataset,
+plots, the confusion matrix and COCO JSON come with a later slice.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from drone_yolo_tpu_torch.cfg import get_val_cfg
+from drone_yolo_tpu_torch.engine.model import select_device
+from drone_yolo_tpu_torch.engine.predictor import LOGGER, Profile
+from drone_yolo_tpu_torch.ops.boxes import scale_boxes
+from drone_yolo_tpu_torch.ops.nms import non_max_suppression
+from drone_yolo_tpu_torch.utils.metrics import DetMetrics, box_iou_np, match_predictions
+
+
+class BaseValidator:
+    """`DetectionValidator(dataloader=batches, args={"imgsz": 640})(model=facade_or_model, ema_state=None)`.
+
+    Validates on `args.device`, the CUDA card unless the caller passes device="cpu". Returns
+    the metrics by the JAX package's keys, with `fitness`, each rounded to 5 decimals.
+    """
+
+    def __init__(self, dataloader=None, args: dict | None = None):
+        self.args = get_val_cfg(overrides=args)
+        self.device = select_device(self.args.device)
+        self.dtype = torch.bfloat16 if self.args.dtype == "bfloat16" else torch.float32
+        self.dataloader = dataloader
+        self.iouv = np.linspace(0.5, 0.95, 10)
+        self.metrics = DetMetrics()
+        self.speed = {}
+        self.model = None
+
+    def setup_model(self, model, ema_state: dict | None = None) -> None:
+        """An eval-mode, fused copy of `model` (a YOLO facade or a DetectionModel), with the weights of
+        `ema_state` (a full state dict by name, such as `ModelEMA.state`) when given, in the compute
+        dtype on the device."""
+        if hasattr(model, "ensure_variables"):  # the facade
+            model.ensure_variables(imgsz=self.args.imgsz)
+            model = model.model
+        net = copy.deepcopy(model)
+        if ema_state is not None:
+            net.load_state_dict(ema_state, strict=True)
+        self.model = net.eval().to(self.device, torch.float32).fuse().to(self.dtype)
+        self.nc = self.model.nc
+        self.names = self.model.names
+        self.metrics = DetMetrics(self.names)  # a fresh one per call: a reused validator reports no stale metrics
+
+    def preprocess(self, batch: dict) -> torch.Tensor:
+        """The uint8 NHWC batch to the device, there NCHW float32 in [0, 1]."""
+        img = torch.from_numpy(np.ascontiguousarray(batch["img"])).to(self.device, non_blocking=True)
+        return img.permute(0, 3, 1, 2).float() / 255.0
+
+    @torch.inference_mode()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Decoded predictions (B, A, 4 + nc), float32."""
+        return self.model(x)[0]
+
+    @torch.inference_mode()
+    def postprocess(self, preds: torch.Tensor):
+        """Multi-label NMS over the top `pre_nms_topk` candidates -> (dets (B, max_det, 6), n_valid (B,))."""
+        return non_max_suppression(preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
+                                   pre_topk=self.args.pre_nms_topk, multi_label=True)
+
+    def __call__(self, model=None, ema_state: dict | None = None) -> dict:
+        self.setup_model(model, ema_state)
+        self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        self.seen = 0
+        dt = [Profile(self.device) for _ in range(3)]
+        totals = [0.0, 0.0, 0.0]
+        for batch in self.dataloader:
+            with dt[0]:
+                x = self.preprocess(batch)
+            with dt[1]:
+                dets, n_valid = self.postprocess(self.forward(x))
+                dets, n_valid = dets.float().cpu().numpy(), n_valid.cpu().numpy()
+            with dt[2]:
+                self.update_metrics(dets, n_valid, batch, tuple(x.shape[2:]))
+            totals = [t + p.dt for t, p in zip(totals, dt)]
+        stats = self.get_stats()
+        self.speed = {k: t / max(self.seen, 1) * 1e3 for k, t in zip(("preprocess", "inference", "postprocess"), totals)}
+        self.print_results()
+        results = {**stats, "fitness": self.metrics.fitness}
+        return {k: round(float(v), 5) for k, v in results.items()}
+
+    def update_metrics(self, dets: np.ndarray, n_valid: np.ndarray, batch: dict, in_shape) -> None:
+        """Per image: detections and GT back to the original frame, IoU, TP at the 10 thresholds, accumulated."""
+        for i in range(len(dets)):
+            self.seen += 1
+            d = dets[i, : int(n_valid[i])].copy()
+            gt_mask = batch["mask"][i].astype(bool)
+            gt_native = batch["bboxes"][i][gt_mask]  # letterboxed pixel xyxy
+            gt_cls = batch["cls"][i][gt_mask]
+            ori_shape = batch["ori_shapes"][i]
+            rp = batch["ratio_pads"][i]
+            ratio_pad = ((rp[0], rp[0]), rp[1]) if rp else None
+            if len(d):
+                d[:, :4] = scale_boxes(in_shape, torch.from_numpy(d[:, :4]), ori_shape, ratio_pad).numpy()
+            if len(gt_native):
+                gt_native = scale_boxes(in_shape, torch.from_numpy(gt_native.copy()), ori_shape, ratio_pad).numpy()
+            iou = box_iou_np(gt_native, d[:, :4]) if len(d) and len(gt_native) else np.zeros((len(gt_native), len(d)))
+            tp = match_predictions(d[:, 5].astype(int), gt_cls.astype(int), iou, self.iouv)
+            self.stats["tp"].append(tp)
+            self.stats["conf"].append(d[:, 4])
+            self.stats["pred_cls"].append(d[:, 5])
+            self.stats["target_cls"].append(gt_cls)
+
+    def get_stats(self) -> dict:
+        """P, R, mAP50 and mAP50-95 of everything accumulated, by the JAX package's keys."""
+        tp = np.concatenate(self.stats["tp"]) if self.stats["tp"] else np.zeros((0, len(self.iouv)), bool)
+        conf = np.concatenate(self.stats["conf"]) if self.stats["conf"] else np.zeros(0)
+        pred_cls = np.concatenate(self.stats["pred_cls"]) if self.stats["pred_cls"] else np.zeros(0)
+        target_cls = np.concatenate(self.stats["target_cls"]) if self.stats["target_cls"] else np.zeros(0)
+        if len(conf):
+            self.metrics.process(tp, conf, pred_cls, target_cls)
+        self.nt_per_class = np.bincount(target_cls.astype(int), minlength=self.nc)
+        mp, mr, map50, map5095 = self.metrics.mean_results()
+        return {"metrics/precision(B)": mp, "metrics/recall(B)": mr, "metrics/mAP50(B)": map50,
+                "metrics/mAP50-95(B)": map5095}
+
+    def print_results(self) -> None:
+        pf = "%22s%11i%11i%11.3g%11.3g%11.3g%11.3g"
+        LOGGER.info(("%22s%11s%11s%11s%11s%11s%11s") % ("Class", "Images", "Instances", "P", "R", "mAP50", "mAP50-95"))
+        LOGGER.info(pf % ("all", self.seen, int(self.nt_per_class.sum()), *self.metrics.mean_results()))
+        if self.args.verbose and self.nc > 1 and len(self.metrics.box.ap_class_index):
+            for i, c in enumerate(self.metrics.box.ap_class_index):
+                name = self.names.get(int(c), str(c))
+                LOGGER.info(pf % (name, self.seen, int(self.nt_per_class[int(c)]), *self.metrics.class_result(i)))
+        t = self.speed
+        LOGGER.info(f"Speed: {t['preprocess']:.1f}ms preprocess, {t['inference']:.1f}ms inference, "
+                    f"{t['postprocess']:.1f}ms postprocess per image")
+
+
+class DetectionValidator(BaseValidator):
+    """Detection task validator."""

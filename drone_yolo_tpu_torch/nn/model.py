@@ -21,12 +21,14 @@ class DetectionModel(nn.Module):
 
     `nc` overrides the yaml's class count, as in the JAX package. `s2grad="cuda"` (or
     `set_s2grad`) routes the backward of the dense stride-2 sites through the CUDA
-    kernel (`ops/conv_s2.py`); the default, None, keeps stock autograd.
+    kernel (`ops/conv_s2.py`); `bnstats="cuda"` (or `set_bnstats`) takes the batch
+    sums of train-mode BatchNorm from the CUDA kernel (`ops/bn_stats.py`). The
+    defaults, None, keep stock autograd and the stock reductions.
     """
 
     task = "detect"
 
-    def __init__(self, cfg="yolov8n.yaml", nc: int | None = None, s2grad: str | None = None):
+    def __init__(self, cfg="yolov8n.yaml", nc: int | None = None, s2grad: str | None = None, bnstats: str | None = None):
         super().__init__()
         self.yaml = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
         if nc:
@@ -37,6 +39,7 @@ class DetectionModel(nn.Module):
         self.eval()
         self._probe_strides()
         self.set_s2grad(s2grad)
+        self.set_bnstats(bnstats)
 
     @property
     def head(self) -> M.Detect:
@@ -72,6 +75,15 @@ class DetectionModel(nn.Module):
         for mod in self.modules():
             if isinstance(mod, M.Conv):
                 mod.s2grad = mode
+        return self
+
+    def set_bnstats(self, mode: str | None) -> DetectionModel:
+        """Batch sums of train-mode BatchNorm: "cuda" (the kernel; its plain version on CPU tensors) or None (stock)."""
+        if mode not in M.BNSTATS_MODES:
+            raise ValueError(f"bnstats={mode!r} must be one of {M.BNSTATS_MODES}")
+        for mod in self.modules():
+            if isinstance(mod, M.BatchNorm2d):
+                mod.bnstats = mode
         return self
 
     def forward(self, x: torch.Tensor, raw: bool = False):

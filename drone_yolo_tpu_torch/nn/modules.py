@@ -15,7 +15,9 @@ Train mode: BatchNorm normalizes with batch statistics and hands them to the
 collector of `collect_bn_stats` (the JAX package's `Ctx.updates`); the running
 statistics change only in `DetectionModel.merge_bn_updates`. A `Conv` whose
 `s2grad` is "cuda" routes its stride-2 sites (`ops.conv_s2.covers`) through
-`ops.conv_s2.conv2d_s2`, whose backward is the hand-written CUDA kernel.
+`ops.conv_s2.conv2d_s2`, whose backward is the hand-written CUDA kernel. A
+`BatchNorm2d` whose `bnstats` is "cuda" takes its batch sums from
+`ops.bn_stats.bn_stats`, whose forward is the hand-written CUDA kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from drone_yolo_tpu_torch.ops.anchors import dist2bbox, make_anchors
+from drone_yolo_tpu_torch.ops.bn_stats import BNSTATS_MODES, bn_stats, bn_stats_reference
 from drone_yolo_tpu_torch.ops.conv_s2 import conv2d_s2, covers
 
 BN_EPS = 1e-3  # reference initialize_weights sets BatchNorm2d eps=1e-3
@@ -75,7 +78,8 @@ class BatchNorm2d(nn.Module):
     mode (`_bn_apply` of the JAX package) uses the batch's: two independent float32
     sums over N, H and W, and the biased one-pass variance max(E[x^2] - E[x]^2, 0),
     which also goes to the running update. They are handed to `collect_bn_stats`;
-    the forward writes no buffer.
+    the forward writes no buffer. The sums are the stock reductions
+    (`bn_stats_reference`), or with `bnstats="cuda"` the `bn_stats` Function.
     """
 
     def __init__(self, c: int):
@@ -84,6 +88,7 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.bnstats = None
 
     def reset_parameters(self) -> None:
         with torch.no_grad():
@@ -99,8 +104,9 @@ class BatchNorm2d(nn.Module):
             if stats is None:
                 raise RuntimeError("train-mode BatchNorm runs under collect_bn_stats(), which receives its batch statistics")
             n = x.numel() // x.shape[1]
-            mean = xf.sum((0, 2, 3)) / n
-            var = (xf.square().sum((0, 2, 3)) / n - mean.square()).clamp(min=0.0)
+            s1, s2 = bn_stats(x) if self.bnstats == "cuda" else bn_stats_reference(xf)
+            mean = s1 / n
+            var = (s2 / n - mean.square()).clamp(min=0.0)
             stats[self] = (mean.detach(), var.detach())
         else:
             mean, var = wide(self.running_mean), wide(self.running_var)

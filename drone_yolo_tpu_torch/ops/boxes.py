@@ -21,11 +21,19 @@ def clip_boxes(boxes: torch.Tensor, shape) -> torch.Tensor:
     return torch.stack((x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w), y2.clamp(0, h)), -1)
 
 
-def scale_boxes(img1_shape, boxes: torch.Tensor, img0_shape) -> torch.Tensor:
-    """Rescale xyxy boxes from the letterboxed `img1_shape` (h, w) back to `img0_shape`: undo pad, divide by gain, clip."""
-    gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
-    pad_w = round((img1_shape[1] - img0_shape[1] * gain) / 2 - 0.1)
-    pad_h = round((img1_shape[0] - img0_shape[0] * gain) / 2 - 0.1)
+def scale_boxes(img1_shape, boxes: torch.Tensor, img0_shape, ratio_pad=None) -> torch.Tensor:
+    """Rescale xyxy boxes from the letterboxed `img1_shape` (h, w) back to `img0_shape`: undo pad, divide by gain, clip.
+
+    Gain and pad follow from the two shapes, or from `ratio_pad` = ((gain, gain), (pad_w, pad_h)) as the
+    dataset recorded them (the validator's case).
+    """
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad_w = round((img1_shape[1] - img0_shape[1] * gain) / 2 - 0.1)
+        pad_h = round((img1_shape[0] - img0_shape[0] * gain) / 2 - 0.1)
+    else:
+        gain = ratio_pad[0][0]
+        pad_w, pad_h = ratio_pad[1]
     boxes = boxes - torch.tensor([pad_w, pad_h, pad_w, pad_h], dtype=boxes.dtype, device=boxes.device)
     return clip_boxes(boxes / gain, img0_shape)
 

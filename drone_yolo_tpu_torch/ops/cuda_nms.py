@@ -15,15 +15,14 @@ import torch
 
 from drone_yolo_tpu_torch.ops.cuda_build import CudaLibrary
 
-MAX_K = 1024  # kMaxK in the source: the shared-memory arrays of one CTA
-
-
 def _bind(lib: ctypes.CDLL) -> None:
     lib.greedy_nms_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.greedy_nms_launch.restype = ctypes.c_int
     lib.greedy_nms_error_string.argtypes = [ctypes.c_int]
     lib.greedy_nms_error_string.restype = ctypes.c_char_p
+    lib.greedy_nms_max_staged_k.argtypes = []
+    lib.greedy_nms_max_staged_k.restype = ctypes.c_int
 
 
 # --fmad=false and no fast math: the IoU must round exactly as the plain version's.
@@ -32,7 +31,8 @@ LIBRARY = CudaLibrary("greedy_nms", ["--fmad=false"], _bind)
 
 def greedy_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
     """Greedy-NMS keep mask on the card: (B, K, 4) float32 score-sorted xyxy boxes and (B, K) bool
-    validity -> (B, K) bool, equal to `ops.nms.greedy_keep_reference`. K <= 1024.
+    validity -> (B, K) bool, equal to `ops.nms.greedy_keep_reference`, for any K: up to
+    `max_staged_k()` the boxes are staged in shared memory, above it read from global memory.
 
     Counts its launches in `greedy_keep_cuda.launches`.
     """
@@ -43,8 +43,8 @@ def greedy_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float)
     if boxes.dim() != 3 or boxes.shape[2] != 4 or valid.shape != boxes.shape[:2]:
         raise ValueError(f"expected boxes (B, K, 4) and valid (B, K), got {tuple(boxes.shape)} and {tuple(valid.shape)}")
     b, k = valid.shape
-    if k > MAX_K:
-        raise ValueError(f"greedy-NMS kernel takes K <= {MAX_K}, got K={k}")
+    if b * k * 4 >= 2**31:  # the kernel's int arguments; far above any K that non_max_suppression makes
+        raise ValueError(f"greedy-NMS kernel takes B * K * 4 < 2**31, got B={b}, K={k}")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
@@ -60,3 +60,8 @@ def greedy_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float)
 
 
 greedy_keep_cuda.launches = 0
+
+
+def max_staged_k() -> int:
+    """The largest K whose boxes, areas and mask the kernel stages in the current device's shared memory."""
+    return LIBRARY.load().greedy_nms_max_staged_k()

@@ -2,8 +2,9 @@
 
 Counterpart of `drone_yolo_tpu/ops/nms.py:non_max_suppression`:
 
-1. select the top K candidates per image by best-class score (ties: lower
-   anchor index first, as `jax.lax.top_k`) and offset each box by
+1. select the top K candidates per image, by best-class score (predict) or,
+   with `multi_label` (validate), over all A * nc (anchor, class) scores (ties:
+   lower index first, as `jax.lax.top_k`), and offset each box by
    `class * MAX_WH`, so that boxes of different classes never overlap;
 2. greedy keep mask over the K score-sorted candidates: on a CUDA tensor the
    hand-written kernel (`ops/cuda_nms.py`), on a CPU tensor its plain version
@@ -57,24 +58,34 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> t
     return greedy_keep_reference(boxes, valid, iou_thres)
 
 
-def select_candidates(preds: torch.Tensor, conf_thres: float, pre_topk: int, classes=None, agnostic: bool = False):
-    """Phase 1: per image the top-K anchors by best-class score.
+def select_candidates(preds: torch.Tensor, conf_thres: float, pre_topk: int, classes=None, agnostic: bool = False,
+                      multi_label: bool = False):
+    """Phase 1: per image the top-K candidates: anchors by best-class score, or with `multi_label` the
+    (anchor, class) pairs of the flat A * nc scores, K = min(pre_topk, A * nc); anchor idx // nc, class idx % nc.
 
     Returns xyxy boxes (B, K, 4), scores (B, K), classes as float (B, K),
     validity `score > conf_thres` (B, K) and the class-offset boxes (B, K, 4).
     """
     b, a, ch = preds.shape
+    nc = ch - 4
     boxes = xywh2xyxy(preds[..., :4])
     scores = preds[..., 4:]
     if classes is not None:  # zero the scores of the other classes
-        mask = torch.zeros(ch - 4, dtype=scores.dtype, device=preds.device)
+        mask = torch.zeros(nc, dtype=scores.dtype, device=preds.device)
         mask[torch.as_tensor(classes, dtype=torch.long).reshape(-1)] = 1.0
         scores = scores * mask
-    k = min(pre_topk, a)
-    per_anchor, cls_all = scores.amax(-1), scores.argmax(-1)  # argmax: first maximum, as jnp.argmax
-    top_scores, anchor_idx = per_anchor.sort(dim=-1, descending=True, stable=True)
-    top_scores, anchor_idx = top_scores[:, :k], anchor_idx[:, :k]
-    cls_idx = cls_all.gather(1, anchor_idx).to(preds.dtype)
+    if multi_label:
+        k = min(pre_topk, a * nc)
+        # a stable descending sort puts equal scores in index order, as jax.lax.top_k
+        top_scores, top_idx = scores.reshape(b, a * nc).sort(dim=-1, descending=True, stable=True)
+        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+        anchor_idx, cls_idx = top_idx // nc, (top_idx % nc).to(preds.dtype)
+    else:
+        k = min(pre_topk, a)
+        per_anchor, cls_all = scores.amax(-1), scores.argmax(-1)  # argmax: first maximum, as jnp.argmax
+        top_scores, anchor_idx = per_anchor.sort(dim=-1, descending=True, stable=True)
+        top_scores, anchor_idx = top_scores[:, :k], anchor_idx[:, :k]
+        cls_idx = cls_all.gather(1, anchor_idx).to(preds.dtype)
     cand_boxes = boxes.gather(1, anchor_idx[..., None].expand(b, k, 4))
     offset = torch.zeros_like(cls_idx) if agnostic else cls_idx * MAX_WH
     return cand_boxes, top_scores, cls_idx, top_scores > conf_thres, cand_boxes + offset[..., None]
@@ -90,17 +101,20 @@ def compact(keep: torch.Tensor, cand_boxes, top_scores, cls_idx, max_det: int):
 
 
 def non_max_suppression(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.7, max_det: int = 300,
-                        pre_topk: int = 1024, classes=None, agnostic: bool = False):
+                        pre_topk: int = 1024, classes=None, agnostic: bool = False, multi_label: bool = False):
     """Batched NMS of decoded predictions.
 
     Args:
         preds: (B, A, 4 + nc) float32: xywh pixel boxes, then sigmoid class scores.
         classes: optional list of class indices to keep.
+        multi_label: every (anchor, class) pair is a candidate (the validator's NMS), not only each
+            anchor's best class (predict's).
 
     Returns:
         dets: (B, min(K, max_det), 6) [x1, y1, x2, y2, conf, cls], zero-padded.
         n_valid: (B,) int32 count of real detections per image.
     """
-    cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, conf_thres, pre_topk, classes, agnostic)
+    cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, conf_thres, pre_topk, classes, agnostic,
+                                                                          multi_label)
     keep = greedy_keep(off_boxes, valid, iou_thres)
     return compact(keep, cand_boxes, top_scores, cls_idx, max_det)

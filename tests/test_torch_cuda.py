@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import S2_TOL, clustered_boxes, synthetic_batch
+from chip_smoke import S2_TOL, bn_stats_errors, clustered_boxes, synthetic_batch
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
-from drone_yolo_tpu_torch.ops import conv_s2, cuda_nms, cuda_s2bwd
+from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
+from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
 from drone_yolo_tpu_torch.ops.nms import compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates
 
 pytestmark = pytest.mark.cuda
@@ -43,19 +44,82 @@ def test_kernel_matches_plain(cuda_device, k, thr):
         assert 0 < int(got.sum()) < int(valid.sum())
 
 
-def test_kernel_refuses_k_above_1024(cuda_device):
-    with pytest.raises(ValueError, match="K <= 1024"):
-        greedy_keep(torch.zeros(1, 1025, 4, device=cuda_device), torch.ones(1, 1025, dtype=torch.bool, device=cuda_device), 0.5)
+@pytest.mark.parametrize("thr", [0.45, 0.7])
+@pytest.mark.parametrize("b,k", [(8, 4096), (2, 8192), (1, 12288)])
+def test_kernel_matches_plain_at_large_k(cuda_device, b, k, thr):
+    """Validation's K = 4096 and beyond: staged in shared memory up to `max_staged_k()` (11,068 on an H100),
+    read from global memory above it (K = 12288)."""
+    rng = np.random.default_rng(k)
+    boxes = clustered_boxes(rng, b, k, clusters=48).to(cuda_device)
+    valid = torch.from_numpy(rng.random((b, k)) > 0.1).to(cuda_device)
+    got = greedy_keep(boxes, valid, thr)
+    torch.cuda.synchronize()
+    assert (k > cuda_nms.max_staged_k()) == (k == 12288)
+    assert torch.equal(got, greedy_keep_reference(boxes, valid, thr))
+    assert 0 < int(got.sum()) < int(valid.sum())
 
 
-def test_nms_step_matches_plain_keep(cuda_device):
+@pytest.mark.parametrize("multi_label,pre_topk", [(False, 1024), (True, 4096)])
+def test_nms_step_matches_plain_keep(cuda_device, multi_label, pre_topk):
     rng = np.random.default_rng(9)
     preds = np.concatenate([rng.random((4, 3000, 2)) * 640, rng.uniform(4, 80, (4, 3000, 2)), rng.random((4, 3000, 80)) ** 4], -1)
     preds = torch.from_numpy(preds.astype(np.float32)).to(cuda_device)
-    dets, n = non_max_suppression(preds, conf_thres=0.0, iou_thres=0.7, pre_topk=1024)
-    cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, 0.0, 1024)
+    dets, n = non_max_suppression(preds, conf_thres=0.0, iou_thres=0.7, pre_topk=pre_topk, multi_label=multi_label)
+    cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, 0.0, pre_topk, multi_label=multi_label)
+    assert valid.shape == (4, pre_topk)
     dets_ref, n_ref = compact(greedy_keep_reference(off_boxes, valid, 0.7), cand_boxes, top_scores, cls_idx, 300)
     assert torch.equal(n, n_ref) and torch.equal(dets, dets_ref)
+
+
+def _misaligned(shape, dtype, g, device):
+    """A contiguous tensor whose data starts one element past an allocation's start, so its planes are misaligned."""
+    n = int(np.prod(shape))
+    return (torch.randn(n + 1, generator=g, device=device) * 2 + 0.5).to(dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,layout", [((1, 3, 5, 7), "contiguous"), ((2, 3, 17, 33), "misaligned"),
+                                          ((1, 16, 1, 1), "contiguous"), ((3, 5, 31, 31), "misaligned"),
+                                          ((8, 32, 80, 80), "contiguous"), ((2, 130, 9, 11), "channels_last")])
+def test_bn_stats_kernel_matches_plain(cuda_device, shape, layout, dtype):
+    """Odd shapes (C = 3, odd H*W, N = 1, one pixel), misaligned planes and a non-contiguous input, against
+    `bn_stats_reference` at chip_smoke's tolerance (1e-5 of sum|x| or sum x^2, plus 1e-6)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(int(np.prod(shape)))
+    if layout == "misaligned":
+        x = _misaligned(shape, dt, g, cuda_device)
+    else:
+        x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dt)
+        if layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+    cuda_bnstats.reset_counts()
+    s, q = bn_stats(x)
+    torch.cuda.synchronize()
+    assert (cuda_bnstats.bn_stats_cuda.calls, cuda_bnstats.bn_stats_cuda.launches) == (1, 2)
+    assert cuda_bnstats.bn_stats_cuda.copies == (layout == "channels_last")
+    assert s.dtype == q.dtype == torch.float32 and s.shape == q.shape == (shape[1],)
+    errs = bn_stats_errors(x, s, q)
+    assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, errs
+    s2, q2 = bn_stats(x)
+    assert torch.equal(s, s2) and torch.equal(q, q2)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_stats_gradient_matches_autograd(cuda_device, dtype):
+    """The Function's gx = g_sum + 2 x g_sumsq against autograd of the plain version: float32 to rounding, bf16
+    within one bf16 step."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn(2, 7, 9, 13, generator=g, device=cuda_device) + 0.3).to(dt)
+    g_s, g_q = torch.randn(7, generator=g, device=cuda_device), torch.randn(7, generator=g, device=cuda_device)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    s, q = bn_stats(xa)
+    torch.autograd.backward((s, q), (g_s, g_q))
+    s_p, q_p = bn_stats_reference(xb)
+    torch.autograd.backward((s_p, q_p), (g_s, g_q))
+    assert xa.grad.dtype == dt
+    tol = dict(rtol=1e-6, atol=1e-6) if dt == torch.float32 else dict(rtol=2**-8, atol=1e-6)
+    torch.testing.assert_close(xa.grad.float(), xb.grad.float(), **tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -104,6 +168,24 @@ def test_train_step_with_the_kernel_matches_stock(cuda_device):
         assert cuda_s2bwd.s2_bwd_cuda.calls == ({"s2_bwd_k3": 16, "s2_bwd_k1": 8} if mode else {"s2_bwd_k3": 0, "s2_bwd_k1": 0})
         states[mode] = (steps, trainer.train_state())
     (steps_k, st_k), (steps_s, st_s) = states["cuda"], states[None]
+    np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
+    for name, want in st_s["params"].items():
+        torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_train_step_with_both_kernels_matches_stock(cuda_device):
+    """Flagship (scale n), imgsz 64, batch 2, float32 (TF32 off): 2 steps with s2grad="cuda" and bnstats="cuda"
+    against 2 stock steps from the same init; the BN-statistics kernel runs at all 77 train-mode BNs a step."""
+    loader = [synthetic_batch(np.random.default_rng(i), 2, 64, 2) for i in range(2)]
+    runs = {}
+    for mode in ("cuda", None):
+        trainer = BaseTrainer(overrides=dict(model="yolov8n-p2-repvgg-sf.yaml", batch=2, imgsz=64, nbs=2, optimizer="SGD",
+                                             amp=False, s2grad=mode, bnstats=mode), train_loader=loader, data={"nc": 2})
+        cuda_bnstats.reset_counts()
+        steps = trainer.run_steps()
+        assert cuda_bnstats.bn_stats_cuda.calls == (2 * 77 if mode else 0)
+        runs[mode] = (steps, trainer.train_state())
+    (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
     np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
     for name, want in st_s["params"].items():
         torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)

@@ -57,6 +57,22 @@ def test_greedy_keep_matches_pallas_and_jax_fixed_point(k, thr):
     assert 0 < got.sum() < valid.sum()  # the case both keeps and suppresses
 
 
+@pytest.mark.parametrize("thr", [0.45, 0.7])
+def test_greedy_keep_at_k4096_matches_jax_fixed_point(thr):
+    """Validation's K = 4096 (beyond the Pallas kernel's K <= 1024): the plain keep against the JAX fixed point and
+    a sequential numpy greedy."""
+    rng = np.random.default_rng(4096 + int(thr * 100))
+    k = 4096
+    boxes = clustered_boxes(rng, 1, k, clusters=48).numpy()
+    valid = rng.random((1, k)) > 0.1
+    got = greedy_keep(torch.from_numpy(boxes), torch.from_numpy(valid), thr).numpy()
+    upper = jnp.triu(jnp.ones((k, k), bool), 1)
+    fixed_point = np.asarray(_greedy_keep(upper & (_iou_matrix(jnp.asarray(boxes[0])) > thr), jnp.asarray(valid[0])))
+    np.testing.assert_array_equal(got[0], fixed_point)
+    np.testing.assert_array_equal(got[0], greedy_numpy(boxes[0], valid[0], thr))
+    assert 0 < got.sum() < valid.sum()
+
+
 def random_preds(rng, b, a, nc):
     """Decoded predictions: xywh boxes and skewed scores."""
     c = rng.random((b, a, 2)) * 160

@@ -17,6 +17,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import cv2
 import jax
 import numpy as np
 import pytest
@@ -25,10 +26,12 @@ import torch
 from chip_smoke import spread_weights
 from drone_yolo_tpu import YOLO as JaxYOLO
 from drone_yolo_tpu.engine.checkpoint import save_checkpoint
+from drone_yolo_tpu.ops.letterbox import letterbox_np
 from drone_yolo_tpu.utils.torch_convert import convert_state_dict
 from drone_yolo_tpu_torch import YOLO
 from drone_yolo_tpu_torch.engine import model as engine_model
 from drone_yolo_tpu_torch.engine.checkpoint import flatten_tree, from_jax_variables
+from drone_yolo_tpu_torch.ops.letterbox import letterbox_u8, resize_linear_u8
 
 torch.set_num_threads(1)
 
@@ -121,17 +124,56 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_predict_sources_and_arguments(pair):
-    port, _, frames, _ = pair
+    port, ref, frames, _ = pair
     one = port.predict(source=frames[0], **PREDICT)
     assert len(one) == 1 and one[0].boxes.data.shape[1] == 6
-    mixed = port.predict(source=[frames[0], np.ascontiguousarray(frames[1][:80])], **PREDICT)
+    # frames of mixed shapes, both resized (96x160 to 77x128, 80x160 to 64x128): the uint8 letterbox of the port
+    # against cv2's in the JAX facade
+    source = [frames[0], np.ascontiguousarray(frames[1][:80])]
+    mixed = port.predict(source=source, **PREDICT)
     assert [r.orig_shape for r in mixed] == [(96, 160), (80, 160)]
+    assert_same_results(mixed, ref.predict(source=source, **PREDICT))
     top = port.predict(source=frames, **{**PREDICT, "conf": 0.0, "max_det": 7, "classes": [3]})
     assert all(len(r.boxes) <= 7 and set(r.boxes.cls) <= {3.0} for r in top)
     with pytest.raises(TypeError, match="not ported yet"):
         port.predict(source="bus.jpg", **PREDICT)
     with pytest.raises(KeyError, match="unsupported"):
         port.predict(source=frames, save_txt=True)
+
+
+@pytest.mark.parametrize("src,dst", [((720, 1280), (360, 640)), ((1080, 1920), (360, 640)), ((720, 1280), (90, 160))])
+def test_resize_u8_equals_cv2_at_integer_factors(src, dst):
+    """OpenCV's fixed-point INTER_LINEAR, exactly: 720p and 1080p drone frames to the 640 px letterbox, and 8x down."""
+    img = np.random.default_rng(src[0] + dst[0]).integers(0, 256, (*src, 3), dtype=np.uint8)
+    got = resize_linear_u8(torch.from_numpy(img)[None], dst)[0].numpy()
+    np.testing.assert_array_equal(got, cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR))
+
+
+@pytest.mark.parametrize("src,dst", [((96, 160), (77, 128)), ((480, 640), (360, 480)), ((333, 517), (640, 994)),
+                                     ((100, 100), (230, 230)), ((720, 1280), (137, 243)), ((64, 48), (640, 480))])
+def test_resize_u8_within_one_of_cv2_elsewhere(src, dst):
+    """Other downscales and upscales: within 1 grey level of cv2, and at least 99.5% of values equal (OpenCV's
+    scalar tail rounds (S0 b0 + S1 b1 + 2**21) >> 22 where its vector code rounds the shifted products)."""
+    img = np.random.default_rng(src[1] + dst[1]).integers(0, 256, (*src, 3), dtype=np.uint8)
+    got = resize_linear_u8(torch.from_numpy(img)[None], dst)[0].numpy().astype(int)
+    diff = np.abs(got - cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR).astype(int))
+    share = float((diff == 0).mean())
+    print(f"{src} -> {dst}: {share:.5f} of values equal to cv2, largest difference {diff.max()}")
+    assert diff.max() <= 1 and share >= 0.995
+
+
+def test_letterbox_u8_equals_jax_host_letterbox():
+    """The whole uint8 letterbox (resize and 114 border) against the JAX package's cv2 one, on a 720p and a 1080p
+    frame to 640 px."""
+    rng = np.random.default_rng(2)
+    for shape in ((720, 1280, 3), (1080, 1920, 3), (500, 375, 3)):
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        want = letterbox_np(img, (640, 640))[0]
+        got = letterbox_u8(torch.from_numpy(img)[None], (640, 640))[0].numpy()
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert got.shape == want.shape and diff.max() <= 1 and (diff == 0).mean() >= 0.995
+        if shape[0] in (720, 1080):
+            np.testing.assert_array_equal(got, want)
 
 
 BLOCKER = """
@@ -161,8 +203,14 @@ batch = chip_smoke.synthetic_batch(np.random.default_rng(0), 2, 64, 2)
 trainer = BaseTrainer(overrides=dict(model="yolov8n-p2-repvgg-sf.yaml", batch=2, imgsz=64, nbs=2, device="cpu", amp=False,
                                      optimizer="SGD", s2grad="cuda"), train_loader=[batch], data={"nc": 2})
 steps = trainer.run_steps()
+both = BaseTrainer(overrides=dict(model="yolov8n-p2-repvgg-sf.yaml", batch=2, imgsz=64, nbs=2, device="cpu", amp=False,
+                                  optimizer="SGD", s2grad="cuda", bnstats="cuda"), train_loader=[batch], data={"nc": 2},
+                   val_loader=[chip_smoke.synthetic_batch(np.random.default_rng(1), 2, 64, 2, val=True)])
+steps += both.run_steps()
+metrics = both.validate()
 print(json.dumps({"modules": mods, "n": [len(r.boxes) for r in res], "train_loss": [s["loss"] for s in steps],
-                  "optimizer_steps": trainer.step, "loaded": sorted(m for m in BLOCKED if m in sys.modules)}))
+                  "optimizer_steps": trainer.step + both.step, "metrics": metrics,
+                  "loaded": sorted(m for m in BLOCKED if m in sys.modules)}))
 """
 
 
@@ -172,9 +220,11 @@ def test_port_runs_without_jax_cv2_pil_yaml():
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {"drone_yolo_tpu_torch.ops.cuda_nms", "drone_yolo_tpu_torch.engine.predictor", "drone_yolo_tpu_torch.ops.cuda_s2bwd",
-            "drone_yolo_tpu_torch.engine.trainer"} <= set(out["modules"])
+            "drone_yolo_tpu_torch.engine.trainer", "drone_yolo_tpu_torch.engine.validator", "drone_yolo_tpu_torch.ops.cuda_bnstats",
+            "drone_yolo_tpu_torch.utils.metrics"} <= set(out["modules"])
     assert out["loaded"] == [] and all(n > 0 for n in out["n"])
-    assert out["optimizer_steps"] == 1 and all(math.isfinite(v) for v in out["train_loss"])
+    assert out["optimizer_steps"] == 2 and all(math.isfinite(v) for v in out["train_loss"])
+    assert set(out["metrics"]) == {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)", "fitness"}
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
