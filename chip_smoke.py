@@ -8,7 +8,9 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
 1. preflight: torch, CUDA, nvcc and the card (name and power limit from nvidia-smi);
 2. build: compiles the greedy-NMS kernel (`drone_yolo_tpu_torch/csrc/greedy_nms.cu`), the
    stride-2 conv backward (`csrc/s2_bwd.cu`) and the BN statistics (`csrc/bn_stats.cu`) with
-   nvcc, in parallel, and prints the three ptxas reports;
+   nvcc, in parallel, and prints the three ptxas reports, the build's seconds, and the
+   tensor-core instructions (HMMA, HGMMA) of each stride-2 kernel by `cuobjdump -sass` (or that
+   the toolkit has no cuobjdump): the bf16 kernels must have them;
 3. kernel_vs_plain: the NMS kernel's keep mask against `greedy_keep_reference` on the card,
    B=8, K in {128, 640, 1024, 4096, 8192} (staged in shared memory), IoU thresholds {0.45, 0.7}:
    masks must be equal, and every case must both keep and suppress. The stride-2 backward
@@ -31,8 +33,9 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    synthetic batch with s2grad="cuda", the same 6 steps from the same init with stock
    autograd, and again with s2grad="cuda" and bnstats="cuda". Counts are set to 0 before each
    run and read after it: the kernel runs must call the stride-2 backward 8 (k=3) and 4 (k=1)
-   times per step, the stock run never; the third run must call the BN-statistics kernel 77
-   times per step (2 launches each), the other two never. Checks: finite losses, each step's
+   times per step, every call through the bf16 tensor-core implementation, the stock run
+   never; the third run must call the BN-statistics kernel 77 times per step (2 launches
+   each), the other two never. Checks: finite losses, each step's
    loss within `TRAIN_LOSS_RTOL` of the stock run's; step ms, img/s and peak memory of each
    run, then the three paths timed again in turns (kernel, stock, both, both, stock, kernel; 5 steps each);
 6. validate: `trainer.validate()` on the third run's EMA weights, over 4 synthetic batches of 8
@@ -43,7 +46,8 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    [0, 1]; the validator's per-image times and img/s;
 7. kernels: each kernel's time at the main path's shapes against its plain version, its
    bound and the library call where there is one (cuDNN's `convolution_backward` at the
-   stride-2 sites, `torch.batch_norm_stats` at the BN sites);
+   stride-2 sites, `torch.batch_norm_stats` at the BN sites); the stride-2 backward also at
+   each of the 12 sites against cuDNN there, with TFLOP/s, GB/s and the share of the bound;
 8. profile: the device busy share and the device time by kernel of batch-8 predicts, of
    train steps with the stride-2 kernel, and of train steps with both kernels (torch.profiler);
 9. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
@@ -58,10 +62,12 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -139,10 +145,15 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, tries: int = 3) -> float:
     """Mean device milliseconds per call: the summed durations of the kernels and copies that `reps` calls of `fn`
-    run (torch.profiler, after one warm-up call), without the gaps in which the card waits for the host."""
-    return profile_device(fn, steps=reps)["device_ms_per_step"]
+    run (torch.profiler, after one warm-up call), without the gaps in which the card waits for the host. A trace
+    that recorded no device activity at all (seen once in a long run) is taken again, up to `tries` times."""
+    for _ in range(tries):
+        ms = profile_device(fn, steps=reps)["device_ms_per_step"]
+        if ms > 0:
+            return ms
+    raise AssertionError(f"torch.profiler recorded no device time in {tries} traces")
 
 
 def kernel_times(fn, reps: int, prefix: str = "") -> dict:
@@ -221,6 +232,31 @@ def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
             v = t.cpu().numpy()
         out[name] = torch.from_numpy(v.astype(np.float32))
     return out
+
+
+def sass_counts(library: Path) -> dict:
+    """Tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) per kernel of a built library, by `cuobjdump -sass`
+    from nvcc's toolkit; {"cuobjdump": "absent"} where the toolkit has none. Kernels are named as in the source,
+    with their template arguments."""
+    from drone_yolo_tpu_torch.ops.cuda_build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return {"cuobjdump": "absent"}
+    counts, name = {}, None
+    for line in sh(str(tool), "-sass", str(library)).splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            mangled = fn.group(1)
+            m = re.search(r"s2_d[wx]_[a-z]+", mangled)  # the source name: lower case, up to the mangling's next capital
+            name = m.group(0) if m else mangled
+            args = re.findall(r"Li(\d+)E", mangled)
+            name += f"<{','.join(args)}>" if args else ""
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in counts[name]:
+                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
 
 
 def profile_device(fn, steps: int, top: int = 15) -> dict:
@@ -361,8 +397,15 @@ def main() -> None:
         built = list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
         lib.load()
+    build_s = time.perf_counter() - t
+    sass = sass_counts(built[libraries.index(cuda_s2bwd.LIBRARY)])
+    if "cuobjdump" not in sass:
+        bf16_kernels = {n: c for n, c in sass.items() if n.startswith(("s2_dw_mma", "s2_dx_mma"))}
+        if {n.split("<")[0] for n in bf16_kernels} != {"s2_dw_mma", "s2_dx_mma"} or not all(
+                c["HMMA"] + c["HGMMA"] > 0 for c in bf16_kernels.values()):
+            raise AssertionError(f"every bf16 stride-2 kernel should run on tensor cores, SASS: {sass}")
     emit("build", t, libraries={p.name: cuda_build.report_path(p).read_text().strip().splitlines() for p in built},
-         nms_max_staged_k=cuda_nms.max_staged_k())
+         build_s=build_s, s2_sass_tensor_core_instructions=sass, nms_max_staged_k=cuda_nms.max_staged_k())
 
     # 3. kernels vs plain -----------------------------------------------------
     t = time.perf_counter()
@@ -516,7 +559,7 @@ def main() -> None:
     t = time.perf_counter()
     batch = synthetic_batch(np.random.default_rng(0), TRAIN["batch"], TRAIN["imgsz"], TRAIN["nc"])
     modes = {"kernel": ("cuda", None), "stock": (None, None), "both": ("cuda", "cuda")}  # (s2grad, bnstats)
-    runs, s2_calls, s2_launches, bn_counts, trainers = {}, {}, {}, {}, {}
+    runs, s2_calls, s2_launches, s2_impls, bn_counts, trainers = {}, {}, {}, {}, {}, {}
     for run, (s2grad, bnstats) in modes.items():
         trainer = BaseTrainer(overrides=dict(model=FLAGSHIP, batch=TRAIN["batch"], imgsz=TRAIN["imgsz"], nbs=TRAIN["batch"],
                                              optimizer="SGD", amp=True, s2grad=s2grad, bnstats=bnstats),
@@ -526,13 +569,15 @@ def main() -> None:
         cuda_bnstats.reset_counts()
         steps = trainer.run_steps()
         s2_calls[run], s2_launches[run] = dict(cuda_s2bwd.s2_bwd_cuda.calls), dict(cuda_s2bwd.s2_bwd_cuda.launches)
+        s2_impls[run] = {impl: dict(c) for impl, c in cuda_s2bwd.s2_bwd_cuda.impl_calls.items()}
         bn_counts[run] = {"calls": cuda_bnstats.bn_stats_cuda.calls, "launches": cuda_bnstats.bn_stats_cuda.launches,
                           "contiguous_copies": cuda_bnstats.bn_stats_cuda.copies}
         ms = [r["ms"] for r in steps[1:]]  # the first step builds cuDNN's plans
         runs[run] = {"s2grad": s2grad, "bnstats": bnstats, "loss": [r["loss"] for r in steps], "items": [r["items"] for r in steps],
                      "step_ms_median": float(np.median(ms)), "img_per_s": TRAIN["batch"] / float(np.median(ms)) * 1e3,
                      "first_step_ms": steps[0]["ms"], "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-                     "s2_calls": s2_calls[run], "s2_launches": s2_launches[run], "s2_contiguous_copies": cuda_s2bwd.s2_bwd_cuda.copies,
+                     "s2_calls": s2_calls[run], "s2_launches": s2_launches[run], "s2_impl_calls": s2_impls[run],
+                     "s2_contiguous_copies": cuda_s2bwd.s2_bwd_cuda.copies,
                      "bn_stats": bn_counts[run]}
         trainers[run] = trainer
     per_step = {cuda_s2bwd.NAMES[k]: n_sites[k] for k in KINDS}
@@ -541,6 +586,9 @@ def main() -> None:
         if s2_calls[run] != {n: TRAIN["steps"] * c for n, c in per_step.items()} or s2_launches[run] != want_launches:
             raise AssertionError(f"{run} run: stride-2 backward calls {s2_calls[run]} and launches {s2_launches[run]}, "
                                  f"expected {per_step} calls per step and {want_launches} launches")
+        tensor_cores = cuda_s2bwd.IMPLS[torch.bfloat16]
+        if s2_impls[run][tensor_cores] != s2_calls[run]:
+            raise AssertionError(f"{run} run: every bf16 stride-2 call should run on {tensor_cores}, got {s2_impls[run]}")
     if any(s2_calls["stock"].values()):
         raise AssertionError(f"the stock run called the stride-2 backward kernel: {s2_calls['stock']}")
     want_bn = {"calls": TRAIN["steps"] * len(bn), "launches": 2 * TRAIN["steps"] * len(bn)}
@@ -655,22 +703,33 @@ def main() -> None:
         for prefix, fn in calls.items():
             times.update(kernel_times(fn, reps=2 if prefix == "plain_" else 5, prefix=prefix))
         per_site = []
-        for site in kind_sites:
+        for site, (x, w, dy) in zip(kind_sites, inputs):  # each site alone: the kernel against cuDNN there
             n_bytes, n_ops = s2_cost(site)
-            per_site.append({"site": site["name"], "x": site["x"], "w": site["w"], "need_dx": site["need_dx"],
-                             "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": n_ops / PEAK_BF16_PER_S * 1e3})
-            per_site[-1]["bound_ms"] = max(per_site[-1]["bytes_ms"], per_site[-1]["ops_ms"])
-        del inputs
+            b, ci, h, wd = site["x"]
+            row = {"site": site["name"], "x": site["x"], "w": site["w"], "need_dx": site["need_dx"],
+                   "plan": cuda_s2bwd.device_plan(x.device, b, ci, h, wd, site["w"][0], kind, torch.bfloat16)._asdict(),
+                   "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": n_ops / PEAK_BF16_PER_S * 1e3}
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=site["need_dx"]: cuda_s2bwd.s2_bwd_cuda(x, w, dy, kind, nd),
+                                    reps=10))
+            row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=site["need_dx"]: torch.ops.aten.convolution_backward(
+                dy, x, w, None, [2, 2], [p, p], [1, 1], False, [0, 0], 1, [nd, True, False]), reps=10, prefix="library_"))
+            row.update(tflop_per_s=n_ops / row["ms"] / 1e9, gb_per_s=n_bytes / row["ms"] / 1e6,
+                       bound_share=row["bound_ms"] / row["ms"], library_bound_share=row["bound_ms"] / row["library_ms"],
+                       vs_library=row["ms"] / row["library_ms"])
+            per_site.append(row)
+        del inputs, x, w, dy
         bf16 = [c for c in s2_cases if c["k"] == kind and c["dtype"] == "bfloat16"]
         kernels.append({
-            "name": name, "route": "cuda", "impl": "cuda", "source": "drone_yolo_tpu_torch/csrc/s2_bwd.cu",
+            "name": name, "route": "cuda", "impl": cuda_s2bwd.IMPLS[torch.bfloat16], "source": "drone_yolo_tpu_torch/csrc/s2_bwd.cu",
             "replaces": replaces[kind], "launches": s2_launches["kernel"][name], "calls": s2_calls["kernel"][name],
             "launches_per_step": s2_launches["kernel"][name] // TRAIN["steps"], "calls_per_step": per_step[name],
             "max_abs_err": max(max(c["dw_err"], c.get("dx_err", 0.0)) for c in bf16), "match": True, **times,
             "bound_ms": sum(r["bound_ms"] for r in per_site),
             "bound_by": "bytes" if sum(r["bytes_ms"] for r in per_site) >= sum(r["ops_ms"] for r in per_site) else "operations",
             "per": "train step: one bf16 call at each of the flagship's sites (batch 8, 640 px); ms is device time "
-                   "(torch.profiler), event_ms CUDA events around back-to-back calls; library: cuDNN convolution_backward",
+                   "(torch.profiler), event_ms CUDA events around back-to-back calls; library: cuDNN convolution_backward; "
+                   "sites: each site alone, kernel and cuDNN",
             "sites": per_site,
         })
     xs = [site_input(site["x"], torch.bfloat16, seed=200 + i) for i, site in enumerate(bn)]

@@ -33,11 +33,6 @@ def covers(conv: nn.Conv2d, x: torch.Tensor) -> bool:
             and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0)
 
 
-def _parity_taps(k: int, p: int, parity: int) -> list[tuple[int, int]]:
-    """Taps (ky, dy row offset) feeding dx rows y = 2r + parity: y = 2i + ky - p gives i = r + (parity + p - ky) / 2."""
-    return [(ky, (parity + p - ky) // 2) for ky in range(k) if (ky - p) % 2 == parity]
-
-
 def s2_bwd_reference(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, k: int, need_dx: bool = True):
     """Plain (dx, dw) of `conv2d(x, w, stride=2, padding=KINDS[k])`, with float32 sums (float64 for float64 inputs).
 
@@ -60,8 +55,8 @@ def s2_bwd_reference(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, k: int,
     dx = xf.new_zeros((b, ci, h, wd))
     for py in (0, 1):
         for px in (0, 1):
-            for ky, oy in _parity_taps(k, p, py):
-                for kx, ox in _parity_taps(k, p, px):
+            for ky, oy in cuda_s2bwd.parity_taps(k, py):
+                for kx, ox in cuda_s2bwd.parity_taps(k, px):
                     dx[:, :, py::2, px::2] += torch.einsum("bohw,oc->bchw", dyp[:, :, oy:oy + ho, ox:ox + wo], wf[:, :, ky, kx])
     return dx.to(x.dtype), dw
 

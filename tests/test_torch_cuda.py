@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import S2_TOL, bn_stats_errors, clustered_boxes, synthetic_batch
+from chip_smoke import S2_SUM_FLOOR, S2_TOL, bn_stats_errors, clustered_boxes, synthetic_batch
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
 from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
 from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
@@ -123,20 +123,30 @@ def test_bn_stats_gradient_matches_autograd(cuda_device, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("k,ci,co,h,w,need_dx", [(3, 3, 8, 16, 16, False), (3, 8, 16, 20, 20, True), (3, 5, 7, 12, 20, True),
-                                                 (1, 8, 16, 16, 16, True), (3, 67, 130, 10, 6, True), (1, 3, 70, 2, 34, True)])
-def test_s2_kernel_matches_plain(cuda_device, k, ci, co, h, w, need_dx, dtype):
-    """Small shapes, odd channel counts and tiles with ragged edges, at chip_smoke.S2_TOL."""
+@pytest.mark.parametrize("b,k,ci,co,h,w,need_dx", [
+    (2, 3, 3, 8, 16, 16, False), (2, 3, 8, 16, 20, 20, True), (2, 3, 5, 7, 12, 20, True), (2, 1, 8, 16, 16, 16, True),
+    (2, 3, 67, 130, 10, 6, True), (2, 1, 3, 70, 2, 34, True),
+    (1, 3, 3, 32, 40, 40, False),  # the image layer's Ci = 3 and Co = 32, no dx, 20x20 dy, one image
+    (3, 3, 40, 32, 40, 40, True),  # Co = 32 with dx; Ci = 40 is 1.25 dx tiles of 32; three images
+    (3, 1, 40, 72, 40, 40, True),  # k=1 with Ci and Co off every tile
+    (1, 3, 96, 80, 24, 48, True),  # 64-channel dx tiles (Ci > 32), 1.5 of them; Co = 80; 12x24 dy
+    (1, 1, 33, 16, 64, 128, True),  # Ci = 33: one channel into a second tile; 64-wide tiles
+    (2, 3, 32, 64, 160, 160, True),  # model.1's channels at 80x80 dy: many split-K partials
+])
+def test_s2_kernel_matches_plain(cuda_device, b, k, ci, co, h, w, need_dx, dtype):
+    """Small shapes, odd channel counts, ragged tiles and image edges, at chip_smoke.S2_TOL; bf16 through the
+    tensor-core implementation, float32 through the CUDA-core one; dw and dx bitwise equal on a second call."""
     g = torch.Generator(device=cuda_device).manual_seed(ci * co + h)
     dt = getattr(torch, dtype)
-    x = torch.randn(2, ci, h, w, generator=g, device=cuda_device).to(dt)
+    x = torch.randn(b, ci, h, w, generator=g, device=cuda_device).to(dt)
     wt = (torch.randn(co, ci, k, k, generator=g, device=cuda_device) * 0.1).to(dt)
-    dy = torch.randn(2, co, h // 2, w // 2, generator=g, device=cuda_device).to(dt)
-    calls = dict(cuda_s2bwd.s2_bwd_cuda.calls)
+    dy = torch.randn(b, co, h // 2, w // 2, generator=g, device=cuda_device).to(dt)
+    name, impl = cuda_s2bwd.NAMES[k], cuda_s2bwd.IMPLS[dt]
+    calls, impl_calls = dict(cuda_s2bwd.s2_bwd_cuda.calls), dict(cuda_s2bwd.s2_bwd_cuda.impl_calls[impl])
     dx, dw = conv_s2.s2_bwd(x, wt, dy, k, need_dx)
     torch.cuda.synchronize()
-    name = cuda_s2bwd.NAMES[k]
     assert cuda_s2bwd.s2_bwd_cuda.calls[name] == calls[name] + 1
+    assert cuda_s2bwd.s2_bwd_cuda.impl_calls[impl][name] == impl_calls[name] + 1
     dx_p, dw_p = conv_s2.s2_bwd_reference(x, wt, dy, k, need_dx)
     assert dw.dtype == torch.float32
     torch.testing.assert_close(dw, dw_p, **S2_TOL[dtype]["dw"])
@@ -145,6 +155,27 @@ def test_s2_kernel_matches_plain(cuda_device, k, ci, co, h, w, need_dx, dtype):
         torch.testing.assert_close(dx.float(), dx_p.float(), **S2_TOL[dtype]["dx"])
     else:
         assert dx is None
+    dx2, dw2 = conv_s2.s2_bwd(x, wt, dy, k, need_dx)
+    assert torch.equal(dw2, dw) and (dx is None or torch.equal(dx2, dx))
+
+
+@pytest.mark.parametrize("k", [3, 1])
+def test_s2_kernel_dw_is_bitwise_repeatable(cuda_device, k):
+    """bf16 at model.3's shape (batch 8, 64 -> 128 channels, 160x160 x): dw sums 62 split-K partials in a fixed
+    order and has no atomics, so two calls give bitwise-equal dw (and dx); both within S2_TOL of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    x = torch.randn(8, 64, 160, 160, generator=g, device=cuda_device).bfloat16()
+    wt = (torch.randn(128, 64, k, k, generator=g, device=cuda_device) / (8 * k)).bfloat16()
+    dy = torch.randn(8, 128, 80, 80, generator=g, device=cuda_device).bfloat16()
+    assert cuda_s2bwd.plan(8, 64, 160, 160, 128, k, torch.bfloat16).splits > 1
+    dx1, dw1 = cuda_s2bwd.s2_bwd_cuda(x, wt, dy, k)
+    dx2, dw2 = cuda_s2bwd.s2_bwd_cuda(x, wt, dy, k)
+    assert torch.equal(dw1, dw2) and torch.equal(dx1, dx2)
+    dx_p, dw_p = conv_s2.s2_bwd_reference(x, wt, dy, k)
+    tol = dict(S2_TOL["bfloat16"]["dw"])
+    tol["atol"] += S2_SUM_FLOOR * float(dw_p.abs().max())
+    torch.testing.assert_close(dw1, dw_p, **tol)
+    torch.testing.assert_close(dx1.float(), dx_p.float(), **S2_TOL["bfloat16"]["dx"])
 
 
 def test_s2_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -153,6 +184,11 @@ def test_s2_kernel_refuses_what_it_does_not_take(cuda_device):
         cuda_s2bwd.s2_bwd_cuda(x[..., :5], torch.zeros(8, 4, 3, 3, device=cuda_device), torch.zeros(1, 8, 3, 3, device=cuda_device), 3)
     with pytest.raises(TypeError, match="float32"):
         cuda_s2bwd.s2_bwd_cuda(x.half(), torch.zeros(8, 4, 3, 3, device=cuda_device).half(), torch.zeros(1, 8, 3, 3, device=cuda_device).half(), 3)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    with pytest.raises(ValueError, match="aligned"):  # bf16 x one element past an allocation's start
+        cuda_s2bwd.s2_bwd_cuda(_misaligned((1, 4, 6, 6), torch.bfloat16, g, cuda_device),
+                               torch.zeros(8, 4, 3, 3, device=cuda_device).bfloat16(),
+                               torch.zeros(1, 8, 3, 3, device=cuda_device).bfloat16(), 3)
 
 
 def test_train_step_with_the_kernel_matches_stock(cuda_device):
