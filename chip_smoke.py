@@ -6,14 +6,17 @@ validates the flagship.
 Phases, one JSON line each (with the seconds it took), flushed as they end:
 
 1. preflight: torch, CUDA, nvcc and the card (name and power limit from nvidia-smi);
-2. build: compiles the greedy-NMS kernel (`drone_yolo_tpu_torch/csrc/greedy_nms.cu`), the
+2. build: compiles the greedy-NMS kernels (`drone_yolo_tpu_torch/csrc/greedy_nms.cu`), the
    stride-2 conv backward (`csrc/s2_bwd.cu`) and the BN statistics (`csrc/bn_stats.cu`) with
-   nvcc, in parallel, and prints the three ptxas reports, the build's seconds, and the
-   tensor-core instructions (HMMA, HGMMA) of each stride-2 kernel by `cuobjdump -sass` (or that
-   the toolkit has no cuobjdump): the bf16 kernels must have them;
-3. kernel_vs_plain: the NMS kernel's keep mask against `greedy_keep_reference` on the card,
-   B=8, K in {128, 640, 1024, 4096, 8192} (staged in shared memory), IoU thresholds {0.45, 0.7}:
-   masks must be equal, and every case must both keep and suppress. The stride-2 backward
+   nvcc, in parallel, and prints the three ptxas reports, the build's seconds, the NMS
+   bitmask's workspace bytes at predict's and validation's K, and the tensor-core instructions
+   (HMMA, HGMMA) of each stride-2 kernel by `cuobjdump -sass` (or that the toolkit has no
+   cuobjdump): the bf16 kernels must have them;
+3. kernel_vs_plain: greedy NMS, B=8 at K in {128, 640, 1024, 4096, 8192} and B=1 at K=12288,
+   IoU thresholds {0.45, 0.7}: the bitmask kernel's words against `suppression_words_reference`
+   (image by image), the keep mask of the two kernels against `greedy_keep_reference`, and (up
+   to K = 4096) against `sweep_reference` over the kernel's words: all equal, and every case
+   must both keep and suppress. The stride-2 backward
    kernel against `s2_bwd_reference` at every dense stride-2 site of the flagship (batch 8,
    640 px: 8 with k=3, 4 with k=1), in float32 (TF32 off) and bfloat16, within `S2_TOL`. The
    BN-statistics kernel against `bn_stats_reference` at all 77 train-mode BN inputs of the
@@ -34,25 +37,32 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    autograd, and again with s2grad="cuda" and bnstats="cuda". Counts are set to 0 before each
    run and read after it: the kernel runs must call the stride-2 backward 8 (k=3) and 4 (k=1)
    times per step, every call through the bf16 tensor-core implementation, the stock run
-   never; the third run must call the BN-statistics kernel 77 times per step (2 launches
+   never; the third run must call the BN-statistics kernel 77 times per step (1 launch
    each), the other two never. Checks: finite losses, each step's
    loss within `TRAIN_LOSS_RTOL` of the stock run's; step ms, img/s and peak memory of each
    run, then the three paths timed again in turns (kernel, stock, both, both, stock, kernel; 5 steps each);
 6. validate: `trainer.validate()` on the third run's EMA weights, over 4 synthetic batches of 8
    at 640 px with 80 classes, at conf 0.001 and again at conf 0.0 (all 4096 multi-label
    candidates of each image valid: the NMS kernel's real work), counts set to 0 before each.
-   Checks: K = 4096 in both, one NMS launch per batch, the NMS step with the kernel equal to
+   Checks: K = 4096 in both, one NMS call (two launches) per batch, the NMS step with the kernel equal to
    the step with the plain keep on the same predictions, P, R, mAP50 and mAP50-95 finite and in
    [0, 1]; the validator's per-image times and img/s;
 7. kernels: each kernel's time at the main path's shapes against its plain version, its
    bound and the library call where there is one (cuDNN's `convolution_backward` at the
-   stride-2 sites, `torch.batch_norm_stats` at the BN sites); the stride-2 backward also at
-   each of the 12 sites against cuDNN there, with TFLOP/s, GB/s and the share of the bound;
+   stride-2 sites, `torch.batch_norm_stats` at the BN sites); greedy NMS with its two
+   launches' device times apart; the stride-2 backward also at each of the 12 sites against
+   cuDNN there, with TFLOP/s, GB/s and the share of the bound; the BN statistics at each of
+   the 77 sites (timed once per distinct shape) against `torch.batch_norm_stats`, with the
+   share of the bound;
 8. profile: the device busy share and the device time by kernel of batch-8 predicts, of
    train steps with the stride-2 kernel, and of train steps with both kernels (torch.profiler);
 9. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
+
+Greedy NMS is two launches a call (a suppression bitmask over many CTAs, then a sweep, one
+CTA per image), the BN statistics one: the checks of the main path count NMS calls, and
+the `kernels` line gives launches.
 Any failure ends the script with a traceback and a non-zero exit code. Without a CUDA
 card it exits with code 1 before any phase.
 """
@@ -94,7 +104,9 @@ S2_SUM_FLOOR = 2e-6
 # by far less than this
 TRAIN_LOSS_RTOL = 2e-2
 IOU_OPS = 14  # per IoU and compare: 4 min/max, 2 sub, 2 clamp, mul, add, sub, add, div, compare
-NMS_KS = (128, 640, 1024, 4096, 8192)  # predict's K = 1024, validate's K = 4096 (pre_nms_topk), one K above it
+# (B, K): predict's K = 1024, validate's K = 4096 (pre_nms_topk), two K above it
+NMS_CASES = tuple((8, k) for k in (128, 640, 1024, 4096, 8192)) + ((1, 12288),)
+NMS_SWEEP_PLAIN_MAX_K = 4096  # sweep_reference loops over the rows in Python: K launches of a few small ops
 # BN statistics, kernel vs plain on the same inputs, per channel: both sum the same values in float32 in different
 # orders (sums of up to 819,200 terms at the flagship's largest site), so the difference is held to BN_RTOL of the
 # sum of |x| (for the sums) or of x^2 (for the sums of squares), plus BN_ATOL; the result is no scale for a sum
@@ -377,7 +389,8 @@ def main() -> None:
     from drone_yolo_tpu_torch.ops.conv_s2 import KINDS, s2_bwd_reference
     from drone_yolo_tpu_torch.ops.letterbox import letterbox_u8
     from drone_yolo_tpu_torch.ops.nms import (
-        compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates)
+        compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates, suppression_words_reference,
+        sweep_reference)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -405,27 +418,38 @@ def main() -> None:
                 c["HMMA"] + c["HGMMA"] > 0 for c in bf16_kernels.values()):
             raise AssertionError(f"every bf16 stride-2 kernel should run on tensor cores, SASS: {sass}")
     emit("build", t, libraries={p.name: cuda_build.report_path(p).read_text().strip().splitlines() for p in built},
-         build_s=build_s, s2_sass_tensor_core_instructions=sass, nms_max_staged_k=cuda_nms.max_staged_k())
+         build_s=build_s, s2_sass_tensor_core_instructions=sass,
+         nms_workspace_bytes={f"B=8,K={k}": cuda_nms.workspace_bytes(8, k) for k in (1024, VAL["pre_nms_topk"])})
 
     # 3. kernels vs plain -----------------------------------------------------
     t = time.perf_counter()
     rng = np.random.default_rng(0)
     cases = []
-    for k in NMS_KS:
+    for b, k in NMS_CASES:
         for thr in (0.45, 0.7):
-            boxes = clustered_boxes(rng, 8, k, clusters=12 if k <= 1024 else 48).to(dev)
-            valid = torch.from_numpy(rng.random((8, k)) > 0.1).to(dev)
+            boxes = clustered_boxes(rng, b, k, clusters=12 if k <= 1024 else 48).to(dev)
+            valid = torch.from_numpy(rng.random((b, k)) > 0.1).to(dev)
+            words = cuda_nms.suppression_words_cuda(boxes, valid, thr)
             got = greedy_keep(boxes, valid, thr)
             torch.cuda.synchronize()
+            for i in range(b):  # image by image: the plain words take K * K * 8 bytes a image
+                want_words = suppression_words_reference(boxes[i:i + 1], valid[i:i + 1], thr)
+                if not torch.equal(words[i:i + 1], want_words):
+                    raise AssertionError(f"B={b} K={k} thr={thr} image {i}: kernel and plain suppression words differ "
+                                         f"in {int((words[i:i + 1] != want_words).sum())} words")
+                del want_words
             want = greedy_keep_reference(boxes, valid, thr)
             kept, suppressed = int(got.sum()), int((valid & ~got).sum())
             if not torch.equal(got, want):
-                raise AssertionError(f"K={k} thr={thr}: kernel and plain keep masks differ in {int((got != want).sum())} places")
+                raise AssertionError(f"B={b} K={k} thr={thr}: kernel and plain keep masks differ in {int((got != want).sum())} places")
+            if k <= NMS_SWEEP_PLAIN_MAX_K and not torch.equal(got, sweep_reference(words, valid)):
+                raise AssertionError(f"B={b} K={k} thr={thr}: the sweep kernel and sweep_reference over the same words differ")
             if kept == 0 or suppressed == 0:
-                raise AssertionError(f"K={k} thr={thr}: case must keep and suppress (kept {kept}, suppressed {suppressed})")
-            cases.append({"B": 8, "K": k, "thr": thr, "kept": kept, "suppressed": suppressed, "equal": True,
-                          "staged": k <= cuda_nms.max_staged_k()})
-            del boxes, valid, got, want
+                raise AssertionError(f"B={b} K={k} thr={thr}: case must keep and suppress (kept {kept}, suppressed {suppressed})")
+            cases.append({"B": b, "K": k, "thr": thr, "kept": kept, "suppressed": suppressed, "keep_equal": True,
+                          "words_equal": True, "sign_bit_words": int((words < 0).sum()),
+                          "sweep_vs_plain_sweep": k <= NMS_SWEEP_PLAIN_MAX_K})
+            del boxes, valid, words, got, want
     sites = s2_sites(DetectionModel(FLAGSHIP, nc=TRAIN["nc"]), TRAIN["batch"], TRAIN["imgsz"])
     n_sites = {k: sum(s["k"] == k for s in sites) for k in KINDS}
     if n_sites != {3: 8, 1: 4}:
@@ -489,7 +513,7 @@ def main() -> None:
     model = YOLO(FLAGSHIP)  # the card is the default device
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(8)]
-    cuda_nms.greedy_keep_cuda.launches = 0
+    cuda_nms.reset_counts()
     timings = {}
     for batch, reps in ((1, 10), (8, 5)):
         source = frames[:batch]
@@ -508,7 +532,7 @@ def main() -> None:
     res0 = model.predict(frames, conf=0.0, verbose=False)
     mixed = [frames[0], rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)]
     res_mixed = model.predict(mixed, conf=0.0, verbose=False)
-    launches = cuda_nms.greedy_keep_cuda.launches
+    nms_calls, launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
     if [r.orig_shape for r in res_mixed] != [(720, 1280), (1080, 1920)] or not all(
             len(r.boxes) > 0 and np.isfinite(r.boxes.data).all() for r in res_mixed):
         raise AssertionError("mixed-shape predict gave wrong shapes, no or non-finite detections")
@@ -516,8 +540,8 @@ def main() -> None:
         on_card = letterbox_u8(torch.from_numpy(frame).to(dev)[None], model.predictor.imgsz).cpu()
         if not torch.equal(on_card, letterbox_u8(torch.from_numpy(frame)[None], model.predictor.imgsz)):
             raise AssertionError(f"uint8 letterbox of a {frame.shape} frame differs between the card and the CPU")
-    if launches == 0:
-        raise AssertionError("the predict path never launched the greedy-NMS kernel")
+    if nms_calls == 0 or launches != 2 * nms_calls:
+        raise AssertionError(f"the predict path called the greedy-NMS kernels {nms_calls} times with {launches} launches")
     if not all(len(r.boxes) > 0 and r.boxes.data.shape[1] == 6 and np.isfinite(r.boxes.data).all() for r in res0):
         raise AssertionError("conf=0.0 predict gave no or non-finite detections")
 
@@ -548,7 +572,7 @@ def main() -> None:
     if not (box_err <= BOX_ATOL_PX and score_rel_err <= SCORE_RTOL):
         raise AssertionError(f"float32 predictions card vs CPU: box err {box_err} px, score relative err {score_rel_err}")
     emit("slice", t, model=FLAGSHIP, dtype="bfloat16", frame_hw=list(FRAME_HW), imgsz=pred.imgsz,
-         nms_launches=launches, timings=timings, conf0_n_valid=n_valid.tolist(), step_equals_plain_keep=True,
+         nms_calls=nms_calls, nms_launches=launches, timings=timings, conf0_n_valid=n_valid.tolist(), step_equals_plain_keep=True,
          mixed_shapes={"frames": [list(f.shape[:2]) for f in mixed], "n_det": [len(r.boxes) for r in res_mixed],
                        "letterbox_u8_card_equals_cpu": True},
          fp32_card_vs_cpu={"box_err_px": box_err, "score_rel_err": score_rel_err, "box_atol_px": BOX_ATOL_PX,
@@ -591,7 +615,7 @@ def main() -> None:
             raise AssertionError(f"{run} run: every bf16 stride-2 call should run on {tensor_cores}, got {s2_impls[run]}")
     if any(s2_calls["stock"].values()):
         raise AssertionError(f"the stock run called the stride-2 backward kernel: {s2_calls['stock']}")
-    want_bn = {"calls": TRAIN["steps"] * len(bn), "launches": 2 * TRAIN["steps"] * len(bn)}
+    want_bn = {"calls": TRAIN["steps"] * len(bn), "launches": TRAIN["steps"] * len(bn)}
     if {k: bn_counts["both"][k] for k in want_bn} != want_bn:
         raise AssertionError(f"both run: BN-statistics kernel {bn_counts['both']}, expected {want_bn}")
     if bn_counts["kernel"]["calls"] or bn_counts["stock"]["calls"]:
@@ -623,16 +647,17 @@ def main() -> None:
     for conf in (0.001, 0.0):
         if both_trainer.validator is not None:
             both_trainer.validator.args.conf = conf
-        cuda_nms.greedy_keep_cuda.launches = 0
+        cuda_nms.reset_counts()
         t_call = time.perf_counter()
         metrics = both_trainer.validate()
         wall = time.perf_counter() - t_call
-        val_launches = cuda_nms.greedy_keep_cuda.launches
+        val_calls, val_launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
         validator = both_trainer.validator
         if validator.args.conf != conf or validator.args.pre_nms_topk != VAL["pre_nms_topk"]:
             raise AssertionError(f"validator ran at conf {validator.args.conf}, pre_nms_topk {validator.args.pre_nms_topk}")
-        if val_launches != VAL["batches"]:
-            raise AssertionError(f"validation launched the greedy-NMS kernel {val_launches} times for {VAL['batches']} batches")
+        if val_calls != VAL["batches"] or val_launches != 2 * val_calls:
+            raise AssertionError(f"validation called the greedy-NMS kernels {val_calls} times ({val_launches} launches) "
+                                 f"for {VAL['batches']} batches")
         values = [metrics[k] for k in validator.metrics.keys]
         if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
             raise AssertionError(f"validation metrics out of [0, 1]: {metrics}")
@@ -650,7 +675,7 @@ def main() -> None:
             raise AssertionError(f"conf {conf}: validation NMS step with the kernel differs from the step with the plain keep")
         if conf == 0.0 and not bool(val_valid.all()):
             raise AssertionError(f"conf=0.0 should make all {VAL['pre_nms_topk']} candidates valid, got {int(val_valid.sum())}")
-        validation[str(conf)] = {"metrics": metrics, "nms_launches": val_launches, "K": int(val_valid.shape[1]),
+        validation[str(conf)] = {"metrics": metrics, "nms_calls": val_calls, "nms_launches": val_launches, "K": int(val_valid.shape[1]),
                                  "valid_candidates": int(val_valid.sum()), "n_det": n_valid.tolist(),
                                  "step_equals_plain_keep": True, "speed_ms_per_img": validator.speed,
                                  "img_per_s": validator.seen / wall, "images": validator.seen}
@@ -669,8 +694,11 @@ def main() -> None:
         n_bytes = b * k * (16 + 1 + 1)  # boxes and valid read once, keep written once
         n_ops = IOU_OPS * ious_needed(boxes, valid, keep, thr)
         bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_PER_S * 1e3
+        by_kernel = profile_device(lambda: greedy_keep(boxes, valid, thr), steps=20)["top"]
         return {"B": b, "K": k, "thr": thr, "kept": int(keep.sum()), "valid": int(valid.sum()),
                 "max_abs_err": float((keep.int() - keep_plain.int()).abs().max()),
+                "workspace_bytes": cuda_nms.workspace_bytes(b, k),
+                "device_ms_by_kernel": {r["name"]: r["device_ms"] for r in by_kernel},
                 **kernel_times(lambda: greedy_keep(boxes, valid, thr), reps=20),
                 **kernel_times(lambda: greedy_keep_reference(boxes, valid, thr), reps=3, prefix="plain_"),
                 "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -678,10 +706,11 @@ def main() -> None:
     nms_predict = nms_timing(off_boxes, valid, args.iou, keep_plain)  # predict: B=8, K=1024, conf 0
     nms_val = nms_timing(val_off, val_valid, validator.args.iou, val_keep_plain)  # validate: B=8, K=4096, conf 0
     del val_off, val_valid, val_keep_plain
+    val_calls = sum(v["nms_calls"] for v in validation.values())
     val_launches = sum(v["nms_launches"] for v in validation.values())
     kernels = [{
         "name": "greedy_nms", "route": "cuda", "impl": "cuda", "source": "drone_yolo_tpu_torch/csrc/greedy_nms.cu",
-        "replaces": "drone_yolo_tpu/ops/pallas_nms.py:89", "launches": launches + val_launches,
+        "replaces": "drone_yolo_tpu/ops/pallas_nms.py:89", "launches": launches + val_launches, "calls": nms_calls + val_calls,
         "launches_by_path": {"predict": launches, "validate": val_launches}, "match": True,
         **{k: nms_predict[k] for k in ("max_abs_err", "ms", "event_ms", "plain_ms", "plain_event_ms", "bound_ms", "bound_by")},
         "library_ms": None,
@@ -738,12 +767,20 @@ def main() -> None:
                        "plain_": lambda: [bn_stats_reference(x) for x in xs],
                        "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
         times.update(kernel_times(fn, reps=5, prefix=prefix))
-    per_site = [{"site": site["name"], "x": site["x"],
+    per_site = [{"site": site["name"], "x": site["x"], "plan": cuda_bnstats.split_channel(x.shape[0] * x.shape[2] * x.shape[3]),
                  "bytes_ms": (2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3,  # bf16 x read, (2, C) f32 written
                  "ops_ms": BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3} for site, x in zip(bn, xs)]
+    by_shape = {}  # each distinct shape alone (device time by torch.profiler): the kernel and torch.batch_norm_stats
+    for site, x in zip(bn, xs):
+        if site["x"] not in by_shape:
+            by_shape[site["x"]] = {"ms": device_ms(lambda x=x: cuda_bnstats.bn_stats_cuda(x), reps=20),
+                                   "library_ms": device_ms(lambda x=x: torch.batch_norm_stats(x, 1e-3), reps=20)}
     del xs
     for row in per_site:
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row.update(by_shape[row["x"]])
+        row.update(bound_share=row["bound_ms"] / row["ms"], library_bound_share=row["bound_ms"] / row["library_ms"],
+                   vs_library=row["ms"] / row["library_ms"])
     kernels.append({
         "name": "bn_stats", "route": "cuda", "impl": "cuda", "source": "drone_yolo_tpu_torch/csrc/bn_stats.cu",
         "replaces": "tools/bn_stat_probe.py:70", "launches": bn_counts["both"]["launches"], "calls": bn_counts["both"]["calls"],
@@ -754,8 +791,8 @@ def main() -> None:
         "bound_by": "bytes" if sum(r["bytes_ms"] for r in per_site) >= sum(r["ops_ms"] for r in per_site) else "operations",
         "per": "train step: one bf16 call at each of the flagship's 77 BN inputs (batch 8, 640 px); ms is device time "
                "(torch.profiler), event_ms CUDA events around back-to-back calls; plain: the stock path's cast and two "
-               "reductions; library: torch.batch_norm_stats",
-        "sites": per_site,
+               "reductions; library: torch.batch_norm_stats; sites: each distinct shape alone, kernel and library",
+        "sites_ms_sum": sum(r["ms"] for r in per_site), "sites": per_site,
     })
     emit("kernels", t, kernels=kernels)
 

@@ -1,9 +1,12 @@
 """Bind and launch the hand-written CUDA BatchNorm-statistics kernel (`csrc/bn_stats.cu`).
 
 Built and loaded by `ops/cuda_build.py`. One call computes the per-channel float32
-sum and sum of squares of an NCHW bfloat16 or float32 tensor with two launches on
-PyTorch's current stream: the per-block partials, then their sum in a fixed order.
-The wrapper allocates the (2, C) output and the float32 partials.
+sum and sum of squares of an NCHW bfloat16 or float32 tensor with one launch on
+PyTorch's current stream: each block reduces a run of one channel across the
+images, and the channel's last block to finish sums its partials in a fixed
+order. The wrapper allocates the (2, C) output; the float32 partials and the
+per-channel block counters are kept per device and stream and grow with the
+largest call.
 
 Replaces the TPU kernel `tools/bn_stat_probe.py:make_pallas_stats`.
 """
@@ -11,21 +14,23 @@ Replaces the TPU kernel `tools/bn_stat_probe.py:make_pallas_stats`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
-from drone_yolo_tpu_torch.ops.cuda_build import CudaLibrary
+from drone_yolo_tpu_torch.ops.cuda_build import CudaLibrary, on_device
 
-TARGET_BLOCKS = 8 * 132  # about eight 256-thread blocks per SM of an H100
-MIN_CHUNK = 2048  # least elements per block: 256 threads x one 16-byte vector of bf16
-VEC = 8  # a part's start stays 16-byte aligned in bf16 when the plane's is
+# values a block reads: 32 KB of bf16, 8 vectors of 16 bytes a thread of 256. Fewer, longer runs were faster at the
+# flagship's sites on an H100 than runs of 4-16 KB cut to fill the card with eight blocks an SM
+RUN = 16384
+VEC = 8  # a run's start stays on a 16-byte vector in bf16 (and float32) when the planes' starts do
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bn_stats_launch.argtypes = [p, p, p, i, i, i, ll, i, ll, p]
+    lib.bn_stats_launch.argtypes = [p, p, p, p, i, i, i, ll, i, ll, p]
     lib.bn_stats_launch.restype = i
     lib.bn_stats_error_string.argtypes = [i]
     lib.bn_stats_error_string.restype = ctypes.c_char_p
@@ -34,18 +39,37 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("bn_stats", [], _bind)
 
 
-def split_plane(n: int, c: int, hw: int) -> tuple[int, int]:
-    """(parts, chunk): each H*W plane is read by `parts` blocks of `chunk` elements, enough blocks to fill the card."""
-    parts = max(1, min(math.ceil(TARGET_BLOCKS / (n * c)), math.ceil(hw / MIN_CHUNK), 65535 // n))
-    chunk = math.ceil(math.ceil(hw / parts) / VEC) * VEC
-    return math.ceil(hw / chunk), chunk
+@functools.lru_cache(maxsize=None)
+def split_channel(total: int) -> tuple[int, int]:
+    """(parts, chunk): a channel's `total` = N * H*W values, image after image, are read by `parts` blocks of
+    `chunk` values each (a multiple of VEC, at most RUN)."""
+    parts = math.ceil(total / RUN)
+    chunk = math.ceil(math.ceil(total / parts) / VEC) * VEC
+    return math.ceil(total / chunk), chunk
+
+
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int, channels: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partials' workspace (at least `floats` float32) and the block counters (one int32 a channel, 0 between
+    calls) of one device and stream; both grow when a larger call comes."""
+    key = (device.index, stream)
+    ws, counter = _scratch.get(key, (None, None))
+    if counter is None or counter.numel() < channels:
+        counter = torch.zeros(channels, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    _scratch[key] = ws, counter
+    return ws, counter
 
 
 def bn_stats_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum, sum of squares), each (C,) float32, of an (N, C, H, W) float32 or bfloat16 tensor on the card, over
-    N, H and W; equal within summation order to `ops.bn_stats.bn_stats_reference`.
+    N, H and W; equal within summation order to `ops.bn_stats.bn_stats_reference`, and bitwise equal from call to
+    call.
 
-    Counts its calls in `bn_stats_cuda.calls` and its kernel launches (two per call) in `bn_stats_cuda.launches`;
+    Counts its calls in `bn_stats_cuda.calls` and its kernel launches (one per call) in `bn_stats_cuda.launches`;
     an input it has to make contiguous counts in `bn_stats_cuda.copies`.
     """
     if not x.is_cuda:
@@ -58,18 +82,18 @@ def bn_stats_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         x = x.contiguous()
         bn_stats_cuda.copies += 1
     n, c, h, w = x.shape
-    parts, chunk = split_plane(n, c, h * w)
+    parts, chunk = split_channel(n * h * w)
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    ws = torch.empty((n * parts, 2, c), dtype=torch.float32, device=x.device)
     lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bn_stats_launch(x.data_ptr(), ws.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], n, c, h * w, parts,
-                                  chunk, stream)
+    with on_device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws, counter = _workspace(x.device, stream, parts * 2 * c, c)
+        err = lib.bn_stats_launch(x.data_ptr(), ws.data_ptr(), out.data_ptr(), counter.data_ptr(), _DTYPES[x.dtype],
+                                  n, c, h * w, parts, chunk, stream)
     if err != 0:
         raise RuntimeError(f"BN-statistics kernel launch failed: {lib.bn_stats_error_string(err).decode()}")
     bn_stats_cuda.calls += 1
-    bn_stats_cuda.launches += 2
+    bn_stats_cuda.launches += 1
     return out[0], out[1]
 
 

@@ -9,6 +9,7 @@ headers. A failed build raises with the compiler's output; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Callable
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -32,6 +35,13 @@ def find_nvcc() -> str:
         if cand and Path(cand).is_file():
             return str(cand)
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's CUDA kernels cannot be built")
+
+
+def on_device(device: torch.device):
+    """A context in which `device` is the current CUDA device: nothing to enter where it is already current."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def report_path(lib: Path) -> Path:

@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from drone_yolo_tpu_torch.ops.cuda_build import CudaLibrary
+from drone_yolo_tpu_torch.ops.cuda_build import CudaLibrary, on_device
 
 KINDS = {3: 1, 1: 0}  # kernel size -> padding
 NAMES = {3: "s2_bwd_k3", 1: "s2_bwd_k1"}
@@ -212,8 +212,8 @@ def s2_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, k: int, need
     dw = torch.empty((co, ci, k, k), dtype=torch.float32, device=x.device)
     ws = torch.empty(pl.ws_numel, dtype=torch.float32, device=x.device)
     lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with on_device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.s2_bwd_launch(x.data_ptr(), w.data_ptr(), None if wt is None else wt.data_ptr(), dy.data_ptr(),
                                 dx.data_ptr() if need_dx else None, dw.data_ptr(), ws.data_ptr(), _DTYPES[x.dtype],
                                 b, ci, h, wd, co, k, KINDS[k], pl.splits, pl.chunk, pl.dw_cols, pl.dx_cols, stream)

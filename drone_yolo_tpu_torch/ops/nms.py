@@ -7,8 +7,10 @@ Counterpart of `drone_yolo_tpu/ops/nms.py:non_max_suppression`:
    lower index first, as `jax.lax.top_k`), and offset each box by
    `class * MAX_WH`, so that boxes of different classes never overlap;
 2. greedy keep mask over the K score-sorted candidates: on a CUDA tensor the
-   hand-written kernel (`ops/cuda_nms.py`), on a CPU tensor its plain version
-   `greedy_keep_reference` below;
+   hand-written kernels (`ops/cuda_nms.py`: a suppression bitmask, then a sweep
+   over it), on a CPU tensor the plain version `greedy_keep_reference` below.
+   `suppression_words_reference` and `sweep_reference` are the plain versions of
+   the two kernels, one each; composed they give `greedy_keep_reference`'s mask;
 3. compact the kept candidates into `max_det` slots, zero-padded, with a count.
 """
 
@@ -46,6 +48,36 @@ def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: f
             break
         received = torch.bmm(keep.float()[:, None, :], adj)[:, 0]
         keep, prev = valid & (received == 0), keep
+    return keep
+
+
+def suppression_words_reference(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """Plain suppression bitmask: (B, K, 4) score-sorted xyxy boxes, (B, K) bool -> (B, K, ceil(K/64)) int64.
+
+    Bit t of word [b, i, c] says that row i suppresses column j = 64 c + t: `valid[b, i]`, j > i, j < K and
+    iou(i, j) > thr. Bit 63 is the sign bit of the int64 word.
+    """
+    b, k = valid.shape
+    nb = -(-k // cuda_nms.WORD_BITS)
+    sup = torch.triu(iou_matrix(boxes.float()) > iou_thres, 1) & valid[:, :, None]
+    bits = torch.nn.functional.pad(sup, (0, nb * cuda_nms.WORD_BITS - k)).view(b, k, nb, cuda_nms.WORD_BITS)
+    shifts = torch.arange(cuda_nms.WORD_BITS, device=boxes.device)
+    return (bits.long() << shifts).sum(-1)  # distinct bits: the sum is their OR, 1 << 63 wraps to the sign bit
+
+
+def sweep_reference(words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain sweep over a suppression bitmask: (B, K, ceil(K/64)) int64 words, (B, K) bool -> (B, K) bool keep.
+
+    Row i is kept if it is valid and no kept row before it has i's bit; a kept row ORs its words into `removed`.
+    """
+    b, k = valid.shape
+    keep = torch.zeros_like(valid)
+    removed = torch.zeros((b, words.shape[2]), dtype=torch.int64, device=words.device)
+    zero = torch.zeros((), dtype=torch.int64, device=words.device)
+    for i in range(k):
+        c, t = divmod(i, cuda_nms.WORD_BITS)
+        keep[:, i] = valid[:, i] & ((removed[:, c] >> t) & 1 == 0)
+        removed |= torch.where(keep[:, i, None], words[:, i], zero)
     return keep
 
 

@@ -14,6 +14,7 @@ values in float32 in different orders, so per channel |difference| <= 1e-5 x sum
 """
 
 import importlib.util
+import math
 from pathlib import Path
 
 import jax
@@ -128,6 +129,55 @@ def test_train_step_with_bnstats_matches_stock(monkeypatch):
             torch.testing.assert_close(st_k[tree][name], want, rtol=1e-5, atol=1e-7, msg=f"{tree} {name}")
     for name, want in st_s["opt"]["momentum"].items():
         torch.testing.assert_close(st_k["opt"]["momentum"][name], want, rtol=1e-4, atol=1e-6, msg=name)
+
+
+# small shapes whose channels take one run or several: runs of whole planes, runs that end inside a plane, odd sizes
+PLAN_SHAPES = [(1, 3, 5, 7), (2, 3, 17, 33), (1, 16, 1, 1), (3, 5, 31, 31), (2, 130, 9, 11), (8, 2, 20, 20),
+               (8, 4, 80, 80), (3, 2, 129, 131), (2, 3, 200, 300)]
+
+
+def run_elements(shape, part: int, parts: int, chunk: int) -> np.ndarray:
+    """Flat NCHW indices that block (c, part) reads, by the kernel's index arithmetic (`csrc/bn_stats.cu`), for every
+    channel c: the run [part * chunk, min(part * chunk + chunk, N*H*W)) of the channel's values taken image after
+    image, value e at image e // (H*W), offset e % (H*W)."""
+    n, c, h, w = shape
+    hw = h * w
+    lo, hi = part * chunk, min(part * chunk + chunk, n * hw)
+    e = np.arange(lo, hi)
+    return ((e // hw)[None] * c + np.arange(c)[:, None]) * hw + (e % hw)[None]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_split_channel_covers_every_value_once(shape):
+    """The runs of `split_channel` read every value of the tensor exactly once, each from its own channel; a run is
+    a whole number of 16-byte vectors (8 values) and at most RUN values; the plan is memoised per size."""
+    n, c, h, w = shape
+    parts, chunk = cuda_bnstats.split_channel(n * h * w)
+    assert chunk % cuda_bnstats.VEC == 0 and (parts - 1) * chunk < n * h * w <= parts * chunk
+    assert chunk <= cuda_bnstats.RUN and parts == math.ceil(n * h * w / cuda_bnstats.RUN)
+    seen = np.concatenate([run_elements(shape, p, parts, chunk) for p in range(parts)], 1)
+    assert (seen // (h * w) % c == np.arange(c)[:, None]).all()  # each block stays in its channel
+    np.testing.assert_array_equal(np.sort(seen.ravel()), np.arange(n * c * h * w))
+    assert cuda_bnstats.split_channel(n * h * w) is cuda_bnstats.split_channel(n * h * w)
+
+
+def test_split_channel_blocks_at_the_flagship_sites():
+    """Runs span images: at the 20x20 and 40x40 sites (39 of 77) one block reads a whole channel of all 8 images and
+    writes its sums itself; every block reads 6-32 KB of bf16; the 77 sites launch 28,848 blocks in all (130,944
+    with one block per image plane and part)."""
+    counts = {(8, 32, 320, 320): 1, (8, 64, 160, 160): 8, (8, 32, 160, 160): 4, (8, 16, 160, 160): 1,
+              (8, 80, 160, 160): 2, (8, 128, 80, 80): 8, (8, 64, 80, 80): 11, (8, 32, 80, 80): 1, (8, 80, 80, 80): 2,
+              (8, 256, 40, 40): 8, (8, 128, 40, 40): 9, (8, 64, 40, 40): 3, (8, 80, 40, 40): 2, (8, 512, 20, 20): 7,
+              (8, 256, 20, 20): 6, (8, 64, 20, 20): 2, (8, 80, 20, 20): 2}
+    assert sum(counts.values()) == 77
+    blocks = whole = 0
+    for (n, c, h, w), sites in counts.items():
+        parts, chunk = cuda_bnstats.split_channel(n * h * w)
+        assert 6 * 1024 <= 2 * chunk <= 32 * 1024
+        assert (parts == 1) == (h <= 40)
+        blocks += sites * parts * c
+        whole += sites * (parts == 1)
+    assert (blocks, whole) == (28848, 39)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -15,7 +15,9 @@ from chip_smoke import S2_SUM_FLOOR, S2_TOL, bn_stats_errors, clustered_boxes, s
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
 from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
 from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
-from drone_yolo_tpu_torch.ops.nms import compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates
+from drone_yolo_tpu_torch.ops.nms import (
+    compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates, suppression_words_reference,
+    sweep_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,15 +32,16 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("thr", [0.45, 0.7])
-@pytest.mark.parametrize("k", [1, 128, 640, 1024])
+@pytest.mark.parametrize("k", [1, 64, 65, 128, 640, 1024])
 def test_kernel_matches_plain(cuda_device, k, thr):
+    """One call of the NMS kernels (the bitmask, then the sweep) at B=8 against the plain keep."""
     rng = np.random.default_rng(k)
     boxes = clustered_boxes(rng, 8, k).to(cuda_device)
     valid = torch.from_numpy(rng.random((8, k)) > 0.1).to(cuda_device)
-    launches = cuda_nms.greedy_keep_cuda.launches
+    calls, launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
     got = greedy_keep(boxes, valid, thr)
     torch.cuda.synchronize()
-    assert cuda_nms.greedy_keep_cuda.launches == launches + 1
+    assert (cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches) == (calls + 1, launches + 2)
     assert torch.equal(got, greedy_keep_reference(boxes, valid, thr))
     if k > 1:
         assert 0 < int(got.sum()) < int(valid.sum())
@@ -47,16 +50,38 @@ def test_kernel_matches_plain(cuda_device, k, thr):
 @pytest.mark.parametrize("thr", [0.45, 0.7])
 @pytest.mark.parametrize("b,k", [(8, 4096), (2, 8192), (1, 12288)])
 def test_kernel_matches_plain_at_large_k(cuda_device, b, k, thr):
-    """Validation's K = 4096 and beyond: staged in shared memory up to `max_staged_k()` (11,068 on an H100),
-    read from global memory above it (K = 12288)."""
+    """Validation's K = 4096 and beyond, one design for every K: a workspace of B * K * ceil(K/64) words (16.8 MB at
+    B=8, K=4096; 18.9 MB at B=1, K=12288) from the caching allocator, two launches."""
     rng = np.random.default_rng(k)
     boxes = clustered_boxes(rng, b, k, clusters=48).to(cuda_device)
     valid = torch.from_numpy(rng.random((b, k)) > 0.1).to(cuda_device)
+    launches = cuda_nms.greedy_keep_cuda.launches
     got = greedy_keep(boxes, valid, thr)
     torch.cuda.synchronize()
-    assert (k > cuda_nms.max_staged_k()) == (k == 12288)
+    assert cuda_nms.greedy_keep_cuda.launches == launches + 2
     assert torch.equal(got, greedy_keep_reference(boxes, valid, thr))
     assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.7, -0.5])
+@pytest.mark.parametrize("b,k", [(2, 1), (2, 63), (2, 64), (2, 65), (2, 640), (8, 1024), (1, 4096)])
+def test_suppression_words_match_plain(cuda_device, b, k, thr):
+    """The bitmask kernel alone against `suppression_words_reference`, bit for bit (bit 63 included; thr < 0 takes
+    the division where inter == 0); `sweep_reference` over the kernel's words gives the two kernels' keep; a second
+    call gives the same words."""
+    rng = np.random.default_rng(k + 1)
+    boxes = clustered_boxes(rng, b, k, clusters=12 if k <= 1024 else 48).to(cuda_device)
+    valid = torch.from_numpy(rng.random((b, k)) > 0.1).to(cuda_device)
+    launches = cuda_nms.suppression_words_cuda.launches
+    words = cuda_nms.suppression_words_cuda(boxes, valid, thr)
+    torch.cuda.synchronize()
+    assert cuda_nms.suppression_words_cuda.launches == launches + 1
+    assert words.shape == (b, k, -(-k // 64)) and words.dtype == torch.int64
+    assert torch.equal(words, suppression_words_reference(boxes, valid, thr))
+    assert torch.equal(words, cuda_nms.suppression_words_cuda(boxes, valid, thr))
+    if k >= 1024:
+        assert bool((words < 0).any())  # some row suppresses the last column of a block: bit 63, the sign bit
+    assert torch.equal(sweep_reference(words, valid), greedy_keep(boxes, valid, thr))
 
 
 @pytest.mark.parametrize("multi_label,pre_topk", [(False, 1024), (True, 4096)])
@@ -80,10 +105,12 @@ def _misaligned(shape, dtype, g, device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,layout", [((1, 3, 5, 7), "contiguous"), ((2, 3, 17, 33), "misaligned"),
                                           ((1, 16, 1, 1), "contiguous"), ((3, 5, 31, 31), "misaligned"),
-                                          ((8, 32, 80, 80), "contiguous"), ((2, 130, 9, 11), "channels_last")])
+                                          ((8, 32, 80, 80), "contiguous"), ((2, 130, 9, 11), "channels_last"),
+                                          ((8, 512, 20, 20), "contiguous")])
 def test_bn_stats_kernel_matches_plain(cuda_device, shape, layout, dtype):
-    """Odd shapes (C = 3, odd H*W, N = 1, one pixel), misaligned planes and a non-contiguous input, against
-    `bn_stats_reference` at chip_smoke's tolerance (1e-5 of sum|x| or sum x^2, plus 1e-6)."""
+    """Odd shapes (C = 3, odd H*W, N = 1, one pixel), misaligned planes, a non-contiguous input and a 20x20 flagship
+    site (one block a channel, across all 8 images), against `bn_stats_reference` at chip_smoke's tolerance (1e-5 of
+    sum|x| or sum x^2, plus 1e-6); one launch a call; a second call bitwise equal."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(int(np.prod(shape)))
     if layout == "misaligned":
@@ -95,13 +122,13 @@ def test_bn_stats_kernel_matches_plain(cuda_device, shape, layout, dtype):
     cuda_bnstats.reset_counts()
     s, q = bn_stats(x)
     torch.cuda.synchronize()
-    assert (cuda_bnstats.bn_stats_cuda.calls, cuda_bnstats.bn_stats_cuda.launches) == (1, 2)
+    assert (cuda_bnstats.bn_stats_cuda.calls, cuda_bnstats.bn_stats_cuda.launches) == (1, 1)
     assert cuda_bnstats.bn_stats_cuda.copies == (layout == "channels_last")
     assert s.dtype == q.dtype == torch.float32 and s.shape == q.shape == (shape[1],)
     errs = bn_stats_errors(x, s, q)
     assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, errs
     s2, q2 = bn_stats(x)
-    assert torch.equal(s, s2) and torch.equal(q, q2)  # no atomics: bitwise repeatable
+    assert torch.equal(s, s2) and torch.equal(q, q2)  # partials summed in a fixed order: bitwise repeatable
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -219,7 +246,7 @@ def test_train_step_with_both_kernels_matches_stock(cuda_device):
                                              amp=False, s2grad=mode, bnstats=mode), train_loader=loader, data={"nc": 2})
         cuda_bnstats.reset_counts()
         steps = trainer.run_steps()
-        assert cuda_bnstats.bn_stats_cuda.calls == (2 * 77 if mode else 0)
+        assert cuda_bnstats.bn_stats_cuda.calls == cuda_bnstats.bn_stats_cuda.launches == (2 * 77 if mode else 0)
         runs[mode] = (steps, trainer.train_state())
     (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
     np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
