@@ -56,9 +56,30 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    share of the bound;
 8. profile: the device busy share and the device time by kernel of batch-8 predicts, of
    train steps with the stride-2 kernel, and of train steps with both kernels (torch.profiler);
-9. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
+9. loop: the epoch loop over a dataset on disk. 32 train and 16 val images of the dense
+   small-object proxy (`tools/dense_dataset.py:make_dense_image`, 320 px, 90-140 objects of
+   4-12 px, 6 classes, seed 1) written as JPEG by the port's encoder at quality 95, with labels
+   and data.yaml, in a temporary directory. Run A: `YOLO("yolov8s-p2-repvgg-sf.yaml").train(...)`
+   at full width and depth, imgsz 320, batch 8, nbs 8, SGD, default augmentation, close_mosaic 1,
+   cache="ram", 4 loader threads, s2grad="cuda", bnstats="cuda", bf16 autocast, 3 epochs, EMA
+   validation each epoch. Run B: a trainer that resumes A's resume_state.npz with epochs 4.
+   Counts are set to 0 before each run and read after it. Checks: finite losses; 12 stride-2
+   calls (8 k=3, 4 k=1) and 77 BN-statistics calls a step, one NMS call (two launches) a val
+   batch; P, R, mAP50, mAP50-95 in [0, 1]; results.csv, last.npz, best.npz and
+   resume_state.npz written, and `YOLO(last.npz)` predicting on the card; B starting at epoch 3
+   with params, SGD momentum and EMA bitwise equal to A's final state, and running one epoch;
+   the JPEG round trip of the dataset within `JPEG_MEAN_ERR`. Printed: seconds per epoch, train
+   img/s, the share of the epoch spent waiting on the loader, decode ms per 320 and 640 px
+   image, augmentation ms per sample, validation seconds, peak card memory, checkpoint bytes;
+10. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
+
+`python3 chip_smoke.py accuracy [seed ...]` instead trains the flagship with the port's
+`YOLO.train` at the JAX package's ablation settings (`tools/flagship_parity.py:216-286` with the
+`HYPS` of `:43-70`, amp): 192 train and 96 val images of the dense proxy, 40 epochs, from the
+init of each seed (0 and 1 by default; the ablation's is 0); then `YOLO.val` at conf 0.001, IoU
+0.7 in float32; prints one JSON line per seed with mAP50-95, mAP50, the wall time and results.csv.
 
 Greedy NMS is two launches a call (a suppression bitmask over many CTAs, then a sweep, one
 CTA per image), the BN statistics one: the checks of the main path count NMS calls, and
@@ -72,9 +93,12 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -120,6 +144,18 @@ VAL = dict(batches=4, batch=8, imgsz=640, nc=80, pre_nms_topk=4096)
 # a score's relative error is its logit's absolute error, so scores are held to a relative one.
 BOX_ATOL_PX = 1e-2
 SCORE_RTOL = 1e-4
+# the loop phase: the dense small-object proxy of the JAX package's ablation (tools/flagship_parity.py:216)
+LOOP = dict(n_train=32, n_val=16, imgsz=320, batch=8, epochs=3, nc=6, seed=1, obj_px=(4, 12), workers=4)
+# mean absolute error of the dataset's JPEG round trip (quality 95, 4:2:0) per channel value: chroma subsampling
+# of 4-12 px saturated objects on a noisy background costs ~6.5 (the same for cv2's encoder at quality 95)
+JPEG_MEAN_ERR = 10.0
+# the JAX package's ablation hyperparameters (tools/flagship_parity.py:43-70) for the port's keys; classify-only
+# keys (erasing, auto_augment) are left out
+ABLATION = dict(epochs=40, batch=8, imgsz=320, seed=0, optimizer="SGD", lr0=0.01, lrf=0.01, momentum=0.937,
+                weight_decay=0.0005, warmup_epochs=3.0, warmup_momentum=0.8, warmup_bias_lr=0.1, nbs=8, box=7.5,
+                cls=0.5, dfl=1.5, mosaic=0.0, mixup=0.0, copy_paste=0.0, scale=0.0, translate=0.0, degrees=0.0,
+                shear=0.0, perspective=0.0, fliplr=0.5, flipud=0.0, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0,
+                multi_scale=False, rect=False, cos_lr=False, close_mosaic=0, patience=10_000, amp=True)
 
 T0 = time.perf_counter()
 
@@ -209,6 +245,73 @@ def synthetic_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n
     if val:
         out.update(ori_shapes=[(imgsz, imgsz)] * batch, ratio_pads=[(1.0, (0.0, 0.0))] * batch)
     return out
+
+
+def write_dense_dataset(root: Path, n_train: int, n_val: int, size: int, seed: int, nc: int, obj_px) -> tuple[Path, dict]:
+    """The dense small-object proxy (`tools/dense_dataset.py:make_dense_image`, numpy only) written by the port's JPEG
+    encoder at quality 95, with YOLO labels and data.yaml, as `make_dense_dataset` lays it out. Returns the yaml path
+    and the round trip's mean and largest absolute error over all images."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from dense_dataset import CLASSES, make_dense_image
+
+    from drone_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    rng = np.random.default_rng(seed)
+    err_sum, err_max, n_val_px = 0.0, 0, 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img, labels = make_dense_image(rng, size=size, nc=nc, obj_px=obj_px)
+            data = encode_jpeg(img, quality=95)
+            (root / "images" / split / f"{split}_{i:04d}.jpg").write_bytes(data)
+            err = np.abs(decode_jpeg(data).astype(np.int64) - img)
+            err_sum, err_max, n_val_px = err_sum + float(err.sum()), max(err_max, int(err.max())), n_val_px + err.size
+            (root / "labels" / split / f"{split}_{i:04d}.txt").write_text(
+                "".join(f"{c} {x:.6f} {y:.6f} {w:.6f} {h:.6f}\n" for c, x, y, w, h in labels))
+    names = "".join(f"  {i}: {CLASSES[i][0]}\n" for i in range(nc))
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnc: {nc}\nnames:\n{names}")
+    return yaml_path, {"mean_abs_err": err_sum / n_val_px, "max_abs_err": err_max}
+
+
+def accuracy(seeds: list[int]) -> None:
+    """`YOLO.train` at the ablation settings on 192 + 96 dense-proxy images, then `YOLO.val` at conf 0.001: one JSON
+    line per init seed (the ablation's seed is 0)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        sys.exit(1)
+    from drone_yolo_tpu_torch import YOLO
+
+    smi = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader").splitlines()[0]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_accuracy_"))
+    try:
+        t = time.perf_counter()
+        data, round_trip = write_dense_dataset(tmp / "dense", 192, 96, 320, seed=1, nc=6, obj_px=(4, 12))
+        data_s = time.perf_counter() - t
+        for seed in seeds:
+            t = time.perf_counter()
+            model = YOLO(FLAGSHIP)
+            model.train(data=str(data), workers=4, cache="ram", project=str(tmp / "runs"), name=f"seed{seed}",
+                        exist_ok=True, s2grad="cuda", bnstats="cuda", **{**ABLATION, "seed": seed})
+            train_s = time.perf_counter() - t
+            t = time.perf_counter()
+            metrics = model.val(data=str(data), imgsz=320, batch=8, conf=0.001, iou=0.7, max_det=300, dtype="float32",
+                                verbose=False)
+            val_s = time.perf_counter() - t
+            epochs = model.trainer.epoch_stats
+            print(json.dumps({"phase": "accuracy", "model": FLAGSHIP, "nvidia_smi": smi, "hyps": {**ABLATION, "seed": seed},
+                              "map50_95": metrics["metrics/mAP50-95(B)"], "map50": metrics["metrics/mAP50(B)"],
+                              "metrics": metrics, "jax_ablation_json": {"map50_95": 0.8825, "map50": 0.9908},
+                              "train_s": train_s, "val_s": val_s, "dataset_s": data_s, "jpeg_round_trip": round_trip,
+                              "epoch_s_median": float(np.median([e["train_s"] for e in epochs])),
+                              "data_wait_share": sum(e["data_wait_s"] for e in epochs) / sum(e["train_s"] for e in epochs),
+                              "results_csv": (model.trainer.save_dir / "results.csv").read_text()}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
 
 
 def bn_stats_errors(x: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> dict:
@@ -375,6 +478,144 @@ def s2_cost(site: dict) -> tuple[int, int]:
     if site["need_dx"]:
         n_bytes += 2 * numel(site["x"])
     return n_bytes, 2 * macs * (2 if site["need_dx"] else 1)
+
+
+def check_loop_counts(c: dict, steps: int, val_batches: int, run: str, n_bn: int, n_sites: dict) -> None:
+    """A loop run's kernel counts: every step calls the stride-2 backward at each site and the BN statistics at each
+    BN input, every val batch calls greedy NMS once (two launches)."""
+    from drone_yolo_tpu_torch.ops import cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.conv_s2 import KINDS
+
+    want_s2 = {cuda_s2bwd.NAMES[k]: steps * n_sites[k] for k in KINDS}
+    if c["s2_calls"] != want_s2 or c["bn_calls"] != steps * n_bn:
+        raise AssertionError(f"run {run}: {c}, expected stride-2 calls {want_s2} and {steps * n_bn} BN calls "
+                             f"for {steps} steps")
+    if c["nms_calls"] != val_batches or c["launches"]["greedy_nms"] != 2 * val_batches:
+        raise AssertionError(f"run {run}: {c['nms_calls']} NMS calls ({c['launches']['greedy_nms']} launches) for "
+                             f"{val_batches} val batches")
+
+
+def run_loop(n_bn: int, n_sites: dict) -> dict:
+    """Phase 9: runs A and B of the epoch loop (see the module docstring), their checks and their numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.cfg import get_train_cfg
+    from drone_yolo_tpu_torch.data.build import build_yolo_dataset
+    from drone_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from drone_yolo_tpu_torch.data.utils import check_det_dataset
+    from drone_yolo_tpu_torch.engine.checkpoint import read_resume_state
+    from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.conv_s2 import KINDS
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from dense_dataset import make_dense_image
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+
+    def counts() -> dict:
+        s2 = dict(cuda_s2bwd.s2_bwd_cuda.calls)
+        s2_launches = dict(cuda_s2bwd.s2_bwd_cuda.launches)
+        return {"s2_calls": s2, "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+                "nms_calls": cuda_nms.greedy_keep_cuda.calls,
+                "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches, "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                             **{cuda_s2bwd.NAMES[k]: s2_launches.get(cuda_s2bwd.NAMES[k], 0) for k in KINDS}}}
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    try:
+        data, round_trip = write_dense_dataset(tmp / "dense", LOOP["n_train"], LOOP["n_val"], LOOP["imgsz"],
+                                               seed=LOOP["seed"], nc=LOOP["nc"], obj_px=LOOP["obj_px"])
+        if not round_trip["mean_abs_err"] <= JPEG_MEAN_ERR:
+            raise AssertionError(f"JPEG round trip of the dataset: {round_trip}, mean bound {JPEG_MEAN_ERR}")
+        decode_ms = {}
+        for size in (320, 640):
+            blob = encode_jpeg(make_dense_image(np.random.default_rng(size), size=size)[0], quality=95)
+            decode_jpeg(blob)  # the Huffman tables' lookup is built once
+            t0 = time.perf_counter()
+            for _ in range(5):
+                decode_jpeg(blob)
+            decode_ms[f"{size}px"] = (time.perf_counter() - t0) / 5 * 1e3
+        cfg = get_train_cfg(overrides=dict(imgsz=LOOP["imgsz"], cache="ram"))  # default augmentation
+        info = check_det_dataset(data)
+        ds = build_yolo_dataset(cfg, info["train"], LOOP["batch"], info, mode="train")
+        for i in range(len(ds)):
+            ds.load_image(i)
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        aug_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+        del ds
+
+        common = dict(data=str(data), imgsz=LOOP["imgsz"], batch=LOOP["batch"], nbs=LOOP["batch"], optimizer="SGD",
+                      close_mosaic=1, cache="ram", workers=LOOP["workers"], s2grad="cuda", bnstats="cuda", amp=True,
+                      project=str(tmp / "runs"), exist_ok=True)
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = YOLO(FLAGSHIP)
+        metrics_a = model.train(name="a", epochs=LOOP["epochs"], **common)
+        wall_a = time.perf_counter() - t0
+        counts_a = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        a = model.trainer
+        nb, val_nb = a.nb, math.ceil(LOOP["n_val"] / LOOP["batch"])
+        check_loop_counts(counts_a, LOOP["epochs"] * nb, LOOP["epochs"] * val_nb, "A", n_bn, n_sites)
+        losses = np.array([e["loss_items"] for e in a.epoch_stats])
+        if not (np.isfinite(losses).all() and len(a.epoch_stats) == LOOP["epochs"]):
+            raise AssertionError(f"run A: {len(a.epoch_stats)} epochs, loss items {losses}")
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics_a.values()):
+            raise AssertionError(f"run A: metrics out of [0, 1]: {metrics_a}")
+        files = {f: (a.wdir / f).stat().st_size for f in ("last.npz", "best.npz", "resume_state.npz")}
+        if not (a.save_dir / "results.csv").is_file() or len((a.save_dir / "results.csv").read_text().splitlines()) != 1 + LOOP["epochs"]:
+            raise AssertionError("run A: results.csv missing or not one row per epoch")
+        final_a = a.train_state()
+
+        reset()
+        b = BaseTrainer(overrides=dict(model=FLAGSHIP, name="b", epochs=LOOP["epochs"] + 1,
+                                       resume=str(a.wdir / "resume_state.npz"), **common))
+        b._setup_train()
+        start_b = b.train_state()
+        for part in ("params", "ema"):
+            if not all(torch.equal(start_b[part][k].cpu(), final_a[part][k].detach().cpu()) for k in final_a[part]):
+                raise AssertionError(f"run B: resumed {part} differ from run A's final state")
+        if not all(torch.equal(start_b["opt"]["momentum"][k].cpu(), final_a["opt"]["momentum"][k].cpu())
+                   for k in final_a["opt"]["momentum"]):
+            raise AssertionError("run B: resumed SGD momentum differs from run A's final state")
+        if (b.start_epoch, start_b["step"], start_b["count"]) != (LOOP["epochs"], final_a["step"], final_a["count"]):
+            raise AssertionError(f"run B: starts at epoch {b.start_epoch}, step {start_b['step']}, count {start_b['count']}")
+        b._do_train()
+        counts_b = counts()
+        check_loop_counts(counts_b, nb, val_nb, "B", n_bn, n_sites)
+        if [e["epoch"] for e in b.epoch_stats] != [LOOP["epochs"]]:
+            raise AssertionError(f"run B ran epochs {[e['epoch'] for e in b.epoch_stats]}, expected [{LOOP['epochs']}]")
+        _, saved_epoch = read_resume_state(b.wdir / "resume_state.npz")
+        if saved_epoch != LOOP["epochs"]:
+            raise AssertionError(f"run B saved epoch {saved_epoch}")
+
+        reset()
+        last = YOLO(a.wdir / "last.npz")
+        frame = decode_jpeg(next((data.parent / "images" / "val").glob("*.jpg")).read_bytes())[..., ::-1]
+        res = last.predict(np.ascontiguousarray(frame), imgsz=LOOP["imgsz"], conf=0.0, verbose=False)
+        if not (len(res) == 1 and res[0].boxes.data.shape[1] == 6 and np.isfinite(res[0].boxes.data).all()):
+            raise AssertionError("YOLO(last.npz) predictions on the card are not finite (n, 6) boxes")
+        epochs = a.epoch_stats + b.epoch_stats
+        train_s = [e["train_s"] for e in epochs]
+        launches = {k: counts_a["launches"][k] + counts_b["launches"][k] for k in counts_a["launches"]}
+        return {"model": FLAGSHIP, "dataset": {**LOOP, "jpeg_quality": 95, "round_trip": round_trip,
+                                               "round_trip_mean_bound": JPEG_MEAN_ERR},
+                "metrics_a": metrics_a, "metrics_b": b.metrics, "epochs": epochs,
+                "epoch_s": train_s, "epoch_s_median": float(np.median(train_s)),
+                "train_img_per_s": sum(e["images"] for e in epochs) / sum(train_s),
+                "data_wait_share": sum(e["data_wait_s"] for e in epochs) / sum(train_s),
+                "val_s": [e["val_s"] for e in epochs], "decode_ms_per_image": decode_ms,
+                "augment_ms_per_sample": aug_ms, "peak_memory_gb": peak_gb, "checkpoint_bytes": files,
+                "run_a_wall_s": wall_a, "resume": {"start_epoch": b.start_epoch, "bitwise_equal": True},
+                "predict_last_npz_n_det": len(res[0].boxes),
+                "counts": {"a": counts_a, "b": counts_b, "launches": launches}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -806,7 +1047,16 @@ def main() -> None:
          train_both={"batch": TRAIN["batch"], "s2grad": "cuda", "bnstats": "cuda",
                      **profile_device(lambda: both_trainer.train_step(batch, *both_hyp)[0].item(), steps=3)})
 
-    # 9. imports ---------------------------------------------------------------
+    # 9. loop: the epoch loop over a dataset on disk -------------------------------
+    t = time.perf_counter()
+    loop = run_loop(len(bn), n_sites)
+    for kern in kernels:
+        n = loop["counts"]["launches"][kern["name"]]
+        kern["launches"] += n
+        kern.setdefault("launches_by_path", {"train": kern["launches"] - n})["loop"] = n
+    emit("loop", t, **{k: v for k, v in loop.items() if k != "counts"}, counts=loop["counts"])
+
+    # 10. imports ---------------------------------------------------------------
     t = time.perf_counter()
     loaded = sorted(m for m in ("jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml") if m in sys.modules)
     if loaded:
@@ -820,4 +1070,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["accuracy"]:
+        accuracy([int(s) for s in sys.argv[2:]] or [0, 1])
+    else:
+        main()

@@ -12,11 +12,19 @@ level. Names are the reference torch names (`model.<i>....`), which
 `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back.
 `from_jax_train_state` maps a whole JAX train state (params, optimizer state,
 EMA, accumulated gradients) the same way.
+
+The writer goes the other way: `to_jax_variables` is the inverse of
+`from_jax_variables` (the port's copy of `convert_state_dict`), `save_checkpoint` writes
+the `drone_yolo_tpu.v1` npz of `drone_yolo_tpu/engine/checkpoint.py:save_checkpoint`, and
+`resume_state` flattens a train state into the JAX trainer's `resume_state.npz` layout
+(`drone_yolo_tpu/engine/trainer.py:save_model`), which `read_resume_state` reads back, so
+either package resumes from the other's file.
 """
 
 from __future__ import annotations
 
 import json
+from datetime import datetime, timezone
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +33,8 @@ import torch
 FORMAT = "drone_yolo_tpu.v1"
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity"}
+_BRANCH_JAX = {v: k for k, v in _BRANCH.items()}
+_LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias"}
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -74,6 +84,102 @@ def from_jax_variables(variables: dict) -> dict:
             a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))  # HWIO -> OIHW
         sd[_torch_name(parts)] = torch.from_numpy(a)
     return sd
+
+
+def _jax_path(name: str, ndim: int) -> list[str]:
+    """Reference torch parameter name -> JAX variable path; the inverse of `_torch_name`."""
+    parts = name.split(".")
+    if parts[0] != "model" or len(parts) < 3:
+        raise ValueError(f"not a model parameter name: {name}")
+    *path, leaf = parts[1:]
+    out = []
+    for j, p in enumerate(path):
+        if p == "rbr_reparam" and j == len(path) - 1:
+            continue  # a fused RepVGGBlock's kernel lives at the layer level
+        if j >= 2 and p.isdigit() and path[j - 1].isdigit() and path[j - 2] in ("cv2", "cv3"):
+            out.append("m")  # Detect's cv2/cv3 sequences keep their children under "m" in JAX
+        out.append(_BRANCH_JAX.get(p, p))
+    if leaf == "weight":
+        return out + ["kernel" if ndim == 4 else "scale"]
+    return out + [_LEAF_JAX[leaf]]
+
+
+def to_jax_variables(state_dict: dict) -> dict:
+    """Port state_dict -> JAX variables tree of float32 numpy arrays (OIHW kernels become HWIO)."""
+    flat = {}
+    for name, t in state_dict.items():
+        a = t.detach().cpu().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+        if a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+        flat["/".join(_jax_path(name, a.ndim))] = a
+    return unflatten_tree(flat)
+
+
+def _jsonable(d: dict) -> dict:
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, Path):
+            v = str(v)
+        elif isinstance(v, np.generic):
+            v = v.item()
+        elif isinstance(v, np.ndarray):
+            v = v.tolist()
+        try:
+            json.dumps(v)
+        except TypeError:
+            v = str(v)
+        out[k] = v
+    return out
+
+
+def save_checkpoint(path, model, state_dict: dict, train_args: dict | None = None, meta: dict | None = None) -> Path:
+    """Write `state_dict` (the model's layout, by name) as a `drone_yolo_tpu.v1` npz with `model`'s yaml, names
+    and strides in the JSON header, plus `train_args` and `meta`."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_suffix(".npz")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    header = {
+        "format": FORMAT,
+        "task": model.task,
+        "yaml": {k: v for k, v in model.yaml.items() if k != "yaml_file"},
+        "names": {int(k): v for k, v in model.names.items()},
+        "stride": [float(s) for s in model.head.stride],
+        "train_args": _jsonable(train_args or {}),
+        "date": datetime.now(timezone.utc).isoformat(),
+        **_jsonable(meta or {}),
+    }
+    np.savez(path, __header__=np.frombuffer(json.dumps(header).encode(), dtype=np.uint8),
+             **flatten_tree(to_jax_variables(state_dict)))
+    return path
+
+
+def resume_state(ts: dict, epoch: int) -> dict:
+    """A train state in `BaseTrainer.train_state`'s layout -> the flat arrays of the JAX trainer's
+    `resume_state.npz`: params, opt (the SGD momentum tree, zeros for the BN statistics, or Adam's m, v and t),
+    ema, step, count and epoch, by JAX names."""
+    params = to_jax_variables(ts["params"])
+    zeros = {k: torch.zeros_like(v) for k, v in ts["params"].items()}
+    if "momentum" in ts["opt"]:
+        opt = to_jax_variables({**zeros, **ts["opt"]["momentum"]})
+    else:
+        opt = {"m": to_jax_variables({**zeros, **ts["opt"]["m"]}), "v": to_jax_variables({**zeros, **ts["opt"]["v"]}),
+               "t": np.int32(ts["opt"]["t"])}
+    state = {"params": params, "opt": opt, "ema": to_jax_variables(ts["ema"]), "step": np.int32(ts["step"]),
+             "count": np.int32(ts["count"]), "epoch": np.int32(epoch)}
+    return flatten_tree(state)
+
+
+def read_resume_state(path) -> tuple[dict, int]:
+    """A `resume_state.npz` of either package -> (a train state in `BaseTrainer.train_state`'s layout with a zero
+    accumulator, the epoch it was saved after)."""
+    with np.load(path, allow_pickle=False) as data:
+        tree = unflatten_tree({k: data[k] for k in data.files})
+    tree["acc"] = {k: v for k, v in tree["params"].items()}  # the structure of params; zeroed below
+    ts = from_jax_train_state(tree)
+    ts["acc"] = {k: torch.zeros_like(v) for k, v in ts["acc"].items()}
+    ts["count"] = int(np.asarray(tree.get("count", 0)))
+    return ts, int(np.asarray(tree["epoch"]))
 
 
 def from_jax_train_state(state: dict) -> dict:

@@ -1,11 +1,13 @@
 """`YOLO` facade: build from a model yaml or load a JAX-package npz, then predict.
 
-Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for predict. The model
-lives on `device`, which is the CUDA card unless the caller passes
+Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for predict, train and val.
+The model lives on `device`, which is the CUDA card unless the caller passes
 `device="cpu"`; asking for CUDA where there is none is an error.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -29,8 +31,10 @@ class YOLO:
     def __init__(self, model="yolov8n.yaml", device=None):
         self.device = select_device(device)
         self.predictor = None
+        self.trainer = None
         self.ckpt = None
         model = str(model).strip()
+        self.model_name = model
         if model.endswith((".yaml", ".yml")):
             self.model = DetectionModel(model)
             self.initialized = False
@@ -62,3 +66,29 @@ class YOLO:
         else:
             self.predictor.args = get_cfg(self.predictor.args, kwargs)
         return self.predictor(source=source, stream=stream)
+
+    def train(self, data=None, **overrides) -> dict:
+        """Train on the dataset yaml `data` (`engine/trainer.py`), then take over the best EMA weights; returns the
+        last epoch's validation metrics."""
+        from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+
+        if not data:
+            raise ValueError("a dataset is required: pass data=<data.yaml>")
+        self.trainer = BaseTrainer(overrides={"model": self.model_name, "device": str(self.device), **overrides,
+                                              "data": str(data)})
+        self.trainer.model_facade = self
+        self.trainer.train()
+        self.model = copy.deepcopy(self.trainer.model).eval()  # the trainer's model keeps its last train state
+        self.model.load_state_dict(self.trainer.best_state, strict=True)
+        self.initialized = True
+        self.predictor = None  # built again from the new weights
+        return self.trainer.metrics
+
+    def val(self, data=None, **overrides) -> dict:
+        """Validate on the val split of the dataset yaml `data` (`engine/validator.py`); returns the metrics."""
+        from drone_yolo_tpu_torch.engine.validator import DetectionValidator
+
+        if not data:
+            raise ValueError("a dataset is required: pass data=<data.yaml>")
+        self.validator = DetectionValidator(args={"device": str(self.device), **overrides, "data": str(data)})
+        return self.validator(model=self)

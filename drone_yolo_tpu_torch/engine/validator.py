@@ -12,8 +12,10 @@ P, R, mAP50 and mAP50-95 with `utils/metrics.py`.
 `dataloader` is any iterable of batches in the collate format
 (`drone_yolo_tpu/data/dataset.py:YOLODataset.collate`): `img` (B, H, W, 3) uint8 RGB,
 `cls` (B, M), `bboxes` (B, M, 4) letterboxed pixel xyxy, `mask` (B, M), and per image
-`ori_shapes` (h, w) and `ratio_pads` (gain, (pad_w, pad_h)) or None. The file dataset,
-plots, the confusion matrix and COCO JSON come with a later slice.
+`ori_shapes` (h, w) and `ratio_pads` (gain, (pad_w, pad_h)) or None. Given no dataloader,
+the validator builds one over the val split of `args.data` (`data/build.py`: letterboxed
+without enlarging, in order, every image). Plots, the confusion matrix, rectangular
+batches and COCO JSON come with a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 
 from drone_yolo_tpu_torch.cfg import get_val_cfg
+from drone_yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
+from drone_yolo_tpu_torch.data.utils import check_det_dataset
 from drone_yolo_tpu_torch.engine.model import select_device
 from drone_yolo_tpu_torch.engine.predictor import LOGGER, Profile
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
@@ -43,6 +47,7 @@ class BaseValidator:
         self.device = select_device(self.args.device)
         self.dtype = torch.bfloat16 if self.args.dtype == "bfloat16" else torch.float32
         self.dataloader = dataloader
+        self.data = None  # the dataset yaml's contents, when the validator builds its own loader
         self.iouv = np.linspace(0.5, 0.95, 10)
         self.metrics = DetMetrics()
         self.speed = {}
@@ -60,7 +65,12 @@ class BaseValidator:
             net.load_state_dict(ema_state, strict=True)
         self.model = net.eval().to(self.device, torch.float32).fuse().to(self.dtype)
         self.nc = self.model.nc
-        self.names = self.model.names
+        if self.dataloader is None:
+            self.data = check_det_dataset(self.args.data)
+            dataset = build_yolo_dataset(self.args, self.data["val"], self.args.batch, self.data, mode="val")
+            self.dataloader = build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False,
+                                               drop_last=False)
+        self.names = self.data["names"] if self.data else self.model.names
         self.metrics = DetMetrics(self.names)  # a fresh one per call: a reused validator reports no stale metrics
 
     def preprocess(self, batch: dict) -> torch.Tensor:

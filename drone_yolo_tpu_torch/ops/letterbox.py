@@ -20,10 +20,13 @@ import torch.nn.functional as F
 COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS: interpolation weights in units of 2**-11
 
 
-def letterbox_params(shape, new_shape=(640, 640)):
-    """(ratio, (pad_w, pad_h), (new_w, new_h)) for an input of shape (h, w), centred."""
+def letterbox_params(shape, new_shape=(640, 640), scaleup: bool = True):
+    """(ratio, (pad_w, pad_h), (new_w, new_h)) for an input of shape (h, w), centred; without `scaleup` the ratio
+    is at most 1."""
     h, w = shape
     r = min(new_shape[0] / h, new_shape[1] / w)
+    if not scaleup:
+        r = min(r, 1.0)
     new_unpad = (round(w * r), round(h * r))
     dw, dh = new_shape[1] - new_unpad[0], new_shape[0] - new_unpad[1]
     return r, (dw / 2, dh / 2), new_unpad
@@ -83,11 +86,12 @@ def resize_linear_u8(img: torch.Tensor, size) -> torch.Tensor:
     return ((y + 2) >> 2).clamp(0, 255).to(torch.uint8)
 
 
-def letterbox_u8(img: torch.Tensor, new_shape=(640, 640), pad_value: int = 114) -> torch.Tensor:
+def letterbox_u8(img: torch.Tensor, new_shape=(640, 640), pad_value: int = 114, scaleup: bool = True) -> torch.Tensor:
     """Letterbox a uint8 batch (B, H, W, C) to `new_shape` (h, w): `resize_linear_u8` where the size changes,
-    then a constant border of `pad_value`, top/left `round(pad - 0.1)` as `letterbox_np` of the JAX package."""
+    then a constant border of `pad_value`, top/left `round(pad - 0.1)` as `letterbox_np` of the JAX package
+    (without `scaleup`, an image smaller than `new_shape` keeps its size)."""
     b, h, w, c = img.shape
-    _, (dw, dh), (nw, nh) = letterbox_params((h, w), new_shape)
+    _, (dw, dh), (nw, nh) = letterbox_params((h, w), new_shape, scaleup)
     if (nh, nw) != (h, w):
         img = resize_linear_u8(img, (nh, nw))
     top, left = int(round(dh - 0.1)), int(round(dw - 0.1))

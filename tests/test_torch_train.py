@@ -284,4 +284,4 @@ def test_trainer_runs_on_the_card_unless_told_otherwise():
             BaseTrainer(overrides=dict(model=FLAGSHIP_N))
     assert BaseTrainer(overrides=dict(model=FLAGSHIP_N, device="cpu")).device.type == "cpu"
     with pytest.raises(KeyError, match="unsupported train arguments"):
-        BaseTrainer(overrides=dict(model=FLAGSHIP_N, device="cpu", multi_scale=True))
+        BaseTrainer(overrides=dict(model=FLAGSHIP_N, device="cpu", device_aug=True))
