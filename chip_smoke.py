@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
-validates the flagship.
+validates the flagship, and runs the drone-video pipeline (tracking, pose, geo) over synthetic video.
 
     python3 chip_smoke.py
 
@@ -71,7 +71,23 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    the JPEG round trip of the dataset within `JPEG_MEAN_ERR`. Printed: seconds per epoch, train
    img/s, the share of the epoch spent waiting on the loader, decode ms per 320 and 640 px
    image, augmentation ms per sample, validation seconds, peak card memory, checkpoint bytes;
-10. imports: neither JAX, nor the JAX package, nor cv2, PIL or yaml was imported.
+10. track: the drone-video analytics path. `DroneVideoPipeline` with the flagship (tracking) and
+   `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth, fused, bfloat16, and a
+   `GeoConverter`, over 64 synthetic 1080x1920 frames of 60 textured rectangles that move, enter and
+   leave (`moving_frames`, seed 3), imgsz 640, conf 0.25, ByteTrack. Random weights score near
+   sigmoid(-13), below ByteTrack's thresholds, so each model's class logits are spread to follow
+   the image (`scored_weights`, gain 30) and shifted so that 5% of frame 0's anchors score above
+   0.25 (`calibrated_weights`). Pass A holds the keep mask of every NMS call of both models (the
+   pose model's carries 51 keypoint columns) against `greedy_keep_reference` on the same
+   candidates; pass B, the timed run with NMS counts set to 0 before it and read after it,
+   prints frames/s of detect + track + pose + geo, per-stage ms a frame (the predictor's
+   preprocess, inference and postprocess, the tracker's update, the pose model's predict, the geo
+   conversion, the rest), the track count and the CSV's rows; pass C gives frames/s of detect +
+   track + geo without the pose model; then the device's busy share over 8 steps of the full
+   pipeline (torch.profiler), and `BYTETracker.update` alone on detection streams of 50, 200 and
+   500 targets (`detection_stream`, 60 frames each);
+11. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
+   modules of every path (apps, trackers, the pose predictor) loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -91,6 +107,7 @@ card it exits with code 1 before any phase.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import os
@@ -100,6 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -156,6 +174,14 @@ ABLATION = dict(epochs=40, batch=8, imgsz=320, seed=0, optimizer="SGD", lr0=0.01
                 cls=0.5, dfl=1.5, mosaic=0.0, mixup=0.0, copy_paste=0.0, scale=0.0, translate=0.0, degrees=0.0,
                 shear=0.0, perspective=0.0, fliplr=0.5, flipud=0.0, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0,
                 multi_scale=False, rect=False, cos_lr=False, close_mosaic=0, patience=10_000, amp=True)
+
+# the track phase: the drone-video pipeline (detect + ByteTrack + pose + geo) over synthetic 1080p video. Random weights
+# score near sigmoid(-13), under ByteTrack's thresholds, so each model's class logits are spread to follow the image
+# (`scored_weights`, gain CLS_GAIN) and shifted so that SHARE_ABOVE_CONF of frame 0's anchors score above conf.
+TRACK_CELL = dict(frames=64, hw=(1080, 1920), objects=60, obj_px=(24, 120), seed=3, imgsz=640, conf=0.25,
+                  pose_model="yolov8s-pose.yaml", cls_gain=30.0, share_above_conf=0.05,
+                  geo=dict(lat=31.2304, lon=121.4737, altitude_m=80.0, yaw_deg=15.0, pitch_deg=90.0))
+TRACKER_TARGETS = (50, 200, 500)  # BYTETracker.update alone on detection streams of this many targets
 
 T0 = time.perf_counter()
 
@@ -347,6 +373,80 @@ def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
             v = t.cpu().numpy()
         out[name] = torch.from_numpy(v.astype(np.float32))
     return out
+
+
+def scored_weights(state_dict: dict, rng: np.random.Generator, cls_bias: float, cls_gain: float) -> dict:
+    """`spread_weights`, then the last conv of each level's class branch (`cv3.<i>.2`) with its weights scaled by
+    `cls_gain` and its biases set to `cls_bias`: class logits that follow the image, spread around `cls_bias`, instead of
+    scores near sigmoid(-13). A random model whose detections a tracker follows. Shared with the tests."""
+    out = spread_weights(state_dict, rng)
+    for name, t in out.items():
+        if re.search(r"\.cv3\.\d+\.2\.bias$", name):
+            out[name] = torch.full_like(t, cls_bias)
+        elif re.search(r"\.cv3\.\d+\.2\.weight$", name):
+            out[name] = t * cls_gain
+    return out
+
+
+def moving_frames(rng: np.random.Generator, n: int, hw: tuple[int, int], n_objects: int, size=(8, 40)):
+    """`n` BGR uint8 frames of `n_objects` textured rectangles moving at constant velocity over a fixed textured
+    background; an object enters at a random frame and leaves at a random later one, so tracks are born and die.
+    The texture keeps neighbouring anchors from scoring exactly alike. Shared with the tests."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    bg = np.stack([90 + 30 * np.sin(xx / w * 6.3 + c) + 20 * np.cos(yy / h * 4.1 + c) for c in range(3)], -1)
+    bg = np.clip(bg + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
+    wh = rng.integers(size[0], size[1] + 1, (n_objects, 2))
+    xy = rng.uniform(0, 1, (n_objects, 2)) * (np.array([w, h]) - wh)
+    vel = rng.normal(0, 1.5, (n_objects, 2)) * max(h, w) / 640
+    patches = [np.clip(rng.integers(0, 256, 3) + rng.normal(0, 25, (bh, bw, 3)), 0, 255).astype(np.uint8)
+               for bw, bh in wh]
+    start = rng.integers(0, max(1, n // 2), n_objects)
+    stop = np.minimum(n, start + rng.integers(n // 4 + 1, n + 1, n_objects))
+    frames = []
+    for f in range(n):
+        img = bg.copy()
+        for j in np.flatnonzero((start <= f) & (f < stop)):
+            x1, y1 = np.floor(xy[j] + vel[j] * (f - start[j])).astype(int)
+            bw, bh = wh[j]
+            cx1, cy1, cx2, cy2 = max(x1, 0), max(y1, 0), min(x1 + bw, w), min(y1 + bh, h)
+            if cx1 < cx2 and cy1 < cy2:
+                img[cy1:cy2, cx1:cx2] = patches[j][cy1 - y1:cy2 - y1, cx1 - x1:cx2 - x1]
+        frames.append(img)
+    return frames
+
+
+def detection_stream(rng: np.random.Generator, n_frames: int = 120, n_targets: int = 48, hw=(720, 1280)):
+    """Per frame (xyxy float32 (n, 4), scores float32 (n,), classes float32 (n,)): targets of 20-80 px moving at
+    constant velocity with jitter, each alive between a random birth and death, detected with probability 0.85 (a
+    fifth of them at a low score in (0.11, 0.25)), plus up to 4 clutter boxes a frame. Shared with the tests."""
+    h, w = hw
+    birth = rng.integers(0, max(n_frames - 10, 1), n_targets)
+    death = np.minimum(n_frames, birth + rng.integers(10, max(n_frames, 11), n_targets))
+    wh = rng.uniform(20, 80, (n_targets, 2))
+    xy0 = rng.uniform(0, 1, (n_targets, 2)) * (np.array([w, h]) - wh)
+    vel = rng.normal(0, 3, (n_targets, 2))
+    cls = rng.integers(0, 3, n_targets)
+    frames = []
+    for f in range(n_frames):
+        boxes, scores, classes = [], [], []
+        for t in np.flatnonzero((birth <= f) & (f < death)):
+            if rng.random() > 0.85:
+                continue  # missed
+            c = xy0[t] + vel[t] * (f - birth[t]) + rng.normal(0, 1.5, 2)
+            s = wh[t] * rng.uniform(0.95, 1.05, 2)
+            boxes.append([*c, *(c + s)])
+            scores.append(rng.uniform(0.11, 0.25) if rng.random() < 0.2 else rng.uniform(0.3, 0.95))
+            classes.append(cls[t])
+        for _ in range(int(rng.integers(0, 5))):
+            c = rng.uniform(0, 1, 2) * np.array([w - 40, h - 40])
+            boxes.append([*c, *(c + rng.uniform(10, 40, 2))])
+            scores.append(rng.uniform(0.05, 0.4))
+            classes.append(rng.integers(0, 3))
+        order = rng.permutation(len(boxes))
+        frames.append((np.asarray(boxes, np.float32).reshape(-1, 4)[order], np.asarray(scores, np.float32)[order],
+                       np.asarray(classes, np.float32)[order]))
+    return frames
 
 
 def sass_counts(library: Path) -> dict:
@@ -618,6 +718,165 @@ def run_loop(n_bn: int, n_sites: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def calibrated_weights(facade, frame: np.ndarray, seed: int, gain: float, share: float, conf: float, imgsz: int) -> float:
+    """Load `scored_weights` into the facade's unfused model with the class bias at which `share` of the anchors of
+    `frame` (letterboxed to imgsz) score above `conf` by their best class. Returns that bias."""
+    from drone_yolo_tpu_torch.ops.letterbox import letterbox
+
+    model = facade.ensure_variables(imgsz=imgsz)
+    base = {k: v.cpu() for k, v in model.state_dict().items()}
+    model.load_state_dict(scored_weights(base, np.random.default_rng(seed), 0.0, gain))
+    x = letterbox(torch.from_numpy(frame).to(facade.device).flip(-1).permute(2, 0, 1)[None].float() / 255.0,
+                  (imgsz, imgsz))
+    with torch.inference_mode():
+        maps = model(x, raw=True)
+    reg = 4 * model.head.reg_max
+    best = torch.cat([m[:, reg:reg + model.nc].flatten(2) for m in maps], 2).amax(1).flatten().float()
+    bias = math.log(conf / (1.0 - conf)) - float(torch.quantile(best, 1.0 - share))
+    model.load_state_dict(scored_weights(base, np.random.default_rng(seed), bias, gain))
+    return bias
+
+
+def run_track() -> dict:
+    """Phase 11: the drone-video pipeline on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.apps import DroneVideoPipeline, GeoConverter
+    from drone_yolo_tpu_torch.ops import cuda_nms
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+    from drone_yolo_tpu_torch.trackers.byte_tracker import BYTETracker, STrack
+    from drone_yolo_tpu_torch.trackers.track import load_tracker_cfg
+
+    c = TRACK_CELL
+    h, w = c["hw"]
+    frames = moving_frames(np.random.default_rng(c["seed"]), c["frames"], c["hw"], c["objects"], c["obj_px"])
+    det, pose = YOLO(FLAGSHIP), YOLO(c["pose_model"])
+    biases = {name: calibrated_weights(m, frames[0], seed, c["cls_gain"], c["share_above_conf"], c["conf"], c["imgsz"])
+              for seed, (name, m) in enumerate(((FLAGSHIP, det), (c["pose_model"], pose)))}
+    geo = GeoConverter(**c["geo"], image_width_px=w, image_height_px=h)
+
+    def pipeline(with_pose: bool) -> DroneVideoPipeline:
+        """A new pipeline whose trackers start afresh, as for a new video."""
+        for m in (det, pose):
+            if m.predictor is not None:
+                m.predictor.__dict__.pop("trackers", None)
+        STrack.reset_id()
+        return DroneVideoPipeline(det, pose if with_pose else None, geo, imgsz=c["imgsz"], conf=c["conf"])
+
+    # pass A: every keep mask of both models' NMS against the plain keep on the same candidates
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        plain = nms_ops.greedy_keep_reference(boxes, valid, iou_thres)
+        checks.append({"K": int(boxes.shape[1]), "valid": int(valid.sum()), "kept": int(keep.sum()),
+                       "equal": bool(torch.equal(keep, plain))})
+        return keep
+
+    nms_ops.greedy_keep = checked_keep
+    try:
+        pipe, steps_a = pipeline(True), []
+        for f in frames:
+            first = len(checks)
+            steps_a.append(pipe.step(f))
+            for j, ch in enumerate(checks[first:]):  # a step runs the detector's NMS, then the pose model's
+                ch["model"] = ("detector", "pose")[j]
+    finally:
+        nms_ops.greedy_keep = kernel_keep
+    n_pose = sum("pose" in o for o in steps_a)
+    if not all(ch["equal"] for ch in checks) or len(checks) != len(frames) + n_pose:
+        raise AssertionError(f"track: {sum(not ch['equal'] for ch in checks)} of {len(checks)} keep masks differ from "
+                             f"the plain keep ({len(frames)} frames, {n_pose} pose calls)")
+    if n_pose < len(frames) - 1 or not any(ch["valid"] > ch["kept"] > 0 for ch in checks):
+        raise AssertionError(f"track: {n_pose} pose calls in {len(frames)} frames, or no NMS call kept and suppressed")
+    det_checks, pose_checks = ([ch for ch in checks if ch["model"] == m] for m in ("detector", "pose"))
+
+    # pass B: the timed run, detect + track + pose + geo, with host timers around the tracker, pose and geo
+    stage = defaultdict(float)
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stage[key] += time.perf_counter() - t
+        return run
+
+    update = BYTETracker.update
+    BYTETracker.update = timed(update, "tracker_update")
+    pipe = pipeline(True)
+    pose.predict, geo.pixel_to_latlon = timed(pose.predict, "pose"), timed(geo.pixel_to_latlon, "geo")
+    try:
+        cuda_nms.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        speeds = [pipe.step(f)["results"].speed for f in frames]
+        wall_full = time.perf_counter() - t
+        nms_calls, nms_launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
+    finally:
+        BYTETracker.update = update
+        del pose.predict, geo.pixel_to_latlon
+    if nms_calls != len(frames) + n_pose or nms_launches != 2 * nms_calls:
+        raise AssertionError(f"track: {nms_calls} NMS calls ({nms_launches} launches) for {len(frames)} frames and "
+                             f"{n_pose} pose calls")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_track_"))
+    try:
+        pipe.export_csv(tmp / "tracks.csv")
+        csv_rows = len((tmp / "tracks.csv").read_text().splitlines()) - 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = sum(len(v) for v in pipe.trajectories.values())
+    if csv_rows != rows or len(pipe.trajectories) == 0:
+        raise AssertionError(f"track: {csv_rows} CSV rows for {rows} trajectory points of {len(pipe.trajectories)} tracks")
+    lens = [len(v) for v in pipe.trajectories.values()]
+
+    # pass C: detect + track + geo without the pose model
+    pipe_c = pipeline(False)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for f in frames:
+        pipe_c.step(f)
+    wall_det = time.perf_counter() - t
+
+    # the device's busy share over steps of the full pipeline (torch.profiler)
+    pipe_d, it = pipeline(True), itertools.cycle(frames)
+    prof = profile_device(lambda: pipe_d.step(next(it)), steps=8, top=8)
+
+    # BYTETracker.update alone
+    tracker_alone = {}
+    args = load_tracker_cfg("bytetrack.yaml")
+    for n in TRACKER_TARGETS:
+        stream = detection_stream(np.random.default_rng(n), n_frames=60, n_targets=n, hw=c["hw"])
+        tracker, ms = BYTETracker(args), []
+        for boxes, scores, cls in stream:
+            t = time.perf_counter()
+            out = tracker.update(boxes, scores, cls)
+            ms.append((time.perf_counter() - t) * 1e3)
+        tracker_alone[str(n)] = {"update_ms_mean": float(np.mean(ms[5:])), "update_ms_median": float(np.median(ms[5:])),
+                                 "detections_per_frame": float(np.mean([len(s[0]) for s in stream])),
+                                 "tracks_last_frame": len(out)}
+
+    n = len(frames)
+    per_frame = {k: float(np.mean([s[k] for s in speeds])) for k in ("preprocess", "inference", "postprocess")}
+    per_frame.update({k: stage[k] * 1e3 / n for k in ("tracker_update", "pose", "geo")})
+    per_frame["other"] = wall_full * 1e3 / n - sum(per_frame.values())
+    return {"detector": FLAGSHIP, "pose_model": c["pose_model"], "cell": c, "class_bias": biases, "dtype": "bfloat16",
+            "fused": True, "fps_detect_track": n / wall_det, "fps_detect_track_pose": n / wall_full,
+            "stage_ms_per_frame": per_frame, "pose_ms_per_call": stage["pose"] * 1e3 / max(n_pose, 1),
+            "pose_calls": n_pose, "tracks": len(pipe.trajectories), "csv_rows": csv_rows,
+            "track_len": {"median": float(np.median(lens)), "max": max(lens)},
+            "tracks_per_frame_last": len(steps_a[-1]["tracks"]),
+            "nms_keep_checks": {"calls": len(checks), "all_equal_plain": True,
+                                "detector_valid_median": float(np.median([ch["valid"] for ch in det_checks])),
+                                "detector_kept_median": float(np.median([ch["kept"] for ch in det_checks])),
+                                "pose_valid_median": float(np.median([ch["valid"] for ch in pose_checks])),
+                                "pose_kept_median": float(np.median([ch["kept"] for ch in pose_checks])),
+                                "K": sorted({ch["K"] for ch in checks})},
+            "nms_calls": nms_calls, "nms_launches": nms_launches,
+            "profile": {k: prof[k] for k in ("steps", "wall_ms_per_step", "device_ms_per_step", "device_idle_share", "top")},
+            "bytetrack_update_alone": tracker_alone}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -792,9 +1051,9 @@ def main() -> None:
     with torch.inference_mode():  # one set of predictions, NMS with the kernel and with the plain keep
         preds, _ = pred.model(x)
         dets, n_valid = non_max_suppression(preds, args.conf, args.iou, args.max_det, pre_topk=1024)
-        cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, args.conf, 1024)
+        cand_boxes, top_scores, cls_idx, valid, off_boxes, cand_extra = select_candidates(preds, args.conf, 1024)
         keep_plain = greedy_keep_reference(off_boxes, valid, args.iou)
-        dets_plain, n_plain = compact(keep_plain, cand_boxes, top_scores, cls_idx, args.max_det)
+        dets_plain, n_plain = compact(keep_plain, cand_boxes, top_scores, cls_idx, args.max_det, cand_extra)
     if not (torch.equal(dets, dets_plain) and torch.equal(n_valid, n_plain)):
         raise AssertionError("NMS step with the kernel differs from the step with the plain keep")
     if not bool(valid.all()) or valid.shape != (8, 1024):
@@ -906,10 +1165,11 @@ def main() -> None:
             x = validator.preprocess(both_trainer.val_loader[0])
             val_preds = validator.forward(x)
             dets, n_valid = validator.postprocess(val_preds)
-            cand_boxes, top_scores, cls_idx, val_valid, val_off = select_candidates(
+            cand_boxes, top_scores, cls_idx, val_valid, val_off, cand_extra = select_candidates(
                 val_preds, conf, VAL["pre_nms_topk"], multi_label=True)
             val_keep_plain = greedy_keep_reference(val_off, val_valid, validator.args.iou)
-            dets_plain, n_plain = compact(val_keep_plain, cand_boxes, top_scores, cls_idx, validator.args.max_det)
+            dets_plain, n_plain = compact(val_keep_plain, cand_boxes, top_scores, cls_idx, validator.args.max_det,
+                                          cand_extra)
         if val_valid.shape != (VAL["batch"], VAL["pre_nms_topk"]):
             raise AssertionError(f"validation NMS ran on {tuple(val_valid.shape)} candidates, expected K = {VAL['pre_nms_topk']}")
         if not (torch.equal(dets, dets_plain) and torch.equal(n_valid, n_plain)):
@@ -1056,12 +1316,27 @@ def main() -> None:
         kern.setdefault("launches_by_path", {"train": kern["launches"] - n})["loop"] = n
     emit("loop", t, **{k: v for k, v in loop.items() if k != "counts"}, counts=loop["counts"])
 
-    # 10. imports ---------------------------------------------------------------
+    # 10. track: the drone-video pipeline, detect + ByteTrack + pose + geo ------------------
     t = time.perf_counter()
-    loaded = sorted(m for m in ("jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml") if m in sys.modules)
+    track = run_track()
+    nms_row = kernels[0]
+    nms_row["launches"] += track["nms_launches"]
+    nms_row["calls"] += track["nms_calls"]
+    nms_row["launches_by_path"]["track"] = track["nms_launches"]
+    emit("track", t, **track)
+
+    # 11. imports ---------------------------------------------------------------
+    t = time.perf_counter()
+    import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
+    import drone_yolo_tpu_torch.models.yolo  # noqa: F401
+    import drone_yolo_tpu_torch.trackers  # noqa: F401
+
+    absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn"]
+    loaded = sorted(m for m in absent if m in sys.modules)
     if loaded:
         raise AssertionError(f"the port imported {loaded}")
-    emit("imports", t, absent=["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml"], total_s=round(time.perf_counter() - T0, 3))
+    emit("imports", t, absent=absent, port_modules=sorted(m for m in sys.modules if m.startswith("drone_yolo_tpu_torch")),
+         total_s=round(time.perf_counter() - T0, 3))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "sites"} for kern in kernels]}), flush=True)

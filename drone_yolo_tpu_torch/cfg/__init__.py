@@ -1,7 +1,7 @@
 """Predict, validate and train configuration: the keys of the JAX package's `cfg/default.yaml` that the port reads.
 
 The defaults are Python dicts, so reading them needs no YAML parser. Keys of the
-modes and options that are not ported yet (export, track; plots, COCO JSON,
+modes and options that are not ported yet (export; plots, COCO JSON,
 rectangular validation; device augmentation, the mesh options) are refused by name
 rather than silently ignored.
 """
@@ -13,6 +13,7 @@ from pathlib import Path
 from types import SimpleNamespace
 
 MODEL_CFG_DIR = Path(__file__).resolve().parent / "models"
+TRACKER_CFG_DIR = Path(__file__).resolve().parent / "trackers"
 
 DEFAULT_CFG = {
     "imgsz": 640,  # (int | list) letterbox size (h, w)
@@ -25,6 +26,7 @@ DEFAULT_CFG = {
     "verbose": True,
     "dtype": "bfloat16",  # (str) compute dtype: bfloat16 or float32
     "pre_nms_topk": 4096,  # (int) score top-k fed to NMS (predict caps it at 1024, as the JAX predictor)
+    "tracker": "bytetrack.yaml",  # (str) tracker yaml for track: a path or a file in cfg/trackers/ (ByteTrack only)
 }
 
 _FLOAT_KEYS = {"conf", "iou"}

@@ -8,7 +8,7 @@ YAML parsing (format: `drone_yolo_tpu/engine/checkpoint.py`).
 HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `weight/bias/running_mean/running_var`, RepVGG `dense/one/idbn` become
 `rbr_dense/rbr_1x1/rbr_identity`, and the head's sequences drop the JAX `m`
-level. Names are the reference torch names (`model.<i>....`), which
+level (Detect's `cv2`, `cv3`, Pose's `cv4`). Names are the reference torch names (`model.<i>....`), which
 `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back.
 `from_jax_train_state` maps a whole JAX train state (params, optimizer state,
 EMA, accumulated gradients) the same way.
@@ -35,6 +35,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running
 _BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity"}
 _BRANCH_JAX = {v: k for k, v in _BRANCH.items()}
 _LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias"}
+_HEAD_SEQS = ("cv2", "cv3", "cv4")  # Detect's box and class branches, Pose's keypoint branch
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -66,8 +67,8 @@ def _torch_name(parts: list[str]) -> str:
     *path, leaf = parts
     names = []
     for j, p in enumerate(path):
-        if p == "m" and j >= 2 and path[j - 1].isdigit() and path[j - 2] in ("cv2", "cv3"):
-            continue  # Detect's cv2/cv3 sequences keep their children under "m" in JAX
+        if p == "m" and j >= 2 and path[j - 1].isdigit() and path[j - 2] in _HEAD_SEQS:
+            continue  # the head's branch sequences keep their children under "m" in JAX
         names.append(_BRANCH.get(p, p))
     if len(path) == 1 and leaf in ("kernel", "bias"):
         names.append("rbr_reparam")  # a layer-level kernel is a fused RepVGGBlock
@@ -96,8 +97,8 @@ def _jax_path(name: str, ndim: int) -> list[str]:
     for j, p in enumerate(path):
         if p == "rbr_reparam" and j == len(path) - 1:
             continue  # a fused RepVGGBlock's kernel lives at the layer level
-        if j >= 2 and p.isdigit() and path[j - 1].isdigit() and path[j - 2] in ("cv2", "cv3"):
-            out.append("m")  # Detect's cv2/cv3 sequences keep their children under "m" in JAX
+        if j >= 2 and p.isdigit() and path[j - 1].isdigit() and path[j - 2] in _HEAD_SEQS:
+            out.append("m")  # the head's branch sequences keep their children under "m" in JAX
         out.append(_BRANCH_JAX.get(p, p))
     if leaf == "weight":
         return out + ["kernel" if ndim == 4 else "scale"]
@@ -202,7 +203,7 @@ def load_checkpoint(path):
     The model is built from the embedded yaml dict, fused if the checkpoint is,
     and holds the checkpoint's weights, names and strides.
     """
-    from drone_yolo_tpu_torch.nn.model import DetectionModel
+    from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS
 
     path = Path(path)
     with np.load(path, allow_pickle=False) as data:
@@ -210,9 +211,10 @@ def load_checkpoint(path):
         flat = {k: data[k] for k in data.files if k != "__header__"}
     if header.get("format") != FORMAT:
         raise ValueError(f"{path}: format {header.get('format')!r}, expected {FORMAT!r}")
-    if header.get("task", "detect") != "detect":
-        raise ValueError(f"{path}: task {header['task']!r} is not ported yet")
-    model = DetectionModel(dict(header["yaml"]))
+    task = header.get("task", "detect")
+    if task not in TASK2MODELCLASS:
+        raise ValueError(f"{path}: task {task!r} is not ported yet")
+    model = TASK2MODELCLASS[task](dict(header["yaml"]))
     if not any(k.endswith("/mean") for k in flat):  # folded weights carry no BN statistics
         model.fuse()
     model.load_state_dict(from_jax_variables(unflatten_tree(flat)), strict=True)

@@ -1,8 +1,10 @@
-"""`YOLO` facade: build from a model yaml or load a JAX-package npz, then predict.
+"""`YOLO` facade: build from a model yaml or load a JAX-package npz, then predict, track, train or validate.
 
-Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for predict, train and val.
-The model lives on `device`, which is the CUDA card unless the caller passes
-`device="cpu"`; asking for CUDA where there is none is an error.
+Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for predict and track (detect and
+pose models, the predictor chosen by the model's task), train and val (detect). The model
+lives on `device`, which is the CUDA card unless the caller passes `device="cpu"`; asking
+for CUDA where there is none is an error. `overrides` holds predict arguments that every
+predictor this facade makes starts from, as the JAX facade's `overrides`.
 """
 
 from __future__ import annotations
@@ -13,8 +15,7 @@ import torch
 
 from drone_yolo_tpu_torch.cfg import get_cfg
 from drone_yolo_tpu_torch.engine.checkpoint import load_checkpoint
-from drone_yolo_tpu_torch.engine.predictor import DetectionPredictor
-from drone_yolo_tpu_torch.nn.model import DetectionModel
+from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, DetectionModel, guess_model_task
 
 
 def select_device(device=None) -> torch.device:
@@ -26,17 +27,18 @@ def select_device(device=None) -> torch.device:
 
 
 class YOLO:
-    """User-facing facade: `YOLO("yolov8s-p2-repvgg-sf.yaml").predict(frames)`."""
+    """User-facing facade: `YOLO("yolov8s-p2-repvgg-sf.yaml").predict(frames)`, `.track(frames, persist=True)`."""
 
     def __init__(self, model="yolov8n.yaml", device=None):
         self.device = select_device(device)
         self.predictor = None
         self.trainer = None
         self.ckpt = None
+        self.overrides: dict = {}
         model = str(model).strip()
         self.model_name = model
         if model.endswith((".yaml", ".yml")):
-            self.model = DetectionModel(model)
+            self.model = TASK2MODELCLASS[guess_model_task(model)](model)
             self.initialized = False
         elif model.endswith(".npz"):
             self.model, self.ckpt = load_checkpoint(model)
@@ -58,20 +60,46 @@ class YOLO:
         self.model.fuse()
         return self
 
+    @property
+    def task(self) -> str:
+        return self.model.task
+
     def predict(self, source=None, stream: bool = False, **kwargs):
-        """Detect on numpy frames; returns a list of Results (a generator with stream=True)."""
+        """Detect (or, for a pose model, detect with keypoints) on numpy frames; returns a list of Results (a
+        generator with stream=True). The predictor, chosen by the model's task, is made at the first call and again
+        when the dtype changes; it gets the facade's tracker callbacks, if `track` registered them."""
+        from drone_yolo_tpu_torch.models.yolo import TASK_MAP
+
         if self.predictor is None or get_cfg(self.predictor.args, kwargs).dtype != self.predictor.args.dtype:
-            self.predictor = DetectionPredictor(overrides={"conf": 0.25, **kwargs})
+            self.predictor = TASK_MAP[self.task]["predictor"](overrides={**self.overrides, "conf": 0.25, **kwargs})
             self.predictor.setup_model(self)
+            for event, fn in getattr(self, "_pending_tracker_callbacks", []):
+                self.predictor.add_callback(event, fn)
         else:
             self.predictor.args = get_cfg(self.predictor.args, kwargs)
         return self.predictor(source=source, stream=stream)
+
+    def track(self, source=None, stream: bool = False, persist: bool = False, **kwargs):
+        """Predict, then ByteTrack on the host: boxes with track ids (7 columns). With `persist` the tracker and its
+        tracks carry over from call to call, so a video goes frame by frame. conf defaults to 0.1; `tracker` names a
+        tracker yaml (bytetrack.yaml)."""
+        from drone_yolo_tpu_torch.trackers.track import register_tracker
+
+        if not hasattr(self, "_pending_tracker_callbacks"):
+            register_tracker(self, persist)
+        kwargs["conf"] = kwargs.get("conf") or 0.1
+        return self.predict(source=source, stream=stream, **kwargs)
+
+    def _detect_only(self, mode: str) -> None:
+        if self.task != "detect":
+            raise NotImplementedError(f"{mode} of a {self.task} model is not ported yet (ROADMAP.md queue 1 item 6)")
 
     def train(self, data=None, **overrides) -> dict:
         """Train on the dataset yaml `data` (`engine/trainer.py`), then take over the best EMA weights; returns the
         last epoch's validation metrics."""
         from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
 
+        self._detect_only("train")
         if not data:
             raise ValueError("a dataset is required: pass data=<data.yaml>")
         self.trainer = BaseTrainer(overrides={"model": self.model_name, "device": str(self.device), **overrides,
@@ -88,6 +116,7 @@ class YOLO:
         """Validate on the val split of the dataset yaml `data` (`engine/validator.py`); returns the metrics."""
         from drone_yolo_tpu_torch.engine.validator import DetectionValidator
 
+        self._detect_only("val")
         if not data:
             raise ValueError("a dataset is required: pass data=<data.yaml>")
         self.validator = DetectionValidator(args={"device": str(self.device), **overrides, "data": str(data)})

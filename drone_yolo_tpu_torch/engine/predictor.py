@@ -6,9 +6,13 @@ them, or an NHWC batch, which is read like frames (BGR, 0-255), as the JAX
 predictor reads it. File, video and stream sources need an image library and
 come with a later slice.
 
-Per batch only the (B, max_det, 6) detections and the (B,) counts leave the
-device. The model runs fused, in the configured dtype (bfloat16 by default);
-decode and NMS run in float32.
+Per batch only the (B, max_det, 6 [+ extra]) detections and the (B,) counts
+leave the device. The model runs fused, in the configured dtype (bfloat16 by
+default); decode and NMS run in float32.
+
+Callbacks (`CallbackMixin`, as `drone_yolo_tpu/utils/callbacks.py`'s) run at
+`on_predict_start` and at `on_predict_postprocess_end`, where the tracker rewrites
+`self.results`.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import copy
 import logging
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -64,7 +69,18 @@ def load_inference_source(source):
     return [f"image{i}.jpg" for i in range(len(frames))], frames
 
 
-class DetectionPredictor:
+class CallbackMixin:
+    """Named events, each a list of functions of the predictor (`drone_yolo_tpu/utils/callbacks.py:CallbackMixin`)."""
+
+    def add_callback(self, event: str, func) -> None:
+        self.callbacks[event].append(func)
+
+    def run_callbacks(self, event: str) -> None:
+        for cb in self.callbacks.get(event, []):
+            cb(self)
+
+
+class DetectionPredictor(CallbackMixin):
     """Runs a YOLO facade's model over numpy sources, yielding one `Results` per image."""
 
     def __init__(self, cfg=None, overrides=None):
@@ -73,6 +89,7 @@ class DetectionPredictor:
             self.args.conf = 0.25
         self.model = None
         self.results = None
+        self.callbacks = defaultdict(list)
 
     def setup_model(self, facade) -> None:
         """Take a fused copy of the facade's model, in the compute dtype, on the facade's device."""
@@ -105,11 +122,12 @@ class DetectionPredictor:
 
     @torch.inference_mode()
     def inference(self, x: torch.Tensor):
-        """The step on the device: forward, DFL decode, NMS -> (dets (B, max_det, 6), n_valid (B,))."""
+        """The step on the device: forward, DFL decode, NMS -> (dets (B, max_det, 6 + extra), n_valid (B,))."""
         preds, _ = self.model(x)
         return non_max_suppression(
             preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
-            pre_topk=min(self.args.pre_nms_topk, 1024), classes=self.args.classes, agnostic=self.args.agnostic_nms)
+            pre_topk=min(self.args.pre_nms_topk, 1024), classes=self.args.classes, agnostic=self.args.agnostic_nms,
+            nc=self.model.nc)
 
     def postprocess(self, dets, n_valid, x_shape, orig_imgs, paths):
         """Detections -> Results with boxes rescaled to the original frames."""
@@ -129,6 +147,7 @@ class DetectionPredictor:
     def stream_inference(self, source):
         """Generator of Results, with per-image preprocess/inference/postprocess times in `speed` (ms)."""
         paths, im0s = load_inference_source(source if source is not None else self.args.source)
+        self.run_callbacks("on_predict_start")
         profilers = (Profile(self.device), Profile(self.device), Profile(self.device))
         with profilers[0]:
             x = self.preprocess(im0s)
@@ -137,6 +156,7 @@ class DetectionPredictor:
             n_valid = n_valid.cpu()
         with profilers[2]:
             self.results = self.postprocess(dets, n_valid, x.shape[2:], im0s, paths)
+        self.run_callbacks("on_predict_postprocess_end")
         speed = {k: p.dt * 1e3 / len(im0s) for k, p in zip(("preprocess", "inference", "postprocess"), profilers)}
         for r in self.results:
             r.speed = speed

@@ -25,7 +25,9 @@ REGISTRY = {
     "Concat": M.Concat,
     "nn.Upsample": M.Upsample,
     "Detect": M.Detect,
+    "Pose": M.Pose,
 }
+HEAD_MODULES = {M.Detect, M.Pose}  # take the input widths of their levels as their last argument
 BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.SPPF, M.RepVGGBlock}  # take (c1, c2, ...)
 REPEAT_MODULES = {M.C2f}  # take the repeat count as their third argument
 
@@ -181,6 +183,7 @@ def parse_model(d: dict, ch: int = 3):
     and each layer's output channels.
     """
     nc = d.get("nc", 80)
+    kpt_shape = d.get("kpt_shape")
     scales = d.get("scales")
     scale = d.get("scale") or (next(iter(scales)) if scales else None)
     depth, width, max_channels = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")
@@ -200,6 +203,8 @@ def parse_model(d: dict, ch: int = 3):
             if isinstance(a, str):
                 if a == "nc":
                     args[j] = nc
+                elif a == "kpt_shape":
+                    args[j] = kpt_shape
                 else:
                     try:
                         args[j] = ast.literal_eval(a)
@@ -217,7 +222,7 @@ def parse_model(d: dict, ch: int = 3):
                 n_scaled = 1
         elif cls is M.Concat:
             c2 = sum(ch_list[x] for x in f)
-        elif cls is M.Detect:
+        elif cls in HEAD_MODULES:
             args = [*args, [ch_list[x] for x in f]]
             c2 = ch_list[f[0]]
         else:  # Upsample keeps its input's channels

@@ -1,6 +1,6 @@
-"""Detection model: the built layer list as one `nn.Module`, with stride probe, seeded init and fuse.
+"""Detection and pose models: the built layer list as one `nn.Module`, with stride probe, seeded init and fuse.
 
-Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel). Layers
+Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel / PoseModel, `guess_model_task`). Layers
 live in `self.model` (an `nn.ModuleList`), so parameter names are the reference
 torch names `model.<i>....`.
 """
@@ -124,3 +124,22 @@ class DetectionModel(nn.Module):
     def param_count(self) -> int:
         """Parameters and BN statistics, as the JAX package counts its variables."""
         return sum(t.numel() for t in self.state_dict().values())
+
+
+class PoseModel(DetectionModel):
+    """Pose model: a DetectionModel whose head is `Pose` (keypoints of the yaml's `kpt_shape` per detection).
+    Counterpart of `drone_yolo_tpu/nn/model.py` `PoseModel` for predict."""
+
+    task = "pose"
+
+    def __init__(self, cfg="yolov8n-pose.yaml", nc: int | None = None):
+        super().__init__(cfg, nc=nc)
+
+
+TASK2MODELCLASS = {"detect": DetectionModel, "pose": PoseModel}
+
+
+def guess_model_task(cfg) -> str:
+    """The task of a model yaml (or its dict) by the name of its head: "pose" for `Pose`, else "detect"."""
+    d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
+    return "pose" if "pose" in d["head"][-1][2].lower() else "detect"

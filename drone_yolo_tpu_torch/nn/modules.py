@@ -317,3 +317,35 @@ class Detect(nn.Module):
     def forward(self, xs):
         maps = self.raw_maps(xs)
         return self.decode(maps), maps
+
+
+class Pose(Detect):
+    """Pose head: Detect plus a keypoint branch `cv4` -> nk = kpt_shape[0] * kpt_shape[1] values per anchor.
+
+    Counterpart of `drone_yolo_tpu/nn/modules.py` `Pose`. `forward` gives (B, A, 4 + nc + nk): Detect's decoded
+    predictions, then the keypoints decoded to pixels in float32, (x, y[, sigmoid visibility]) per keypoint; and
+    (maps, raw keypoints (B, A, nk)). `cv4`'s last conv keeps its init (no prior), as in the JAX package.
+    """
+
+    def __init__(self, nc=80, kpt_shape=(17, 3), ch=(), reg_max=16):
+        super().__init__(nc, ch, reg_max)
+        self.kpt_shape = tuple(kpt_shape)
+        self.nk = self.kpt_shape[0] * self.kpt_shape[1]
+        c4 = max(ch[0] // 4, self.nk)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, self.nk, 1)) for x in ch)
+
+    def kpts_decode(self, kpts: torch.Tensor, feat_shapes) -> torch.Tensor:
+        """(B, A, nk) raw keypoints -> pixels: xy = (2 y + anchor - 0.5) * stride, visibility by a sigmoid."""
+        anchors, strides = make_anchors(feat_shapes, self.stride, device=kpts.device)
+        b, a, _ = kpts.shape
+        y = wide(kpts).view(b, a, *self.kpt_shape)
+        xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * strides[None, :, None, :]
+        if self.kpt_shape[1] == 3:
+            xy = torch.cat((xy, y[..., 2:3].sigmoid()), -1)
+        return xy.reshape(b, a, self.nk)
+
+    def forward(self, xs):
+        kpt = torch.cat([cv(x).flatten(2) for cv, x in zip(self.cv4, xs)], 2).transpose(1, 2)  # (B, A, nk)
+        maps = self.raw_maps(xs)
+        pkpt = self.kpts_decode(kpt, [m.shape[2:] for m in maps])
+        return torch.cat((self.decode(maps), pkpt), -1), (maps, kpt)

@@ -4,14 +4,16 @@ Counterpart of `drone_yolo_tpu/ops/nms.py:non_max_suppression`:
 
 1. select the top K candidates per image, by best-class score (predict) or,
    with `multi_label` (validate), over all A * nc (anchor, class) scores (ties:
-   lower index first, as `jax.lax.top_k`), and offset each box by
-   `class * MAX_WH`, so that boxes of different classes never overlap;
+   lower index first, as `jax.lax.top_k`), gather the columns after the class
+   scores (a pose model's keypoints) of each candidate's anchor, and offset each
+   box by `class * MAX_WH`, so that boxes of different classes never overlap;
 2. greedy keep mask over the K score-sorted candidates: on a CUDA tensor the
    hand-written kernels (`ops/cuda_nms.py`: a suppression bitmask, then a sweep
    over it), on a CPU tensor the plain version `greedy_keep_reference` below.
    `suppression_words_reference` and `sweep_reference` are the plain versions of
    the two kernels, one each; composed they give `greedy_keep_reference`'s mask;
-3. compact the kept candidates into `max_det` slots, zero-padded, with a count.
+3. compact the kept candidates, with their extra columns, into `max_det` slots,
+   zero-padded, with a count.
 """
 
 from __future__ import annotations
@@ -91,17 +93,19 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> t
 
 
 def select_candidates(preds: torch.Tensor, conf_thres: float, pre_topk: int, classes=None, agnostic: bool = False,
-                      multi_label: bool = False):
+                      multi_label: bool = False, nc: int = 0):
     """Phase 1: per image the top-K candidates: anchors by best-class score, or with `multi_label` the
     (anchor, class) pairs of the flat A * nc scores, K = min(pre_topk, A * nc); anchor idx // nc, class idx % nc.
+    `nc` = 0 reads every column after the box as a class score; otherwise the columns after the nc scores are
+    extra columns, gathered by each candidate's anchor.
 
     Returns xyxy boxes (B, K, 4), scores (B, K), classes as float (B, K),
-    validity `score > conf_thres` (B, K) and the class-offset boxes (B, K, 4).
+    validity `score > conf_thres` (B, K), the class-offset boxes (B, K, 4) and the extra columns (B, K, ch - 4 - nc).
     """
     b, a, ch = preds.shape
-    nc = ch - 4
+    nc = nc or ch - 4
     boxes = xywh2xyxy(preds[..., :4])
-    scores = preds[..., 4:]
+    scores, extra = preds[..., 4:4 + nc], preds[..., 4 + nc:]
     if classes is not None:  # zero the scores of the other classes
         mask = torch.zeros(nc, dtype=scores.dtype, device=preds.device)
         mask[torch.as_tensor(classes, dtype=torch.long).reshape(-1)] = 1.0
@@ -119,34 +123,40 @@ def select_candidates(preds: torch.Tensor, conf_thres: float, pre_topk: int, cla
         top_scores, anchor_idx = top_scores[:, :k], anchor_idx[:, :k]
         cls_idx = cls_all.gather(1, anchor_idx).to(preds.dtype)
     cand_boxes = boxes.gather(1, anchor_idx[..., None].expand(b, k, 4))
+    cand_extra = extra.gather(1, anchor_idx[..., None].expand(b, k, extra.shape[2]))
     offset = torch.zeros_like(cls_idx) if agnostic else cls_idx * MAX_WH
-    return cand_boxes, top_scores, cls_idx, top_scores > conf_thres, cand_boxes + offset[..., None]
+    return cand_boxes, top_scores, cls_idx, top_scores > conf_thres, cand_boxes + offset[..., None], cand_extra
 
 
-def compact(keep: torch.Tensor, cand_boxes, top_scores, cls_idx, max_det: int):
-    """Phase 3: kept candidates first, in score order, into min(K, max_det) zero-padded slots."""
+def compact(keep: torch.Tensor, cand_boxes, top_scores, cls_idx, max_det: int, cand_extra):
+    """Phase 3: kept candidates first, in score order, into min(K, max_det) zero-padded slots, with their extra
+    columns after the class."""
     order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)[:, :max_det]
     sel_valid = keep.gather(1, order)
-    det = torch.cat((cand_boxes.gather(1, order[..., None].expand(-1, -1, 4)),
-                     top_scores.gather(1, order)[..., None], cls_idx.gather(1, order)[..., None]), -1)
+    det = torch.cat((cand_boxes.gather(1, order[..., None].expand(-1, -1, 4)), top_scores.gather(1, order)[..., None],
+                     cls_idx.gather(1, order)[..., None],
+                     cand_extra.gather(1, order[..., None].expand(-1, -1, cand_extra.shape[2]))), -1)
     return det * sel_valid[..., None].to(det.dtype), sel_valid.sum(1, dtype=torch.int32)
 
 
 def non_max_suppression(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.7, max_det: int = 300,
-                        pre_topk: int = 1024, classes=None, agnostic: bool = False, multi_label: bool = False):
+                        pre_topk: int = 1024, classes=None, agnostic: bool = False, multi_label: bool = False,
+                        nc: int = 0):
     """Batched NMS of decoded predictions.
 
     Args:
-        preds: (B, A, 4 + nc) float32: xywh pixel boxes, then sigmoid class scores.
+        preds: (B, A, 4 + nc [+ extra]) float32: xywh pixel boxes, sigmoid class scores, then extra columns (a pose
+            model's decoded keypoints), which ride along with their candidates.
         classes: optional list of class indices to keep.
         multi_label: every (anchor, class) pair is a candidate (the validator's NMS), not only each
             anchor's best class (predict's).
+        nc: the class count; 0 takes every column after the box as a class score.
 
     Returns:
-        dets: (B, min(K, max_det), 6) [x1, y1, x2, y2, conf, cls], zero-padded.
+        dets: (B, min(K, max_det), 6 + extra) [x1, y1, x2, y2, conf, cls, extra...], zero-padded.
         n_valid: (B,) int32 count of real detections per image.
     """
-    cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, conf_thres, pre_topk, classes, agnostic,
-                                                                          multi_label)
+    cand_boxes, top_scores, cls_idx, valid, off_boxes, cand_extra = select_candidates(
+        preds, conf_thres, pre_topk, classes, agnostic, multi_label, nc)
     keep = greedy_keep(off_boxes, valid, iou_thres)
-    return compact(keep, cand_boxes, top_scores, cls_idx, max_det)
+    return compact(keep, cand_boxes, top_scores, cls_idx, max_det, cand_extra)

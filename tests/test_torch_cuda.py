@@ -84,15 +84,20 @@ def test_suppression_words_match_plain(cuda_device, b, k, thr):
     assert torch.equal(sweep_reference(words, valid), greedy_keep(boxes, valid, thr))
 
 
-@pytest.mark.parametrize("multi_label,pre_topk", [(False, 1024), (True, 4096)])
-def test_nms_step_matches_plain_keep(cuda_device, multi_label, pre_topk):
+@pytest.mark.parametrize("multi_label,pre_topk,nc,n_extra", [(False, 1024, 80, 0), (True, 4096, 80, 0),
+                                                              (False, 1024, 1, 51)])
+def test_nms_step_matches_plain_keep(cuda_device, multi_label, pre_topk, nc, n_extra):
+    """The NMS step with the kernel against the step with the plain keep; the last case is a pose model's (one class,
+    51 keypoint columns carried through the keep mask)."""
     rng = np.random.default_rng(9)
-    preds = np.concatenate([rng.random((4, 3000, 2)) * 640, rng.uniform(4, 80, (4, 3000, 2)), rng.random((4, 3000, 80)) ** 4], -1)
+    preds = np.concatenate([rng.random((4, 3000, 2)) * 640, rng.uniform(4, 80, (4, 3000, 2)), rng.random((4, 3000, nc)) ** 4,
+                            rng.random((4, 3000, n_extra)) * 640], -1)
     preds = torch.from_numpy(preds.astype(np.float32)).to(cuda_device)
-    dets, n = non_max_suppression(preds, conf_thres=0.0, iou_thres=0.7, pre_topk=pre_topk, multi_label=multi_label)
-    cand_boxes, top_scores, cls_idx, valid, off_boxes = select_candidates(preds, 0.0, pre_topk, multi_label=multi_label)
-    assert valid.shape == (4, pre_topk)
-    dets_ref, n_ref = compact(greedy_keep_reference(off_boxes, valid, 0.7), cand_boxes, top_scores, cls_idx, 300)
+    dets, n = non_max_suppression(preds, conf_thres=0.0, iou_thres=0.7, pre_topk=pre_topk, multi_label=multi_label, nc=nc)
+    cand_boxes, top_scores, cls_idx, valid, off_boxes, extra = select_candidates(preds, 0.0, pre_topk, multi_label=multi_label,
+                                                                                 nc=nc)
+    assert valid.shape == (4, pre_topk) and dets.shape[2] == 6 + n_extra
+    dets_ref, n_ref = compact(greedy_keep_reference(off_boxes, valid, 0.7), cand_boxes, top_scores, cls_idx, 300, extra)
     assert torch.equal(n, n_ref) and torch.equal(dets, dets_ref)
 
 
