@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
-validates the flagship, and runs the drone-video pipeline (tracking, pose, geo) over synthetic video.
+validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, and drives the
+command line over image files, an MJPEG AVI and a rect-validated dataset.
 
     python3 chip_smoke.py
 
@@ -86,8 +87,23 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    track + geo without the pose model; then the device's busy share over 8 steps of the full
    pipeline (torch.profiler), and `BYTETracker.update` alone on detection streams of 50, 200 and
    500 targets (`detection_stream`, 60 frames each);
-11. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
-   modules of every path (apps, trackers, the pose predictor) loaded.
+11. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 12
+   frames (`moving_frames`, seed 5: JPEG at 1920x1080, 1080x1920 and 1280x720, PNG at 1280x720), one MJPEG
+   AVI of 16 1080p frames at 30000/1001 frames/s (`write_mjpeg_avi`, a RIFF writer around `encode_jpeg`), and
+   32 dense-proxy images cropped to 8 aspect ratios (`write_mixed_val`). The flagship's weights are
+   `calibrated_weights` saved by `YOLO.save` with train_args imgsz 640. Through `cfg.entrypoint` strings, with no
+   imgsz: (a) predict over the directory with save_txt and save_crop (max_det 10), (b) track over clip.avi, then
+   `DroneVideoPipeline.run("clip.avi")`, (c) val over the mixed set (rect, the facade's default) and with
+   rect=False. Every NMS keep mask of (a)-(c) is held against `greedy_keep_reference`, counts set to 0 before
+   them and read after them. Checks: one label file per image, crops written, track ids, the CSV of
+   run("clip.avi") byte-equal to that of `step` over the frames decoded from the payloads, each rect batch at
+   its planned shape and at most `rect_max_shapes` shapes, square batches at 640. Printed: decode ms per 1080p
+   JPEG, 720p and 1080p PNG and AVI frame, run frames/s from the AVI against step frames/s from memory, val img/s
+   rect against square, predict img/s from the directory at batch 1 and 8, the host seconds of (a) by part
+   (loading and decoding, the predictor's stages, save_txt, save_crop) and each stage's seconds, each beside the
+   nvidia-smi line;
+12. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
+   modules of every path (apps, trackers, the pose predictor, the loaders) loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -106,6 +122,7 @@ card it exits with code 1 before any phase.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -182,6 +199,16 @@ TRACK_CELL = dict(frames=64, hw=(1080, 1920), objects=60, obj_px=(24, 120), seed
                   pose_model="yolov8s-pose.yaml", cls_gain=30.0, share_above_conf=0.05,
                   geo=dict(lat=31.2304, lon=121.4737, altitude_m=80.0, yaw_deg=15.0, pitch_deg=90.0))
 TRACKER_TARGETS = (50, 200, 500)  # BYTETracker.update alone on detection streams of this many targets
+# the entry phase: one MJPEG AVI of 16 1080p frames at 30000/1001 frames/s; a directory of 12 frames: the AVI's first 4
+# (JPEG 1920x1080), then JPEG 1080x1920 and 1280x720 and PNG 1280x720; a mixed-aspect val set of the dense proxy at
+# 640 px. The predict over the directory keeps 10 detections an image (max_det), whose crops it writes: the port's
+# numpy JPEG encoder writes each crop on the host, and the crops of 1080p frames are large
+ENTRY_CELL = dict(dir_from_avi=4, frames=(("jpg", (1920, 1080), 3), ("jpg", (720, 1280), 3), ("png", (720, 1280), 2)),
+                  avi_frames=16, avi_hw=(1080, 1920), avi_rate=(30000, 1001), objects=40, obj_px=(24, 120), seed=5,
+                  imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.05, crop_max_det=10, val_images=32,
+                  val_batch=8, val_nc=6)
+ENTRY_VAL_ASPECTS = ((1.0, 1.0), (0.5625, 1.0), (1.0, 0.5625), (0.75, 1.0), (1.0, 0.75), (0.6, 1.0), (1.0, 0.8),
+                     (0.9, 1.0))
 
 T0 = time.perf_counter()
 
@@ -219,21 +246,38 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, tries: int = 3) -> float:
-    """Mean device milliseconds per call: the summed durations of the kernels and copies that `reps` calls of `fn`
-    run (torch.profiler, after one warm-up call), without the gaps in which the card waits for the host. A trace
-    that recorded no device activity at all (seen once in a long run) is taken again, up to `tries` times."""
+PROFILER_FALLBACKS = []  # the per-site calls of device_ms whose traces recorded no device time: timed by CUDA events
+
+
+def device_ms(fn, reps: int, tries: int = 5, fallback: bool = False) -> tuple[float, str]:
+    """(mean device milliseconds per call, "profiler"): the summed durations of the kernels and copies that `reps`
+    calls of `fn` run (torch.profiler, after one warm-up call), without the gaps in which the card waits for the
+    host. A trace that recorded no device activity at all (seen in long runs, for a few microseconds of work) is
+    taken again, up to `tries` times; then it is an error, unless `fallback` (only for the rows of one site alone):
+    the call is then timed by CUDA events (`cuda_ms`, which also counts the card's waits for the host), returned as
+    (ms, "cuda_events"), counted in PROFILER_FALLBACKS and printed."""
     for _ in range(tries):
         ms = profile_device(fn, steps=reps)["device_ms_per_step"]
         if ms > 0:
-            return ms
-    raise AssertionError(f"torch.profiler recorded no device time in {tries} traces")
+            return ms, "profiler"
+    if not fallback:
+        raise AssertionError(f"torch.profiler recorded no device time in {tries} traces of {reps} calls")
+    ms = cuda_ms(fn, reps, warmup=1)
+    PROFILER_FALLBACKS.append(ms)
+    print(f"chip_smoke: torch.profiler recorded no device time in {tries} traces; CUDA events: {ms:.6f} ms",
+          file=sys.stderr, flush=True)
+    return ms, "cuda_events"
 
 
-def kernel_times(fn, reps: int, prefix: str = "") -> dict:
+def kernel_times(fn, reps: int, prefix: str = "", site: bool = False) -> dict:
     """`fn`'s device time per call (`device_ms`) as `<prefix>ms`, and its time by CUDA events around back-to-back
-    calls (`cuda_ms`, which also counts the card's waits for the host) as `<prefix>event_ms`."""
-    return {f"{prefix}ms": device_ms(fn, reps), f"{prefix}event_ms": cuda_ms(fn, reps, warmup=1)}
+    calls (`cuda_ms`, which also counts the card's waits for the host) as `<prefix>event_ms`. For one site alone
+    (`site`), `<prefix>ms` may come from CUDA events, and `<prefix>ms_source` says where it came from."""
+    ms, source = device_ms(fn, reps, fallback=site)
+    out = {f"{prefix}ms": ms, f"{prefix}event_ms": cuda_ms(fn, reps, warmup=1)}
+    if site:
+        out[f"{prefix}ms_source"] = source
+    return out
 
 
 def ious_needed(off_boxes, valid, keep, thr) -> int:
@@ -877,6 +921,310 @@ def run_track() -> dict:
             "bytetrack_update_alone": tracker_alone}
 
 
+def write_mjpeg_avi(path: Path, payloads: list, size: tuple[int, int], rate: int, scale: int) -> None:
+    """A minimal MJPEG AVI 1.0 file around JPEG payloads: RIFF 'AVI ' with hdrl (avih, one strl with strh and a
+    BITMAPINFOHEADER strf), movi with one 00dc chunk per frame (padded to even sizes), and idx1. size is (w, h)."""
+    w, h = size
+    n, big = len(payloads), max(len(p) for p in payloads)
+
+    def chunk(cid: bytes, data: bytes) -> bytes:
+        return cid + len(data).to_bytes(4, "little") + data + b"\0" * (len(data) & 1)
+
+    def lst(kind: bytes, body: bytes, cid: bytes = b"LIST") -> bytes:
+        return cid + (len(body) + 4).to_bytes(4, "little") + kind + body
+
+    u32 = lambda *v: b"".join(int(x).to_bytes(4, "little") for x in v)  # noqa: E731
+    avih = u32(round(1e6 * scale / rate), big * rate // scale, 0, 0x10, n, 0, 1, big, w, h, 0, 0, 0, 0)
+    strh = b"vidsMJPG" + u32(0, 0, 0, scale, rate, 0, n, big, 0xFFFFFFFF, 0) + bytes(8)
+    strf = u32(40, w, h) + (1).to_bytes(2, "little") + (24).to_bytes(2, "little") + b"MJPG" + u32(w * h * 3, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    frames, index, off = [], [], 4
+    for p in payloads:
+        frames.append(chunk(b"00dc", p))
+        index.append(b"00dc" + u32(0x10, off, len(p)))
+        off += len(frames[-1])
+    body = hdrl + lst(b"movi", b"".join(frames)) + chunk(b"idx1", b"".join(index))
+    path.write_bytes(lst(b"AVI ", body, cid=b"RIFF"))
+
+
+def write_mixed_val(root: Path, n: int, size: int, nc: int, seed: int) -> Path:
+    """A val set of the dense proxy in mixed aspect ratios: `make_dense_image` at `size`, cropped from the top left to
+    each of ENTRY_VAL_ASPECTS (h, w fractions) in turn, the labels of the objects whose centre stays inside clipped to
+    the crop; written by the port's JPEG encoder (quality 95) with data.yaml. Returns the yaml path."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from dense_dataset import CLASSES, make_dense_image
+
+    from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
+
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img, labels = make_dense_image(rng, size=size, nc=nc, obj_px=(6, 24))
+        fh, fw = ENTRY_VAL_ASPECTS[i % len(ENTRY_VAL_ASPECTS)]
+        h, w = int(size * fh), int(size * fw)
+        rows = []
+        for c, x, y, bw, bh in labels:
+            x1, y1 = max((x - bw / 2) * size, 0), max((y - bh / 2) * size, 0)
+            x2, y2 = min((x + bw / 2) * size, w), min((y + bh / 2) * size, h)
+            if x * size < w and y * size < h and x2 > x1 and y2 > y1:
+                rows.append(f"{c} {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} {(x2 - x1) / w:.6f} {(y2 - y1) / h:.6f}\n")
+        (root / "images" / "val" / f"val_{i:04d}.jpg").write_bytes(encode_jpeg(np.ascontiguousarray(img[:h, :w]), 95))
+        (root / "labels" / "val" / f"val_{i:04d}.txt").write_text("".join(rows))
+    (root / "images" / "train" / "t.jpg").write_bytes(encode_jpeg(np.zeros((64, 64, 3), np.uint8)))
+    names = "".join(f"  {i}: {CLASSES[i][0]}\n" for i in range(nc))
+    (root / "data.yaml").write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n{names}")
+    return root / "data.yaml"
+
+
+@contextlib.contextmanager
+def host_seconds(targets: dict):
+    """Host seconds spent in each of `targets` ({name: (owner, attribute)}, functions or methods) while the block
+    runs, summed per name into the yielded dict; the originals are put back after."""
+    spent = defaultdict(float)
+    saved = {name: (owner, attr, getattr(owner, attr)) for name, (owner, attr) in targets.items()}
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return run
+
+    for name, (owner, attr, fn) in saved.items():
+        setattr(owner, attr, wrap(name, fn))
+    try:
+        yield spent
+    finally:
+        for owner, attr, fn in saved.values():
+            setattr(owner, attr, fn)
+
+
+def run_entry(smi: str) -> dict:
+    """Phase 11: the normal entry points on the card (see the module docstring), their checks and their numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.apps import DroneVideoPipeline, GeoConverter
+    from drone_yolo_tpu_torch.cfg import entrypoint, get_val_cfg
+    from drone_yolo_tpu_torch.data.avi import AviReader, read_avi
+    from drone_yolo_tpu_torch.data.build import build_yolo_dataset
+    from drone_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from drone_yolo_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
+    from drone_yolo_tpu_torch.data.png import decode_png, encode_png
+    from drone_yolo_tpu_torch.data.utils import check_det_dataset
+    from drone_yolo_tpu_torch.data.loaders import LoadImagesAndVideos
+    from drone_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from drone_yolo_tpu_torch.engine.results import Results
+    from drone_yolo_tpu_torch.engine.validator import DetectionValidator
+    from drone_yolo_tpu_torch.ops import cuda_nms
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+    from drone_yolo_tpu_torch.trackers.byte_tracker import STrack
+
+    c = ENTRY_CELL
+    stage_s, t_stage = {}, [time.perf_counter()]
+
+    def lap(name: str) -> float:
+        """Seconds since the last lap, kept under `name`."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage[0]
+        t_stage[0] = now
+        return stage_s[name]
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    try:
+        # inputs, written by the port's encoders: the AVI's payloads (its first frames also stand as the directory's
+        # landscape 1080p JPEGs), the other frames of the directory, the mixed-aspect val set
+        rng = np.random.default_rng(c["seed"])
+        clip_frames = moving_frames(rng, c["avi_frames"], c["avi_hw"], c["objects"], c["obj_px"])
+        payloads = [encode_jpeg(np.ascontiguousarray(f[..., ::-1]), 95) for f in clip_frames]
+        clip = tmp / "clip.avi"
+        write_mjpeg_avi(clip, payloads, c["avi_hw"][::-1], *c["avi_rate"])
+        fps = read_avi(clip).fps
+        src = tmp / "frames"
+        src.mkdir()
+        blobs = list(payloads[:c["dir_from_avi"]])
+        for fmt, (h, w), n in c["frames"]:
+            for f in moving_frames(rng, n, (h, w), c["objects"], c["obj_px"]):
+                rgb = np.ascontiguousarray(f[..., ::-1])
+                blobs.append(encode_jpeg(rgb, 95) if fmt == "jpg" else encode_png(rgb))
+        for i, blob in enumerate(blobs):
+            (src / f"{i:02d}.{'png' if blob.startswith(PNG_SIGNATURE) else 'jpg'}").write_bytes(blob)
+        val_yaml = write_mixed_val(tmp / "val", c["val_images"], c["imgsz"], c["val_nc"], c["seed"])
+        lap("inputs")
+
+        # the weights: calibrated to detect, saved by YOLO.save with train_args imgsz 640 (no imgsz on the command line)
+        det = YOLO(FLAGSHIP)
+        bias = calibrated_weights(det, clip_frames[0], 0, c["cls_gain"], c["share_above_conf"], c["conf"], c["imgsz"])
+        det.overrides["imgsz"] = c["imgsz"]
+        npz = tmp / "flagship.npz"
+        det.save(npz)
+        geo = GeoConverter(**TRACK_CELL["geo"], image_width_px=c["avi_hw"][1], image_height_px=c["avi_hw"][0])
+        runs = tmp / "runs"
+        lap("weights")
+
+        returned = []
+
+        def keep_return(fn):
+            def run(*a, **kw):
+                returned.append(fn(*a, **kw))
+                return returned[-1]
+            return run
+
+        def cli(args: str):
+            """The command line on the flagship's npz; returns what the facade's mode returned."""
+            modes = {m: getattr(YOLO, m) for m in ("predict", "track", "val")}
+            for m, fn in modes.items():
+                setattr(YOLO, m, keep_return(fn))
+            try:
+                entrypoint(f"dyt-torch {args} model={npz} project={runs} verbose=False")
+            finally:
+                for m, fn in modes.items():
+                    setattr(YOLO, m, fn)
+            return returned[-1]
+
+        # (a)-(c) through the command line and run("clip.avi"), every NMS keep mask against the plain keep
+        checks, kernel_keep, val_shapes = [], nms_ops.greedy_keep, []
+        check_s = [0.0]
+
+        def checked_keep(boxes, valid, iou_thres):
+            keep = kernel_keep(boxes, valid, iou_thres)
+            t0 = time.perf_counter()
+            checks.append({"K": int(boxes.shape[1]), "B": int(boxes.shape[0]), "valid": int(valid.sum()),
+                           "kept": int(keep.sum()), "equal": bool(torch.equal(keep, nms_ops.greedy_keep_reference(
+                               boxes, valid, iou_thres)))})
+            check_s[0] += time.perf_counter() - t0
+            return keep
+
+        preprocess = DetectionValidator.preprocess
+
+        def recorded(self, batch):
+            val_shapes[-1].append(tuple(batch["img"].shape[1:3]))
+            return preprocess(self, batch)
+
+        nms_ops.greedy_keep, DetectionValidator.preprocess = checked_keep, recorded
+        cuda_nms.reset_counts()
+        try:
+            with host_seconds({"load_and_decode": (LoadImagesAndVideos, "__next__"),
+                               "setup_model": (DetectionPredictor, "setup_model"),
+                               "preprocess": (DetectionPredictor, "preprocess"),
+                               "inference": (DetectionPredictor, "inference"),
+                               "postprocess": (DetectionPredictor, "postprocess"),
+                               "save_txt": (Results, "save_txt"), "save_crop": (Results, "save_crop")}) as spent:
+                pred = cli(f"predict source={src} save_txt=True save_crop=True max_det={c['crop_max_det']} name=predict")
+            cli_predict_parts = {**spent, "plain_keep_checks": check_s[0]}
+            n_a = len(checks)
+            lap("cli_predict")
+            tracked = cli(f"track source={clip} name=track")
+            lap("cli_track")
+            STrack.reset_id()
+            run_pipe = DroneVideoPipeline(YOLO(npz), None, geo, imgsz=c["imgsz"], conf=c["conf"])
+            check_s[0] = 0.0
+            t0 = time.perf_counter()
+            run_out = run_pipe.run(str(clip), csv_path=tmp / "run.csv")
+            run_s = time.perf_counter() - t0 - check_s[0]  # the run's own time, without the plain keeps beside it
+            n_b = len(checks)
+            lap("run_avi")
+            val_shapes.append([])
+            t0 = time.perf_counter()
+            val_rect = cli(f"val data={val_yaml} batch={c['val_batch']} workers=4 name=val")
+            val_rect_s = time.perf_counter() - t0
+            val_shapes.append([])
+            t0 = time.perf_counter()
+            val_square = cli(f"val data={val_yaml} batch={c['val_batch']} workers=4 rect=False name=val_square")
+            val_square_s = time.perf_counter() - t0
+            lap("cli_val")
+        finally:
+            nms_ops.greedy_keep, DetectionValidator.preprocess = kernel_keep, preprocess
+        nms_calls, nms_launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
+        if not all(ch["equal"] for ch in checks) or not any(ch["valid"] > ch["kept"] > 0 for ch in checks):
+            raise AssertionError(f"entry: {sum(not ch['equal'] for ch in checks)} of {len(checks)} keep masks differ from "
+                                 "the plain keep, or no NMS call kept and suppressed")
+        if nms_launches == 0 or nms_launches != 2 * nms_calls or nms_calls != len(checks):
+            raise AssertionError(f"entry: {nms_calls} NMS calls ({nms_launches} launches) for {len(checks)} checked calls")
+        n_images = len(blobs)
+        labels = sorted(p.name for p in (runs / "predict" / "labels").iterdir())
+        crops = sum(1 for _ in (runs / "predict" / "crops").rglob("*.jpg"))
+        if len(pred) != n_images or labels != sorted(f"{i:02d}.txt" for i in range(n_images)) or not crops:
+            raise AssertionError(f"entry: {len(pred)} results, label files {labels}, {crops} crops for {n_images} images")
+        if len(tracked) != len(payloads) or not any(r.boxes is not None and r.boxes.is_track for r in tracked):
+            raise AssertionError("entry: track over clip.avi gave no tracks")
+
+        # the AVI run's CSV against step over the same frames decoded from the payloads
+        t0 = time.perf_counter()
+        decoded = [np.ascontiguousarray(decode_jpeg(p)[..., ::-1]) for p in payloads]
+        avi_decode_ms = (time.perf_counter() - t0) / len(payloads) * 1e3
+        STrack.reset_id()
+        step_pipe = DroneVideoPipeline(YOLO(npz), None, geo, imgsz=c["imgsz"], conf=c["conf"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in decoded:
+            step_pipe.step(f)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        step_pipe.export_csv(tmp / "step.csv", fps=fps)
+        csv_equal = (tmp / "run.csv").read_bytes() == (tmp / "step.csv").read_bytes()
+        if not csv_equal or run_out["frames"] != len(payloads) or run_out["fps"] != fps or not run_pipe.trajectories:
+            raise AssertionError(f"entry: run('clip.avi') {run_out} differs from step over the decoded frames")
+        lap("step_memory")
+
+        # rect batch shapes: each batch at its planned shape, at most rect_max_shapes; square batches at imgsz
+        data = check_det_dataset(val_yaml)
+        plan = build_yolo_dataset(get_val_cfg(overrides=dict(imgsz=c["imgsz"], batch=c["val_batch"], rect=True)),
+                                  data["val"], c["val_batch"], data, mode="val").batch_shapes
+        max_shapes = get_val_cfg().rect_max_shapes
+        if val_shapes[0] != [tuple(int(v) for v in s) for s in plan] or len(set(val_shapes[0])) > max_shapes or \
+                set(val_shapes[1]) != {(c["imgsz"], c["imgsz"])}:
+            raise AssertionError(f"entry: rect val shapes {val_shapes[0]} (plan {plan.tolist()}), square {val_shapes[1]}")
+        for m in (val_rect, val_square):
+            if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+                raise AssertionError(f"entry: val metrics {m}")
+
+        # decode cost per frame (the Huffman lookups are built by now)
+        def per_call_ms(fn, reps: int = 2) -> float:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) / reps * 1e3
+
+        png_720 = next(p for p in sorted(src.iterdir()) if p.suffix == ".png").read_bytes()
+        png_1080 = encode_png(np.ascontiguousarray(clip_frames[0][..., ::-1]))
+        with AviReader(clip) as reader:
+            avi_ms = per_call_ms(lambda: reader.frame(1))
+        decode_ms = {"jpeg_1080p": avi_decode_ms, "avi_frame_1080p": avi_ms, "png_720p": per_call_ms(lambda: decode_png(png_720)),
+                     "png_1080p": per_call_ms(lambda: decode_png(png_1080))}
+        lap("decode")
+
+        # predict img/s from the directory at batch 1 and 8 (decode included), on a facade that never tracks
+        plain = YOLO(npz)
+        pred_s = {}
+        for b in (1, 8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain.predict(str(src), batch=b, verbose=False)
+            torch.cuda.synchronize()
+            pred_s[b] = time.perf_counter() - t0
+        lap("predict_dir")
+        return {"model": FLAGSHIP, "cell": c, "class_bias": bias, "nvidia_smi": smi,
+                "inputs": {"frames": n_images, "avi_frames": len(payloads), "avi_fps": fps, "val_images": c["val_images"]},
+                "nms_keep_checks": {"calls": len(checks), "all_equal_plain": True, "predict": n_a, "track_and_run": n_b - n_a,
+                                    "val": len(checks) - n_b, "K": sorted({ch["K"] for ch in checks})},
+                "nms_calls": nms_calls, "nms_launches": nms_launches,
+                "label_files": len(labels), "crops": crops, "run_csv_equals_step_csv": csv_equal,
+                "tracks": len(run_pipe.trajectories), "csv_rows": len((tmp / "run.csv").read_text().splitlines()) - 1,
+                "rect_shapes": sorted(set(val_shapes[0])), "rect_max_shapes": max_shapes,
+                "val_rect": val_rect, "val_square": val_square, "decode_ms": decode_ms,
+                "run_fps_from_avi": len(payloads) / run_s, "step_fps_from_memory": len(decoded) / step_s,
+                "val_img_per_s": {"rect": c["val_images"] / val_rect_s, "square": c["val_images"] / val_square_s},
+                "predict_img_per_s_dir": {"batch1": n_images / pred_s[1], "batch8": n_images / pred_s[8]},
+                "stage_s": stage_s, "cli_predict_host_s": cli_predict_parts,
+                "save_crop_ms_per_crop": cli_predict_parts["save_crop"] / crops * 1e3}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1241,9 +1589,10 @@ def main() -> None:
                    "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": n_ops / PEAK_BF16_PER_S * 1e3}
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=site["need_dx"]: cuda_s2bwd.s2_bwd_cuda(x, w, dy, kind, nd),
-                                    reps=10))
+                                    reps=10, site=True))
             row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=site["need_dx"]: torch.ops.aten.convolution_backward(
-                dy, x, w, None, [2, 2], [p, p], [1, 1], False, [0, 0], 1, [nd, True, False]), reps=10, prefix="library_"))
+                dy, x, w, None, [2, 2], [p, p], [1, 1], False, [0, 0], 1, [nd, True, False]), reps=10, prefix="library_",
+                site=True))
             row.update(tflop_per_s=n_ops / row["ms"] / 1e9, gb_per_s=n_bytes / row["ms"] / 1e6,
                        bound_share=row["bound_ms"] / row["ms"], library_bound_share=row["bound_ms"] / row["library_ms"],
                        vs_library=row["ms"] / row["library_ms"])
@@ -1259,7 +1608,8 @@ def main() -> None:
             "bound_by": "bytes" if sum(r["bytes_ms"] for r in per_site) >= sum(r["ops_ms"] for r in per_site) else "operations",
             "per": "train step: one bf16 call at each of the flagship's sites (batch 8, 640 px); ms is device time "
                    "(torch.profiler), event_ms CUDA events around back-to-back calls; library: cuDNN convolution_backward; "
-                   "sites: each site alone, kernel and cuDNN",
+                   "sites: each site alone, kernel and cuDNN, each ms from its ms_source",
+            "sites_ms_from_cuda_events": sum(r[f"{q}ms_source"] == "cuda_events" for r in per_site for q in ("", "library_")),
             "sites": per_site,
         })
     xs = [site_input(site["x"], torch.bfloat16, seed=200 + i) for i, site in enumerate(bn)]
@@ -1271,11 +1621,14 @@ def main() -> None:
     per_site = [{"site": site["name"], "x": site["x"], "plan": cuda_bnstats.split_channel(x.shape[0] * x.shape[2] * x.shape[3]),
                  "bytes_ms": (2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3,  # bf16 x read, (2, C) f32 written
                  "ops_ms": BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3} for site, x in zip(bn, xs)]
-    by_shape = {}  # each distinct shape alone (device time by torch.profiler): the kernel and torch.batch_norm_stats
-    for site, x in zip(bn, xs):
+    by_shape = {}  # each distinct shape alone (device time by torch.profiler): the kernel and torch.batch_norm_stats;
+    for site, x in zip(bn, xs):  # 100 calls a trace, as a few microseconds of work each can leave a trace empty
         if site["x"] not in by_shape:
-            by_shape[site["x"]] = {"ms": device_ms(lambda x=x: cuda_bnstats.bn_stats_cuda(x), reps=20),
-                                   "library_ms": device_ms(lambda x=x: torch.batch_norm_stats(x, 1e-3), reps=20)}
+            by_shape[site["x"]] = {}
+            for prefix, fn in (("", lambda x=x: cuda_bnstats.bn_stats_cuda(x)),
+                               ("library_", lambda x=x: torch.batch_norm_stats(x, 1e-3))):
+                ms, source = device_ms(fn, reps=100, fallback=True)
+                by_shape[site["x"]].update({f"{prefix}ms": ms, f"{prefix}ms_source": source})
     del xs
     for row in per_site:
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
@@ -1292,8 +1645,11 @@ def main() -> None:
         "bound_by": "bytes" if sum(r["bytes_ms"] for r in per_site) >= sum(r["ops_ms"] for r in per_site) else "operations",
         "per": "train step: one bf16 call at each of the flagship's 77 BN inputs (batch 8, 640 px); ms is device time "
                "(torch.profiler), event_ms CUDA events around back-to-back calls; plain: the stock path's cast and two "
-               "reductions; library: torch.batch_norm_stats; sites: each distinct shape alone, kernel and library",
-        "sites_ms_sum": sum(r["ms"] for r in per_site), "sites": per_site,
+               "reductions; library: torch.batch_norm_stats; sites: each distinct shape alone, kernel and library, each "
+               "ms from its ms_source",
+        "sites_ms_sum": sum(r["ms"] for r in per_site),
+        "sites_ms_from_cuda_events": sum(r[f"{q}ms_source"] == "cuda_events" for r in per_site for q in ("", "library_")),
+        "sites": per_site,
     })
     emit("kernels", t, kernels=kernels)
 
@@ -1325,9 +1681,18 @@ def main() -> None:
     nms_row["launches_by_path"]["track"] = track["nms_launches"]
     emit("track", t, **track)
 
-    # 11. imports ---------------------------------------------------------------
+    # 11. entry: the command line, files, MJPEG AVI, PNG, rect validation ------------------
+    t = time.perf_counter()
+    entry = run_entry(smi)
+    nms_row["launches"] += entry["nms_launches"]
+    nms_row["calls"] += entry["nms_calls"]
+    nms_row["launches_by_path"]["entry"] = entry["nms_launches"]
+    emit("entry", t, **entry)
+
+    # 12. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
+    import drone_yolo_tpu_torch.data.loaders  # noqa: F401
     import drone_yolo_tpu_torch.models.yolo  # noqa: F401
     import drone_yolo_tpu_torch.trackers  # noqa: F401
 
@@ -1339,6 +1704,8 @@ def main() -> None:
          total_s=round(time.perf_counter() - T0, 3))
 
     print(smi, flush=True)
+    print(f"per-site device_ms timed by CUDA events where torch.profiler recorded nothing: {len(PROFILER_FALLBACKS)} calls",
+          flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "sites"} for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,4 +6,5 @@ nor anything of it.
 
 from drone_yolo_tpu_torch.engine.model import YOLO
 
-__all__ = ["YOLO"]
+__version__ = "0.1.0"
+__all__ = ["YOLO", "__version__"]

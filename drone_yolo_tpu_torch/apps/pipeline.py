@@ -2,9 +2,14 @@
 the host, with an optional pose model.
 
 Counterpart of `drone_yolo_tpu/apps/pipeline.py` (`DroneVideoPipeline`: `step`, `_smooth`, `run`, `export_csv`
-with the mix6 CSV columns). `run` reads a printf-pattern sequence of baseline JPEGs (`frames/%06d.jpg`, decoded by
-`data/jpeg.py`), which the JAX package opens with `cv2.VideoCapture`, or any iterable of BGR uint8 frames. Video
-container files need a video decoder, which is not ported yet (ROADMAP.md queue 1 item 4).
+with the mix6 CSV columns). `run` reads what the JAX package opens with `cv2.VideoCapture`: an MJPEG AVI file
+(`data/avi.py`, at the container's frame rate) or a printf-pattern JPEG or PNG sequence (`frames/%06d.jpg`, at 25
+frames/s, FFmpeg's image2 rate); and, through `data/loaders.py`, also an image file, a directory, a glob or a .txt
+list of images and AVI files, or any iterable of BGR uint8 frames (30 frames/s). Other video containers and
+codecs need NVDEC, which is not ported yet (ROADMAP.md queue 1 item 4), and are refused by name.
+
+The port decodes each frame as `cv2.imread`/`cv2.imdecode` does; the JAX `run` gets FFmpeg's pixels, which differ
+(ROADMAP.md queue 3, reference behaviours), so `run` over a file agrees with `step` over the decoded frames.
 """
 
 from __future__ import annotations
@@ -16,36 +21,46 @@ from pathlib import Path
 
 import numpy as np
 
-from drone_yolo_tpu_torch.data.jpeg import decode_jpeg
+from drone_yolo_tpu_torch.data.avi import read_avi
+from drone_yolo_tpu_torch.data.loaders import DECODED_VIDEOS, LoadImagesAndVideos
+from drone_yolo_tpu_torch.data.utils import VID_FORMATS, imread
 
 LOGGER = logging.getLogger("drone_yolo_tpu_torch")
-VIDEO_SUFFIXES = (".mp4", ".avi", ".mov", ".mkv", ".webm", ".gif", ".m4v", ".mpg", ".mpeg", ".ts", ".wmv")
 SEQUENCE_FPS = 25.0  # the frame rate cv2 (FFmpeg's image2 reader) reports for an image sequence
 FRAMES_FPS = 30.0  # the JAX pipeline's rate when the source reports none
 
 
 def image_sequence(pattern: str):
-    """BGR frames of a printf-pattern JPEG sequence: from the first of indices 0-4 that exists, then index by index
-    until one is missing, as FFmpeg's image2 reader under cv2.VideoCapture."""
+    """BGR frames of a printf-pattern JPEG or PNG sequence: from the first of indices 0-4 that exists, then index by
+    index until one is missing, as FFmpeg's image2 reader under cv2.VideoCapture."""
     start = next((i for i in range(5) if Path(pattern % i).is_file()), None)
     if start is None:
         raise FileNotFoundError(f"no file of the sequence {pattern!r} at an index in 0-4")
     i = start
     while Path(pattern % i).is_file():
-        yield np.ascontiguousarray(decode_jpeg(Path(pattern % i).read_bytes())[..., ::-1])  # RGB -> BGR
+        yield imread(pattern % i)
         i += 1
 
 
+def _loader_frames(dataset: LoadImagesAndVideos):
+    for _, imgs, _ in dataset:
+        yield from imgs
+
+
 def open_source(source):
-    """(frames, fps) of a source: a printf-pattern JPEG sequence (str or Path with '%') or an iterable of frames."""
+    """(frames, fps) of a source: a printf-pattern sequence (a str or Path with '%'), an AVI file, an image, a
+    directory, glob or .txt list (`LoadImagesAndVideos`; fps of its first video, else 25), or an iterable of frames."""
     if isinstance(source, (str, Path)):
         s = str(source)
-        if s.lower().endswith(VIDEO_SUFFIXES):
-            raise NotImplementedError(f"{s}: video files need a video decoder, which is not ported yet (ROADMAP.md "
-                                      "queue 1 item 4); pass a JPEG sequence such as frames/%06d.jpg or numpy frames")
-        if "%" not in s:
-            raise ValueError(f"{s}: expected a printf-pattern JPEG sequence such as frames/%06d.jpg")
-        return image_sequence(s), SEQUENCE_FPS
+        if "%" in s:
+            return image_sequence(s), SEQUENCE_FPS
+        suffix = s.rsplit(".", 1)[-1].lower()
+        if suffix in VID_FORMATS and suffix not in DECODED_VIDEOS:
+            raise NotImplementedError(f"{s}: .{suffix} video needs a decoder the port lacks (MJPEG in AVI only; "
+                                      "H.264/HEVC through NVDEC is ROADMAP.md queue 1 item 4)")
+        dataset = LoadImagesAndVideos(s)
+        videos = [f for f, v in zip(dataset.files, dataset.video_flag) if v]
+        return _loader_frames(dataset), read_avi(videos[0]).fps if videos else SEQUENCE_FPS
     return iter(source), FRAMES_FPS
 
 
@@ -99,8 +114,8 @@ class DroneVideoPipeline:
         return out
 
     def run(self, source, max_frames: int | None = None, csv_path=None) -> dict:
-        """Process a JPEG sequence or an iterable of frames (`open_source`); optionally export the trajectory CSV at
-        the source's frame rate."""
+        """Process a video file, an image sequence or an iterable of frames (`open_source`); optionally export the
+        trajectory CSV at the source's frame rate."""
         frames, fps = open_source(source)
         n = 0
         for frame in frames:

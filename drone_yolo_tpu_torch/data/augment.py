@@ -293,8 +293,9 @@ class LetterBoxT:
 
     def __call__(self, labels):
         img = labels["img"]
-        r, (dw, dh), _ = letterbox_params(img.shape[:2], self.new_shape, scaleup=self.scaleup)
-        labels["img"] = letterbox_u8(torch.from_numpy(np.ascontiguousarray(img))[None], self.new_shape,
+        new_shape = labels.pop("rect_shape", None) or self.new_shape  # a rect batch's shape, when the dataset plans one
+        r, (dw, dh), _ = letterbox_params(img.shape[:2], new_shape, scaleup=self.scaleup)
+        labels["img"] = letterbox_u8(torch.from_numpy(np.ascontiguousarray(img))[None], new_shape,
                                      scaleup=self.scaleup)[0].numpy()
         if len(labels["bboxes"]):
             b = labels["bboxes"] * r

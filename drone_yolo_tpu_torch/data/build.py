@@ -17,16 +17,22 @@ import threading
 
 import numpy as np
 
-from drone_yolo_tpu_torch.data.dataset import YOLODataset
+from drone_yolo_tpu_torch.data.dataset import LOGGER, YOLODataset
 
 
-def build_yolo_dataset(cfg, img_path, batch: int, data: dict, mode: str = "train", max_labels=None) -> YOLODataset:
-    """A YOLODataset from a train or validate configuration: augmented for "train", letterboxed otherwise."""
-    if getattr(cfg, "rect", False):
-        raise ValueError("rect=True: rectangular validation batches are not ported yet (see ROADMAP.md)")
+def build_yolo_dataset(cfg, img_path, batch: int, data: dict, mode: str = "train", stride: int = 32,
+                       max_labels=None) -> YOLODataset:
+    """A YOLODataset from a train or validate configuration: augmented for "train", letterboxed otherwise. `rect`
+    gives rectangular batches for validation (a half-stride pad, at most `rect_max_shapes` shapes); for training it
+    is ignored with a warning, as in the JAX package."""
+    rect = bool(cfg.rect) and mode != "train"
+    if cfg.rect and mode == "train":
+        LOGGER.warning("rect=True ignored for training; using the square letterbox")
     return YOLODataset(img_path=img_path, imgsz=cfg.imgsz, cache=cfg.cache in (True, "ram"), augment=mode == "train",
-                       hyp=cfg, prefix=f"{mode}: ", batch_size=batch, single_cls=cfg.single_cls, classes=cfg.classes,
-                       fraction=cfg.fraction if mode == "train" else 1.0, data=data, max_labels=max_labels)
+                       hyp=cfg, prefix=f"{mode}: ", batch_size=batch, stride=stride, pad=0.0 if mode == "train" else 0.5,
+                       single_cls=cfg.single_cls, classes=cfg.classes,
+                       fraction=cfg.fraction if mode == "train" else 1.0, data=data, max_labels=max_labels, rect=rect,
+                       rect_max_shapes=int(cfg.rect_max_shapes or 8))
 
 
 class DataLoader:

@@ -10,8 +10,13 @@ The label cache is the JAX package's file: `<labels dir>.cache.npz` beside the l
 same version, hash and pickled list of label dicts, so either package reads the other's.
 Images are decoded by `data/jpeg.py` and resized so that the long side is `imgsz`:
 bilinear (`ops/letterbox.py:resize_linear_u8`) for training or enlarging, area
-(`ops/image.py:resize_area_u8`) for shrinking validation images. Rectangular validation
-batches (`rect`) are not ported yet.
+(`ops/image.py:resize_area_u8`) for shrinking validation images.
+
+With `rect` (validation only) `set_rectangle` sorts the images by aspect ratio and gives
+each batch one shape, the JAX package's plan (`drone_yolo_tpu/data/dataset.py:set_rectangle`):
+the batch's aspect range mapped to imgsz, rounded up to a multiple of the stride after a
+`pad` of half a stride, with the rounding step doubled until at most `rect_max_shapes`
+distinct shapes remain. Each sample is letterboxed to its batch's shape, not enlarged.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 
 from drone_yolo_tpu_torch.data.augment import Compose, LetterBoxT, seed_sample, v8_transforms
-from drone_yolo_tpu_torch.data.utils import IMG_FORMATS, get_hash, img2label_paths, imread_rgb, verify_image_label
+from drone_yolo_tpu_torch.data.utils import (DECODED_FORMATS, IMG_FORMATS, get_hash, img2label_paths, imread_rgb,
+                                             verify_image_label)
 from drone_yolo_tpu_torch.ops.image import resize_area_u8
 from drone_yolo_tpu_torch.ops.letterbox import resize_linear_u8
 
@@ -47,8 +53,9 @@ class YOLODataset:
     """Detection dataset over YOLO-txt labels. `hyp` is the train configuration (augmentation keys)."""
 
     def __init__(self, img_path, imgsz: int = 640, cache: bool = False, augment: bool = True, hyp=None,
-                 prefix: str = "", batch_size: int = 16, single_cls: bool = False, classes=None,
-                 fraction: float = 1.0, data: dict | None = None, max_labels: int | None = None):
+                 prefix: str = "", batch_size: int = 16, stride: int = 32, pad: float = 0.5, single_cls: bool = False,
+                 classes=None, fraction: float = 1.0, data: dict | None = None, max_labels: int | None = None,
+                 rect: bool = False, rect_max_shapes: int = 8):
         self.img_path = img_path
         self.imgsz = imgsz
         self.augment = augment
@@ -62,6 +69,8 @@ class YOLODataset:
         self.update_labels(classes)
         self.ni = len(self.labels)
         self.batch_size = batch_size
+        self.stride = stride
+        self.pad = pad
         self.hyp = hyp
         self.cache = cache
         self._ram: dict = {}
@@ -73,6 +82,10 @@ class YOLODataset:
         self.epoch = 0
         self.aug_seed = 0
         self._sample_ctx = threading.local()
+        self.rect = rect and not augment
+        self.batch_shapes = self.batch = None
+        if self.rect:
+            self.set_rectangle(rect_max_shapes)
         n_max = max((len(lb["cls"]) for lb in self.labels), default=1)
         mosaic_on = augment and hyp is not None and (hyp.mosaic or 0) > 0
         mixup_on = augment and hyp is not None and (hyp.mixup or 0) > 0
@@ -95,6 +108,10 @@ class YOLODataset:
             else:
                 raise FileNotFoundError(f"{self.prefix}{p} does not exist")
         im_files = sorted(x for x in f if x.split(".")[-1].lower() in IMG_FORMATS)
+        undecoded = sorted({x.split(".")[-1].lower() for x in im_files} - DECODED_FORMATS)
+        if undecoded:
+            raise NotImplementedError(f"{self.prefix}{img_path}: .{', .'.join(undecoded)} images are not decoded by the "
+                                      f"port yet (JPEG and PNG only; see ROADMAP.md)")
         if not im_files:
             raise FileNotFoundError(f"{self.prefix}No images found in {img_path}")
         if self.fraction < 1:
@@ -149,6 +166,37 @@ class YOLODataset:
             for lb in self.labels:
                 lb["cls"][:] = 0
 
+    def set_rectangle(self, max_shapes: int = 8) -> None:
+        """Sort the images by aspect ratio (h / w) and plan one letterbox shape per batch: `batch` (image -> batch
+        index) and `batch_shapes` ((nb, 2) h, w), with at most `max_shapes` distinct shapes."""
+        bi = np.floor(np.arange(self.ni) / self.batch_size).astype(int)
+        nb = int(bi[-1]) + 1
+        s = np.array([lb["shape"] for lb in self.labels], np.float64)
+        ar = s[:, 0] / s[:, 1]
+        irect = ar.argsort()
+        self.labels = [self.labels[i] for i in irect]
+        self.im_files = [lb["im_file"] for lb in self.labels]
+        ar = ar[irect]
+        shapes = np.ones((nb, 2), np.float64)
+        for i in range(nb):
+            ari = ar[bi == i]
+            mini, maxi = ari.min(), ari.max()
+            if maxi < 1:
+                shapes[i] = [maxi, 1]
+            elif mini > 1:
+                shapes[i] = [1, 1 / mini]
+        q = self.stride
+        while True:
+            batch_shapes = (np.ceil(shapes * self.imgsz / q + self.pad) * q).astype(int)
+            n_distinct = len({tuple(x) for x in batch_shapes})
+            if n_distinct <= max_shapes or q >= self.imgsz:
+                break
+            q *= 2
+        if q != self.stride:
+            LOGGER.info(f"{self.prefix}rect: merged the batch shapes to {n_distinct} (rounded to {q} px)")
+        self.batch_shapes = batch_shapes
+        self.batch = bi
+
     # -- samples ---------------------------------------------------------------------
     def load_image(self, i: int) -> np.ndarray:
         """Image i as (h, w, 3) uint8 RGB with its long side resized to imgsz. Kept in RAM with `cache`, and in the
@@ -189,8 +237,11 @@ class YOLODataset:
         if len(bn):
             cx, cy, bw, bh = bn[:, 0] * w, bn[:, 1] * h, bn[:, 2] * w, bn[:, 3] * h
             boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1).astype(np.float32)
-        return {"img": img, "cls": lb["cls"].astype(np.float32).copy(), "bboxes": boxes, "im_file": lb["im_file"],
-                "ori_shape": lb["shape"]}
+        out = {"img": img, "cls": lb["cls"].astype(np.float32).copy(), "bboxes": boxes, "im_file": lb["im_file"],
+               "ori_shape": lb["shape"]}
+        if self.rect:
+            out["rect_shape"] = tuple(int(x) for x in self.batch_shapes[self.batch[i]])
+        return out
 
     def __len__(self) -> int:
         return self.ni

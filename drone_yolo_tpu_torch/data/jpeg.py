@@ -11,6 +11,8 @@
   h2v2 with the edge rows and columns replicated, plain replication for other factors and
   for components two samples wide or less), and fixed-point YCbCr to RGB with 16 fraction
   bits (`jdcolor.c`). Grey images are replicated into three channels.
+- Huffman tables 0 and 1 that the stream does not define are those of the standard's
+  Annex K.3, as libjpeg and FFmpeg decode Motion JPEG frames without a DHT segment.
 - Progressive, arithmetic-coded, lossless, hierarchical and 12-bit streams are refused
   with a `ValueError` that names the mode.
 
@@ -325,7 +327,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 
 def _decode(data: bytes) -> np.ndarray:
-    qts, dc_specs, ac_specs, restart = {}, {}, {}, 0
+    qts, restart = {}, 0
+    # tables 0 and 1 default to Annex K.3's, as libjpeg and FFmpeg decode Motion JPEG frames that carry no DHT
+    dc_specs, ac_specs = {0: b"".join(_DC_LUMA), 1: b"".join(_DC_CHROMA)}, {0: b"".join(_AC_LUMA), 1: b"".join(_AC_CHROMA)}
     frame = None
     gen = _segments(data)
     item = next(gen, None)

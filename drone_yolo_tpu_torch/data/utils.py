@@ -2,8 +2,8 @@
 
 Counterpart of `drone_yolo_tpu/data/utils.py` (`img2label_paths`, `get_hash`,
 `verify_image_label` for detect labels, `check_det_dataset`, `imread_rgb`). Images are
-read by the port's own JPEG decoder (`data/jpeg.py`); PNG and the other formats of the
-JAX package's `IMG_FORMATS` are refused by name (ROADMAP). The yaml is read by the
+read by the port's own decoders, JPEG (`data/jpeg.py`) and PNG (`data/png.py`); the other
+formats of the JAX package's `IMG_FORMATS` are refused by name (ROADMAP). The yaml is read by the
 port's YAML subset (`nn/build.py:load_yaml`). Nothing is downloaded: a missing dataset
 raises.
 """
@@ -17,18 +17,41 @@ from pathlib import Path
 import numpy as np
 
 from drone_yolo_tpu_torch.data.jpeg import decode_jpeg, jpeg_shape
+from drone_yolo_tpu_torch.data.png import decode_png, png_shape
 from drone_yolo_tpu_torch.nn.build import load_yaml
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm", "heic"}  # listed as images
-DECODED_FORMATS = {"jpeg", "jpg"}  # what the port decodes
+VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv", "webm"}  # listed as videos
+DECODED_FORMATS = {"jpeg", "jpg", "png"}  # what the port decodes
+
+
+def _format(path) -> str:
+    suffix = str(path).rsplit(".", 1)[-1].lower()
+    if suffix not in DECODED_FORMATS:
+        raise ValueError(f"{path}: .{suffix} images are not decoded by the port yet (JPEG and PNG only; see ROADMAP.md)")
+    return suffix
+
+
+def imread(path) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 BGR, equal to cv2.imread(path) for JPEG and PNG files."""
+    if _format(path) == "png":
+        return decode_png(Path(path).read_bytes())
+    return np.ascontiguousarray(decode_jpeg(Path(path).read_bytes())[..., ::-1])
 
 
 def imread_rgb(path) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB, equal to cv2.imread(path, IMREAD_COLOR_RGB) for JPEG files."""
-    suffix = str(path).rsplit(".", 1)[-1].lower()
-    if suffix not in DECODED_FORMATS:
-        raise ValueError(f"{path}: .{suffix} images are not decoded by the port yet (JPEG only; see ROADMAP.md)")
+    """An image file -> (H, W, 3) uint8 RGB, equal to cv2.imread(path, IMREAD_COLOR_RGB) for JPEG and PNG files."""
+    if _format(path) == "png":
+        return np.ascontiguousarray(decode_png(Path(path).read_bytes())[..., ::-1])
     return decode_jpeg(Path(path).read_bytes())
+
+
+def image_shape(path) -> tuple[int, int]:
+    """(height, width) of a JPEG or PNG file, from its header."""
+    if _format(path) == "png":
+        with open(path, "rb") as f:
+            return png_shape(f.read(24))
+    return jpeg_shape(path)
 
 
 def img2label_paths(img_paths):
@@ -53,8 +76,8 @@ def verify_image_label(im_file, lb_file, num_cls: int, single_cls: bool = False)
     try:
         fmt = str(im_file).rsplit(".", 1)[-1].lower()
         if fmt not in DECODED_FORMATS:
-            raise ValueError(f"invalid image format {fmt} (the port reads JPEG only)")
-        shape = jpeg_shape(im_file)
+            raise ValueError(f"invalid image format {fmt} (the port reads JPEG and PNG only)")
+        shape = image_shape(im_file)
         if shape[0] < 10 or shape[1] < 10:
             raise ValueError(f"image size {shape} <10 pixels")
         if os.path.isfile(lb_file):

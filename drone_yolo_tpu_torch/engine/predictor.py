@@ -1,18 +1,22 @@
-"""Streaming predictor: letterbox on the device, one forward + decode + NMS step, Results.
+"""Streaming predictor: sources through the loaders, letterbox on the device, one forward + decode + NMS step, Results.
 
 Counterpart of `drone_yolo_tpu/engine/predictor.py` (BasePredictor and
-DetectionPredictor) for numpy sources: one BGR uint8 frame (H, W, 3), a list of
-them, or an NHWC batch, which is read like frames (BGR, 0-255), as the JAX
-predictor reads it. File, video and stream sources need an image library and
-come with a later slice.
+DetectionPredictor). `setup_source` picks a loader (`data/loaders.py`): image files
+(JPEG, PNG), MJPEG AVI videos, directories, globs and .txt lists of them, numpy BGR
+frames, lists of frames or NHWC batches; `stream_inference` runs batch by batch over its
+(paths, images, info) batches. `write_results` logs each result's line and writes
+`save_txt` labels (under `<save_dir>/labels`, a video frame's as `<stem>_<frame>.txt`) and
+`save_crop` crops (under `<save_dir>/crops`); `save=True` (annotated images and video) and
+`show` need drawing, which is not ported yet, and are refused by name
+(`cfg.check_ported`).
 
 Per batch only the (B, max_det, 6 [+ extra]) detections and the (B,) counts
 leave the device. The model runs fused, in the configured dtype (bfloat16 by
 default); decode and NMS run in float32.
 
-Callbacks (`CallbackMixin`, as `drone_yolo_tpu/utils/callbacks.py`'s) run at
-`on_predict_start` and at `on_predict_postprocess_end`, where the tracker rewrites
-`self.results`.
+Callbacks (`utils/callbacks.py`) run at `on_predict_start`, `on_predict_batch_start`,
+`on_predict_postprocess_end` (where the tracker rewrites `self.results`),
+`on_predict_batch_end` and `on_predict_end`.
 """
 
 from __future__ import annotations
@@ -20,16 +24,18 @@ from __future__ import annotations
 import copy
 import logging
 import time
-from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from drone_yolo_tpu_torch.cfg import get_cfg
+from drone_yolo_tpu_torch.cfg import check_ported, get_cfg, get_save_dir
+from drone_yolo_tpu_torch.data.loaders import load_inference_source
 from drone_yolo_tpu_torch.engine.results import Results
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
 from drone_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_u8
 from drone_yolo_tpu_torch.ops.nms import non_max_suppression
+from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_callbacks
 
 LOGGER = logging.getLogger("drone_yolo_tpu_torch")
 
@@ -40,6 +46,7 @@ class Profile:
     def __init__(self, device: torch.device):
         self.device = device
         self.dt = 0.0
+        self.t = 0.0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -53,50 +60,29 @@ class Profile:
     def __exit__(self, *exc):
         self._sync()
         self.dt = time.perf_counter() - self.start
-
-
-def load_inference_source(source):
-    """Numpy source -> (paths, frames). A 4-D array is a batch of frames."""
-    if isinstance(source, np.ndarray):
-        frames = list(source) if source.ndim == 4 else [source]
-    elif isinstance(source, (list, tuple)) and all(isinstance(im, np.ndarray) for im in source):
-        frames = list(source)
-    else:
-        raise TypeError(f"sources are numpy frames, lists of them or NHWC batches; got {type(source).__name__} "
-                        "(files and streams are not ported yet)")
-    if not frames or any(im.ndim != 3 or im.shape[2] != 3 for im in frames):
-        raise ValueError("each frame must be (H, W, 3)")
-    return [f"image{i}.jpg" for i in range(len(frames))], frames
-
-
-class CallbackMixin:
-    """Named events, each a list of functions of the predictor (`drone_yolo_tpu/utils/callbacks.py:CallbackMixin`)."""
-
-    def add_callback(self, event: str, func) -> None:
-        self.callbacks[event].append(func)
-
-    def run_callbacks(self, event: str) -> None:
-        for cb in self.callbacks.get(event, []):
-            cb(self)
+        self.t += self.dt
 
 
 class DetectionPredictor(CallbackMixin):
-    """Runs a YOLO facade's model over numpy sources, yielding one `Results` per image."""
+    """Runs a YOLO facade's model over a source (`data/loaders.py`), yielding one `Results` per image."""
 
     def __init__(self, cfg=None, overrides=None):
-        self.args = get_cfg(cfg, overrides)
+        self.args = check_ported(get_cfg(cfg, overrides), "predict")
         if self.args.conf is None:
             self.args.conf = 0.25
+        self.save_dir = get_save_dir(self.args)
         self.model = None
         self.results = None
-        self.callbacks = defaultdict(list)
+        self.dataset = None
+        self.source_type = None
+        self.callbacks = get_default_callbacks()
 
     def setup_model(self, facade) -> None:
         """Take a fused copy of the facade's model, in the compute dtype, on the facade's device."""
         imgsz = self.args.imgsz if isinstance(self.args.imgsz, int) else max(self.args.imgsz)
         facade.ensure_variables(imgsz=imgsz)
         self.device = facade.device
-        self.dtype = torch.bfloat16 if self.args.dtype == "bfloat16" else torch.float32
+        self.dtype = torch.bfloat16 if self.args.dtype == "bfloat16" or self.args.half else torch.float32
         self.model = copy.deepcopy(facade.model).fuse().to(self.device, self.dtype)
         self.names = self.model.names
 
@@ -144,25 +130,50 @@ class DetectionPredictor(CallbackMixin):
         gen = self.stream_inference(source)
         return gen if stream else list(gen)
 
+    def setup_source(self, source) -> None:
+        """The loader of `source`: batches of `args.batch` files, or the frames given, with `args.vid_stride`."""
+        self.dataset = load_inference_source(source, batch=self.args.batch, vid_stride=self.args.vid_stride)
+        self.source_type = self.dataset.source_type
+
     def stream_inference(self, source):
-        """Generator of Results, with per-image preprocess/inference/postprocess times in `speed` (ms)."""
-        paths, im0s = load_inference_source(source if source is not None else self.args.source)
+        """Generator of Results, batch by batch, with per-image preprocess/inference/postprocess times in `speed`
+        (ms)."""
+        self.setup_source(source if source is not None else self.args.source)
+        if self.args.save_txt:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         self.run_callbacks("on_predict_start")
         profilers = (Profile(self.device), Profile(self.device), Profile(self.device))
-        with profilers[0]:
-            x = self.preprocess(im0s)
-        with profilers[1]:
-            dets, n_valid = self.inference(x)
-            n_valid = n_valid.cpu()
-        with profilers[2]:
-            self.results = self.postprocess(dets, n_valid, x.shape[2:], im0s, paths)
-        self.run_callbacks("on_predict_postprocess_end")
-        speed = {k: p.dt * 1e3 / len(im0s) for k, p in zip(("preprocess", "inference", "postprocess"), profilers)}
-        for r in self.results:
-            r.speed = speed
-            if self.args.verbose:
-                LOGGER.info(f"{r.path}: {r.verbose()}{speed['inference']:.1f}ms")
+        self.seen = 0
+        for paths, im0s, infos in self.dataset:
+            self.run_callbacks("on_predict_batch_start")
+            with profilers[0]:
+                x = self.preprocess(im0s)
+            with profilers[1]:
+                dets, n_valid = self.inference(x)
+                n_valid = n_valid.cpu()
+            with profilers[2]:
+                self.results = self.postprocess(dets, n_valid, x.shape[2:], im0s, paths)
+            self.run_callbacks("on_predict_postprocess_end")
+            speed = {k: p.dt * 1e3 / len(im0s) for k, p in zip(("preprocess", "inference", "postprocess"), profilers)}
+            for i, r in enumerate(self.results):
+                self.seen += 1
+                r.speed = speed
+                if self.args.verbose or self.args.save_txt or self.args.save_crop:
+                    self.write_results(i, Path(paths[i]), r, infos)
+            self.run_callbacks("on_predict_batch_end")
+            yield from self.results
+        if self.args.verbose and self.seen:
+            t = tuple(p.t / self.seen * 1e3 for p in profilers)
+            LOGGER.info(f"Speed: {t[0]:.1f}ms preprocess, {t[1]:.1f}ms inference, {t[2]:.1f}ms postprocess per image")
+        self.run_callbacks("on_predict_end")
+
+    def write_results(self, i: int, path: Path, result: Results, infos) -> None:
+        """Log one result's line; write its labels (save_txt) and crops (save_crop) under `save_dir`."""
         if self.args.verbose:
-            LOGGER.info(f"Speed: {speed['preprocess']:.1f}ms preprocess, {speed['inference']:.1f}ms inference, "
-                        f"{speed['postprocess']:.1f}ms postprocess per image")
-        yield from self.results
+            LOGGER.info(f"{infos[i] if i < len(infos) else ''}{result.verbose()}{result.speed['inference']:.1f}ms")
+        if self.args.save_txt:
+            frame = getattr(self.dataset, "frame", 0)
+            suffix = "" if self.dataset.mode == "image" else f"_{frame}"
+            result.save_txt(self.save_dir / "labels" / f"{path.stem}{suffix}.txt", save_conf=self.args.save_conf)
+        if self.args.save_crop:
+            result.save_crop(self.save_dir / "crops", path.stem)

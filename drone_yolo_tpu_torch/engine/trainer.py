@@ -48,6 +48,7 @@ from drone_yolo_tpu_torch.engine.validator import DetectionValidator
 from drone_yolo_tpu_torch.nn import modules as M
 from drone_yolo_tpu_torch.nn.model import DetectionModel
 from drone_yolo_tpu_torch.nn.modules import collect_bn_stats
+from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_callbacks
 from drone_yolo_tpu_torch.utils.ema import EarlyStopping, ModelEMA
 from drone_yolo_tpu_torch.utils.loss import v8DetectionLoss
 from drone_yolo_tpu_torch.utils.optimizer import auto_optimizer, build_lr_fn, build_optimizer, set_hyp
@@ -55,7 +56,7 @@ from drone_yolo_tpu_torch.utils.optimizer import auto_optimizer, build_lr_fn, bu
 MAX_GRAD_NORM = 10.0
 
 
-class BaseTrainer:
+class BaseTrainer(CallbackMixin):
     """`BaseTrainer(overrides={"model": "yolov8s-p2-repvgg-sf.yaml", "data": "data.yaml", ...}).train()`, or with
     `train_loader=batches, data={"nc": 80}` for steps on batches in memory.
 
@@ -85,6 +86,7 @@ class BaseTrainer:
         self.start_epoch = self.epoch = 0
         self.ni = 0  # batches seen, for the warmup
         self.epoch_stats: list[dict] = []  # per epoch: wall seconds, seconds waiting for the loader, validation
+        self.callbacks = get_default_callbacks()
 
     def setup_model(self) -> None:
         """The model to train, with the data's class count and names, on the device, in train mode: the facade's,
@@ -112,6 +114,7 @@ class BaseTrainer:
 
     def _setup_train(self) -> None:
         """Model, data and loaders, optimizer, EMA, early stopping; then the resume state, if asked for."""
+        self.run_callbacks("on_pretrain_routine_start")
         self.setup_model()
         if self.train_loader is None:
             self.trainset = build_yolo_dataset(self.args, self.data["train"], self.batch_size, self.data, mode="train")
@@ -131,6 +134,7 @@ class BaseTrainer:
         self.stopper = EarlyStopping(patience=self.args.patience)
         self.scale_rng = random.Random(self.args.seed)  # multi-scale sizes
         self.resume_training()
+        self.run_callbacks("on_pretrain_routine_end")
 
     def preprocess_batch(self, batch: dict) -> dict:
         """Collate-format numpy batch -> tensors on the device; the uint8 NHWC image becomes float NCHW / 255 there."""
@@ -200,12 +204,13 @@ class BaseTrainer:
 
     def get_validator(self) -> DetectionValidator:
         """A validator at the train size and device, in bfloat16 when `amp` is set, conf 0.001: over `val_loader`,
-        or over the val split of `args.data` at the train batch."""
+        or over the val split of `args.data` at the train batch (in rectangular batches with `rect`)."""
         args = dict(imgsz=self.args.imgsz, device=str(self.device), conf=0.001,
-                    dtype="bfloat16" if self.args.amp else "float32")
+                    dtype="bfloat16" if self.args.amp else "float32", plots=False)
         if self.val_loader is None:
             args.update(data=self.args.data, batch=self.batch_size, workers=self.args.workers, cache=self.args.cache,
-                        single_cls=self.args.single_cls, classes=self.args.classes)
+                        single_cls=self.args.single_cls, classes=self.args.classes, rect=self.args.rect,
+                        rect_max_shapes=self.args.rect_max_shapes)
         return DetectionValidator(self.val_loader, args=args)
 
     def validate(self) -> dict:
@@ -238,8 +243,10 @@ class BaseTrainer:
         LOGGER.info(f"Logging results to {self.save_dir}\nStarting training for {self.epochs} epochs...")
         t0 = time.time()
         self.ni = self.start_epoch * self.nb
+        self.run_callbacks("on_train_start")
         for epoch in range(self.start_epoch, self.epochs):
             self.epoch = epoch
+            self.run_callbacks("on_train_epoch_start")
             t_epoch = time.perf_counter()
             if self.args.close_mosaic and epoch == self.epochs - self.args.close_mosaic and self.trainset is not None:
                 LOGGER.info("Closing dataloader mosaic")
@@ -255,6 +262,7 @@ class BaseTrainer:
                 wait += time.perf_counter() - t_wait
                 if batch is None:
                     break
+                self.run_callbacks("on_train_batch_start")
                 lr_w, lr_b, mom = self._warmup_hyp(self.ni, epoch)
                 _, items = self.train_step(batch, lr_w, lr_b, mom, self._multi_scale_size())
                 if pending is not None:
@@ -263,6 +271,7 @@ class BaseTrainer:
                 pending = items
                 self.ni += 1
                 self.lr_current = lr_w
+                self.run_callbacks("on_train_batch_end")
             if pending is not None:
                 tloss = self._running_mean(tloss, pending, n_done)
             if self.device.type == "cuda":
@@ -271,6 +280,7 @@ class BaseTrainer:
             self.tloss = tloss if tloss is not None else np.zeros(len(self.loss_names), np.float32)
             self.label_loss_items_dict = {f"train/{n}": float(v) for n, v in zip(self.loss_names, self.tloss)}
             self.label_loss_items_dict["lr"] = self.lr_current if self.nb else 0.0
+            self.run_callbacks("on_train_epoch_end")
             self.metrics = {}
             t_val = time.perf_counter()
             if has_val:
@@ -280,8 +290,10 @@ class BaseTrainer:
                     self.best_state = {k: v.detach().cpu().clone() for k, v in self.ema.state.items()}
             val_s = time.perf_counter() - t_val
             self.save_metrics()
+            self.run_callbacks("on_fit_epoch_end")
             if self.args.save:
                 self.save_model()
+                self.run_callbacks("on_model_save")
             self.epoch_stats.append({"epoch": epoch, "train_s": train_s, "data_wait_s": wait, "val_s": val_s,
                                      "batches": self.nb, "images": self.nb * self.batch_size,
                                      "loss_items": self.tloss.tolist()})
@@ -292,6 +304,7 @@ class BaseTrainer:
         self.final_state = {k: v.detach().cpu().clone() for k, v in self.ema.state.items()}
         if self.best_state is None:
             self.best_state = self.final_state
+        self.run_callbacks("on_train_end")
 
     @staticmethod
     def _running_mean(tloss, items: torch.Tensor, n: int) -> np.ndarray:

@@ -14,8 +14,12 @@ P, R, mAP50 and mAP50-95 with `utils/metrics.py`.
 `cls` (B, M), `bboxes` (B, M, 4) letterboxed pixel xyxy, `mask` (B, M), and per image
 `ori_shapes` (h, w) and `ratio_pads` (gain, (pad_w, pad_h)) or None. Given no dataloader,
 the validator builds one over the val split of `args.data` (`data/build.py`: letterboxed
-without enlarging, in order, every image). Plots, the confusion matrix, rectangular
-batches and COCO JSON come with a later slice.
+without enlarging, in order, every image; with `rect`, as `YOLO.val` sets it, in
+rectangular batches of at most `rect_max_shapes` shapes, each batch at its own input
+shape). Plots, the confusion matrix and COCO JSON come with a later slice.
+
+Callbacks (`utils/callbacks.py`) run at `on_val_start`, `on_val_batch_start`,
+`on_val_batch_end` and `on_val_end`.
 """
 
 from __future__ import annotations
@@ -32,10 +36,11 @@ from drone_yolo_tpu_torch.engine.model import select_device
 from drone_yolo_tpu_torch.engine.predictor import LOGGER, Profile
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
 from drone_yolo_tpu_torch.ops.nms import non_max_suppression
+from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_callbacks
 from drone_yolo_tpu_torch.utils.metrics import DetMetrics, box_iou_np, match_predictions
 
 
-class BaseValidator:
+class BaseValidator(CallbackMixin):
     """`DetectionValidator(dataloader=batches, args={"imgsz": 640})(model=facade_or_model, ema_state=None)`.
 
     Validates on `args.device`, the CUDA card unless the caller passes device="cpu". Returns
@@ -52,6 +57,7 @@ class BaseValidator:
         self.metrics = DetMetrics()
         self.speed = {}
         self.model = None
+        self.callbacks = get_default_callbacks()
 
     def setup_model(self, model, ema_state: dict | None = None) -> None:
         """An eval-mode, fused copy of `model` (a YOLO facade or a DetectionModel), with the weights of
@@ -67,7 +73,8 @@ class BaseValidator:
         self.nc = self.model.nc
         if self.dataloader is None:
             self.data = check_det_dataset(self.args.data)
-            dataset = build_yolo_dataset(self.args, self.data["val"], self.args.batch, self.data, mode="val")
+            dataset = build_yolo_dataset(self.args, self.data["val"], self.args.batch, self.data, mode="val",
+                                         stride=int(max(self.model.head.stride)))
             self.dataloader = build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False,
                                                drop_last=False)
         self.names = self.data["names"] if self.data else self.model.names
@@ -90,12 +97,14 @@ class BaseValidator:
                                    pre_topk=self.args.pre_nms_topk, multi_label=True)
 
     def __call__(self, model=None, ema_state: dict | None = None) -> dict:
+        self.run_callbacks("on_val_start")
         self.setup_model(model, ema_state)
         self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
         self.seen = 0
         dt = [Profile(self.device) for _ in range(3)]
         totals = [0.0, 0.0, 0.0]
         for batch in self.dataloader:
+            self.run_callbacks("on_val_batch_start")
             with dt[0]:
                 x = self.preprocess(batch)
             with dt[1]:
@@ -104,9 +113,11 @@ class BaseValidator:
             with dt[2]:
                 self.update_metrics(dets, n_valid, batch, tuple(x.shape[2:]))
             totals = [t + p.dt for t, p in zip(totals, dt)]
+            self.run_callbacks("on_val_batch_end")
         stats = self.get_stats()
         self.speed = {k: t / max(self.seen, 1) * 1e3 for k, t in zip(("preprocess", "inference", "postprocess"), totals)}
         self.print_results()
+        self.run_callbacks("on_val_end")
         results = {**stats, "fitness": self.metrics.fitness}
         return {k: round(float(v), 5) for k, v in results.items()}
 

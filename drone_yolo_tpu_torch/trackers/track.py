@@ -7,9 +7,11 @@ tracker of the stream from the tracker yaml (a path, or a name in
 replaces the result's boxes with the 7-column tracks (x1, y1, x2, y2, id, conf,
 cls), or with None when no track is active. Boxes of zero height (clipped at the
 frame's top or bottom edge) are not given to the tracker: the JAX package's tracker
-divides by their height and stops on the NaN costs a frame later. The port's sources are numpy frames of
-one stream, so one tracker takes every frame, as the JAX package's first tracker
-takes every frame of an image or video source. A pose model's keypoints are not
+divides by their height and stops on the NaN costs a frame later. One tracker takes
+every frame of a source, as the JAX package's first tracker does, except that a new
+tracker starts when the frames move on to another video file (the loader's `mode` is
+"video" and the path changes), as Ultralytics resets its tracker per video: the JAX
+package carries the tracks of one video into the next. A pose model's keypoints are not
 reindexed to the tracks, as in the JAX package. BoT-SORT is not ported yet.
 """
 
@@ -33,6 +35,9 @@ def load_tracker_cfg(tracker_yaml) -> SimpleNamespace:
     path = Path(tracker_yaml)
     if not path.exists():
         path = TRACKER_CFG_DIR / path.name
+    if not path.exists() and path.stem == "botsort":  # the JAX package's default tracker
+        raise ValueError(f"tracker {tracker_yaml!r}: BoT-SORT is not ported yet (ROADMAP.md queue 1 item 5); "
+                         "use tracker=bytetrack.yaml")
     if not path.exists():
         raise FileNotFoundError(f"tracker yaml {tracker_yaml!r} not found (nor in {TRACKER_CFG_DIR})")
     cfg = SimpleNamespace(**load_yaml(path.read_text(encoding="utf-8")))
@@ -46,6 +51,11 @@ def on_predict_start(predictor, persist: bool = False) -> None:
     """Make the stream's tracker, unless `persist` and the predictor has one."""
     if persist and hasattr(predictor, "trackers"):
         return
+    _new_tracker(predictor)
+    predictor.tracked_video = None  # the video file whose frames the tracker has seen
+
+
+def _new_tracker(predictor) -> None:
     cfg = load_tracker_cfg(predictor.args.tracker)
     predictor.trackers = [TRACKER_MAP[cfg.tracker_type](args=cfg, frame_rate=30)]
 
@@ -54,8 +64,13 @@ def on_predict_postprocess_end(predictor, persist: bool = False) -> None:
     """Associate each result's detections with the tracks and replace its boxes by the tracks with their ids."""
     if not hasattr(predictor, "trackers"):
         on_predict_start(predictor, persist)
-    tracker = predictor.trackers[0]
+    video = getattr(predictor.dataset, "mode", "image") == "video"
     for result in predictor.results:
+        if video and result.path != getattr(predictor, "tracked_video", None):
+            if getattr(predictor, "tracked_video", None) is not None:  # the next video file
+                _new_tracker(predictor)
+            predictor.tracked_video = result.path
+        tracker = predictor.trackers[0]
         det = np.zeros((0, 6), np.float32) if result.boxes is None else result.boxes.data
         det = det[det[:, 3] > det[:, 1]]  # a box of no height has no aspect ratio for the Kalman state
         if len(det) == 0:

@@ -8,7 +8,9 @@ float32 with NMS at IoU 0.3 (set through each facade's `overrides`; see
 tests/test_torch_track.py for why): the same track ids and smoothed centres each step, the
 same pose detections, and the same CSV rows within the CSV's own rounding. `run` over a
 printf-pattern JPEG sequence equals `step` over the decoded frames, and the port runs
-the whole path with jax, the JAX package, cv2, PIL, yaml and sklearn blocked.
+the whole path with jax, the JAX package, cv2, PIL, yaml and sklearn blocked: tracking, pose,
+the pipeline over a JPEG sequence and over an MJPEG AVI, and the command line (predict over a
+directory of JPEG, PNG and AVI, track, val).
 """
 
 import csv
@@ -35,6 +37,7 @@ from drone_yolo_tpu_torch import YOLO
 from drone_yolo_tpu_torch.apps import analytics, geo
 from drone_yolo_tpu_torch.apps.pipeline import DroneVideoPipeline
 from drone_yolo_tpu_torch.trackers.byte_tracker import STrack
+from make_dataset import make_dataset
 
 torch.set_num_threads(1)
 
@@ -208,7 +211,7 @@ def test_run_refuses_video_files_and_missing_sequences(tmp_path):
         pipe.run(tmp_path / "clip.mp4")
     with pytest.raises(FileNotFoundError, match="0-4"):
         pipe.run(str(tmp_path / "%06d.jpg"))
-    with pytest.raises(ValueError, match="printf-pattern"):
+    with pytest.raises(FileNotFoundError, match="does not exist"):  # a single image is a source now
         pipe.run(str(tmp_path / "frame.jpg"))
 
 
@@ -221,7 +224,7 @@ sys.modules.update(dict.fromkeys(BLOCKED))
 """
 
 RUN_APPS = BLOCKER + """
-import importlib, json, pkgutil, tempfile
+import importlib, json, pkgutil, runpy, tempfile
 from pathlib import Path
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -250,21 +253,52 @@ pipe = DroneVideoPipeline(models[0], models[1], GeoConverter(31.0, 121.0, 60.0, 
 out = pipe.run(str(d / "%06d.jpg"), csv_path=d / "t.csv")
 stats = trajectory_statistics(d / "t.csv", min_len=1)
 dens, _ = kde_density([(p[1], p[2]) for v in pipe.trajectories.values() for p in v])
+# the command line (predict over a directory of JPEG, PNG and MJPEG AVI, track over the AVI, val) from a checkpoint
+# whose train_args set imgsz, and `run` over the AVI
+src = Path(sys.argv[1])
+models[0].overrides["imgsz"] = 128
+models[0].save(src / "last.npz")
+
+def cli(*args):
+    sys.argv = ["drone_yolo_tpu_torch", *args]
+    runpy.run_module("drone_yolo_tpu_torch", run_name="__main__")
+
+common = [f"model={src / 'last.npz'}", "device=cpu", "dtype=float32", f"project={src / 'runs'}", "verbose=False"]
+cli("predict", f"source={src / 'media'}", "save_txt=True", "conf=0.0", "max_det=5", "name=p", *common)
+cli("track", f"source={src / 'media' / 'clip.avi'}", "name=t", *common)
+cli("val", f"data={src / 'ds' / 'data.yaml'}", "batch=2", "workers=1", *common)
+models[0].predictor = None  # a new tracker
+video = DroneVideoPipeline(models[0], imgsz=128).run(str(src / "media" / "clip.avi"), csv_path=src / "v.csv")
 print(json.dumps({"modules": mods, "tracks": tracks, "frames": out["frames"], "n_tracks": out["n_tracks"],
                   "stats": len(stats), "density_finite": bool(np.isfinite(dens).all()),
+                  "labels": sorted(p.name for p in (src / "runs" / "p" / "labels").iterdir()),
+                  "video": [video["frames"], video["fps"], (src / "v.csv").read_text().splitlines()[0]],
                   "loaded": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)}))
 """
 
 
-def test_track_pose_and_pipeline_run_without_jax_cv2_pil_yaml_sklearn():
+def test_track_pose_and_pipeline_run_without_jax_cv2_pil_yaml_sklearn(tmp_path):
+    (tmp_path / "media").mkdir()  # written by cv2 here, read by the port's decoders in the subprocess
+    rng = np.random.default_rng(1)
+    for name, hw in (("a.jpg", (96, 160)), ("b.png", (120, 90)), ("c.jpg", (64, 64))):
+        cv2.imwrite(str(tmp_path / "media" / name), rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+    w = cv2.VideoWriter(str(tmp_path / "media" / "clip.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 12.5, (96, 64))
+    for f in range(4):
+        w.write(np.full((64, 96, 3), 40 * f, np.uint8))
+    w.release()
+    make_dataset(tmp_path / "ds", n_train=1, n_val=2, size=96)
     env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run([sys.executable, "-c", RUN_APPS], cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    proc = subprocess.run([sys.executable, "-c", RUN_APPS, str(tmp_path)], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {"drone_yolo_tpu_torch.trackers.byte_tracker", "drone_yolo_tpu_torch.trackers.track",
             "drone_yolo_tpu_torch.trackers.kalman_filter", "drone_yolo_tpu_torch.trackers.matching",
             "drone_yolo_tpu_torch.apps.pipeline", "drone_yolo_tpu_torch.apps.geo", "drone_yolo_tpu_torch.apps.analytics",
-            "drone_yolo_tpu_torch.models.yolo.pose"} <= set(out["modules"])
+            "drone_yolo_tpu_torch.models.yolo.pose", "drone_yolo_tpu_torch.data.avi", "drone_yolo_tpu_torch.data.png",
+            "drone_yolo_tpu_torch.data.loaders", "drone_yolo_tpu_torch.__main__"} <= set(out["modules"])
     assert out["loaded"] == [] and out["frames"] == 3 and out["n_tracks"] > 0 and out["stats"] > 0
     assert all(n > 0 for n in out["tracks"]) and out["density_finite"]
     assert math.isfinite(out["n_tracks"])
+    assert out["labels"] == ["a.txt", "b.txt", "c.txt", *(f"clip_{i}.txt" for i in range(1, 5))]
+    assert out["video"][:2] == [4, 12.5] and out["video"][2].startswith("frame,track_id")

@@ -135,10 +135,10 @@ def test_predict_sources_and_arguments(pair):
     assert_same_results(mixed, ref.predict(source=source, **PREDICT))
     top = port.predict(source=frames, **{**PREDICT, "conf": 0.0, "max_det": 7, "classes": [3]})
     assert all(len(r.boxes) <= 7 and set(r.boxes.cls) <= {3.0} for r in top)
-    with pytest.raises(TypeError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="does not exist"):  # a path is a file source now
         port.predict(source="bus.jpg", **PREDICT)
-    with pytest.raises(KeyError, match="unsupported"):
-        port.predict(source=frames, save_txt=True)
+    with pytest.raises(KeyError, match="unsupported predict arguments: save=True"):  # drawing is not ported
+        port.predict(source=frames, save=True)
 
 
 @pytest.mark.parametrize("src,dst", [((720, 1280), (360, 640)), ((1080, 1920), (360, 640)), ((720, 1280), (90, 160))])

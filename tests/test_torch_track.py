@@ -169,6 +169,61 @@ def test_yolo_track_matches_jax(track_pair):
     assert port.predictor.args.conf == 0.1
 
 
+def test_track_over_avi_matches_jax_over_the_decoded_frames(track_pair, tmp_path):
+    """`YOLO.track(source="clip.avi")` (frames from the port's MJPEG AVI reader) gives the ids and boxes of the JAX
+    facade's track over the same decoded frames, one by one (its own reader decodes through FFmpeg)."""
+    import cv2
+
+    from drone_yolo_tpu.trackers.byte_tracker import STrack as JaxSTrack
+    from drone_yolo_tpu_torch.data.avi import AviReader
+    from drone_yolo_tpu_torch.trackers.byte_tracker import STrack
+
+    port, ref, frames = track_pair
+    w = cv2.VideoWriter(str(tmp_path / "clip.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (128, 128))
+    for f in frames:
+        w.write(f)
+    w.release()
+    with AviReader(tmp_path / "clip.avi") as reader:
+        decoded = [reader.frame(i) for i in range(len(reader))]
+    for m in (port, ref):  # new trackers and ids, as for a new video
+        if m.predictor is not None:
+            m.predictor.__dict__.pop("trackers", None)
+    STrack.reset_id()
+    JaxSTrack.reset_id()
+    got = port.track(source=str(tmp_path / "clip.avi"), persist=True, **TRACK)
+    want = [ref.track(source=[f], persist=True, **TRACK)[0] for f in decoded]
+    assert len(got) == len(want) == len(frames) and sum(r.boxes is not None for r in got) >= len(frames) - 1
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert (g.boxes is None) == (r.boxes is None), i
+        if r.boxes is not None:
+            np.testing.assert_array_equal(g.boxes.id, r.boxes.id, err_msg=f"frame {i}")
+            np.testing.assert_allclose(g.boxes.xyxy, r.boxes.xyxy, rtol=0, atol=BOX_TOL, err_msg=f"frame {i}")
+    assert port.predictor.dataset.mode == "video" and port.predictor.tracked_video == str(tmp_path / "clip.avi")
+
+
+def test_a_new_video_file_gets_a_new_tracker():
+    """Frames of one video file share a tracker (across batches and calls with persist); the first frame of the next
+    file starts a new one (the JAX package keeps one tracker over every file of a source); images never reset it."""
+    from drone_yolo_tpu_torch.engine.results import Results
+    from drone_yolo_tpu_torch.trackers.track import on_predict_postprocess_end, on_predict_start
+
+    box = np.array([[10, 10, 40, 50, 0.9, 0]], np.float32)
+    stub = types.SimpleNamespace(args=types.SimpleNamespace(tracker="bytetrack.yaml"),
+                                 dataset=types.SimpleNamespace(mode="video"))
+    on_predict_start(stub, persist=True)
+    seen = []
+    for paths in (["a.avi", "a.avi"], ["a.avi", "b.avi"], ["b.avi"]):
+        stub.results = [Results(np.zeros((64, 64, 3), np.uint8), p, {0: "x"}, boxes=box) for p in paths]
+        on_predict_postprocess_end(stub, persist=True)
+        seen.append(id(stub.trackers[0]))
+    assert seen[0] != seen[1] == seen[2] and stub.tracked_video == "b.avi"
+    assert stub.trackers[0].frame_id == 2  # b.avi's two frames
+    stub.dataset.mode = "image"
+    stub.results = [Results(np.zeros((64, 64, 3), np.uint8), "c.jpg", {0: "x"}, boxes=box)]
+    on_predict_postprocess_end(stub, persist=True)
+    assert id(stub.trackers[0]) == seen[2]
+
+
 def test_zero_height_boxes_are_not_tracked():
     """A detection clipped to zero height at the frame's edge: the port leaves it out of the tracker; the JAX
     package's tracker takes it, gets an infinite aspect ratio, and stops on NaN costs a frame later (ROADMAP.md
