@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
-validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, and drives the
-command line over image files, an MJPEG AVI and a rect-validated dataset.
+validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, drives the
+command line over image files, an MJPEG AVI and a rect-validated dataset, and trains and validates a pose model.
 
     python3 chip_smoke.py
 
@@ -89,7 +89,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    500 targets (`detection_stream`, 60 frames each);
 11. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 12
    frames (`moving_frames`, seed 5: JPEG at 1920x1080, 1080x1920 and 1280x720, PNG at 1280x720), one MJPEG
-   AVI of 16 1080p frames at 30000/1001 frames/s (`write_mjpeg_avi`, a RIFF writer around `encode_jpeg`), and
+   AVI of 8 1080p frames at 30000/1001 frames/s (`write_mjpeg_avi`, a RIFF writer around `encode_jpeg`), and
    32 dense-proxy images cropped to 8 aspect ratios (`write_mixed_val`). The flagship's weights are
    `calibrated_weights` saved by `YOLO.save` with train_args imgsz 640. Through `cfg.entrypoint` strings, with no
    imgsz: (a) predict over the directory with save_txt and save_crop (max_det 10), (b) track over clip.avi, then
@@ -102,8 +102,21 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    rect against square, predict img/s from the directory at batch 1 and 8, the host seconds of (a) by part
    (loading and decoding, the predictor's stages, save_txt, save_crop) and each stage's seconds, each beside the
    nvidia-smi line;
-12. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
-   modules of every path (apps, trackers, the pose predictor, the loaders) loaded.
+12. pose: pose training and validation. `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth: the
+   stride-2 backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites and the BN-statistics kernel against
+   `bn_stats_reference` at all its 63 train-mode BN inputs (the keypoint branch's 6 of 51 channels among them), in
+   bfloat16 and float32 at batch 8, 640 px; then a seeded dataset of 32 train and 16 val images of 17-keypoint
+   figures (`write_pose_dataset`, the port's JPEG encoder, COCO's `flip_idx`), `YOLO("yolov8s-pose.yaml").train(...)`
+   2 epochs at batch 8, 640 px, bf16 autocast, SGD, default augmentation, cache="ram", both kernels, with the EMA
+   validated each epoch, and `YOLO(last.npz).val(...)` in rect batches. Every NMS keep mask of those validations is
+   held against `greedy_keep_reference`. Counts are set to 0 before each run and read after it. Checks: 7 stride-2
+   calls (k=3) and 63 BN-statistics calls a step, one NMS call (two launches) a val batch at K = 4096, the loss
+   items finite, `pose_loss` and `kobj_loss` in results.csv, the metrics in [0, 1]; then 30 steps on one fixed
+   batch (the val split's first 8 images, letterboxed) at a constant lr, whose `pose_loss` must end below its first
+   value. Printed: step ms and img/s of the fixed batch, its device idle share (torch.profiler), epoch seconds and
+   the data-wait share, validation img/s, peak card memory, each beside the nvidia-smi line;
+13. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
+   modules of every path (apps, trackers, the pose predictor, trainer and validator, the loaders) loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -199,14 +212,19 @@ TRACK_CELL = dict(frames=64, hw=(1080, 1920), objects=60, obj_px=(24, 120), seed
                   pose_model="yolov8s-pose.yaml", cls_gain=30.0, share_above_conf=0.05,
                   geo=dict(lat=31.2304, lon=121.4737, altitude_m=80.0, yaw_deg=15.0, pitch_deg=90.0))
 TRACKER_TARGETS = (50, 200, 500)  # BYTETracker.update alone on detection streams of this many targets
-# the entry phase: one MJPEG AVI of 16 1080p frames at 30000/1001 frames/s; a directory of 12 frames: the AVI's first 4
-# (JPEG 1920x1080), then JPEG 1080x1920 and 1280x720 and PNG 1280x720; a mixed-aspect val set of the dense proxy at
-# 640 px. The predict over the directory keeps 10 detections an image (max_det), whose crops it writes: the port's
-# numpy JPEG encoder writes each crop on the host, and the crops of 1080p frames are large
+# the entry phase: one MJPEG AVI of 8 1080p frames (16 before the pose phase) at 30000/1001 frames/s; a directory of
+# 12 frames: the AVI's first 4 (JPEG 1920x1080), then JPEG 1080x1920 and 1280x720 and PNG 1280x720; a mixed-aspect
+# val set of the dense proxy at 640 px. The predict over the directory keeps 10 detections an image (max_det), whose
+# crops it writes: the port's numpy JPEG encoder writes each crop on the host, and the crops of 1080p frames are large
 ENTRY_CELL = dict(dir_from_avi=4, frames=(("jpg", (1920, 1080), 3), ("jpg", (720, 1280), 3), ("png", (720, 1280), 2)),
-                  avi_frames=16, avi_hw=(1080, 1920), avi_rate=(30000, 1001), objects=40, obj_px=(24, 120), seed=5,
+                  avi_frames=8, avi_hw=(1080, 1920), avi_rate=(30000, 1001), objects=40, obj_px=(24, 120), seed=5,
                   imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.05, crop_max_det=10, val_images=32,
                   val_batch=8, val_nc=6)
+# the pose phase: yolov8s-pose (nc 1, 17 keypoints) trained and validated at full width on a seeded dataset of figures
+# (`write_pose_dataset`), batch 8, 640 px, bf16 autocast, SGD, both kernels, default augmentation; then 30 steps on one
+# fixed batch at a constant lr (warmup_epochs 0), whose pose loss must fall
+POSE_CELL = dict(model="yolov8s-pose.yaml", n_train=32, n_val=16, imgsz=640, batch=8, epochs=2, seed=7, workers=4,
+                 fixed_steps=30)
 ENTRY_VAL_ASPECTS = ((1.0, 1.0), (0.5625, 1.0), (1.0, 0.5625), (0.75, 1.0), (1.0, 0.75), (0.6, 1.0), (1.0, 0.8),
                      (0.9, 1.0))
 
@@ -315,6 +333,71 @@ def synthetic_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n
     if val:
         out.update(ori_shapes=[(imgsz, imgsz)] * batch, ratio_pads=[(1.0, (0.0, 0.0))] * batch)
     return out
+
+
+def synthetic_pose_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, nk: int, n_max: int = 24,
+                         val: bool = False) -> dict:
+    """`synthetic_batch` with `keypoints` (B, M, nk, 3): per GT box nk points uniform inside it, of visibility 2
+    (70%), 1 (15%) or 0 (15%), zeros in the padded slots. Shared with the tests."""
+    out = synthetic_batch(rng, batch, imgsz, nc, n_max, val)
+    boxes = out["bboxes"]
+    u = rng.random((*boxes.shape[:2], nk, 2))
+    xy = boxes[:, :, None, :2] + u * (boxes[:, :, None, 2:] - boxes[:, :, None, :2])
+    vis = rng.choice([2.0, 1.0, 0.0], size=(*boxes.shape[:2], nk, 1), p=[0.7, 0.15, 0.15])
+    out["keypoints"] = (np.concatenate([xy, vis], -1) * out["mask"][:, :, None, None]).astype(np.float32)
+    return out
+
+
+# A standing figure's 17 COCO keypoints in its unit box (x right, y down), facing the camera: nose, eyes, ears,
+# shoulders, elbows, wrists, hips, knees, ankles, each pair the person's left first (the image's right), and the
+# limbs drawn between them
+FIGURE_KPTS = np.array([[0.50, 0.06], [0.55, 0.04], [0.45, 0.04], [0.60, 0.06], [0.40, 0.06], [0.72, 0.22],
+                        [0.28, 0.22], [0.82, 0.38], [0.18, 0.38], [0.88, 0.52], [0.12, 0.52], [0.64, 0.55],
+                        [0.36, 0.55], [0.66, 0.76], [0.34, 0.76], [0.68, 0.97], [0.32, 0.97]])
+FIGURE_LIMBS = ((5, 6), (5, 7), (7, 9), (6, 8), (8, 10), (5, 11), (6, 12), (11, 12), (11, 13), (13, 15), (12, 14),
+                (14, 16), (0, 1), (0, 2), (1, 3), (2, 4))
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def write_pose_dataset(root: Path, n_train: int, n_val: int, size: int, seed: int) -> Path:
+    """A seeded pose dataset of 17-keypoint figures (nc 1): per image 1-6 figures of 10-47% of its height on a noisy
+    background, each a skeleton drawn between its keypoints (jittered 3% of the box) with a disc at each joint, written
+    by the port's JPEG encoder at quality 95 with pose labels (`cls cx cy w h` and 17 `x y v`, v 2 or, 10% of the
+    points, 1) and a data.yaml with `kpt_shape: [17, 3]` and COCO's `flip_idx`. Returns the yaml path."""
+    from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img = (rng.random((size, size, 3)) * 50 + 80).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 7))):
+                h = float(rng.uniform(0.1, 0.47) * size)
+                w = h * float(rng.uniform(0.4, 0.6))
+                x0, y0 = rng.uniform(0, size - w), rng.uniform(0, size - h)
+                pts = (FIGURE_KPTS + rng.normal(0, 0.03, FIGURE_KPTS.shape)).clip(0, 1) * [w, h] + [x0, y0]
+                color = rng.integers(0, 256, 3)
+                r = max(2, int(h / 60))
+                for a, b in FIGURE_LIMBS:
+                    for t in np.linspace(0, 1, int(np.hypot(*(pts[a] - pts[b]))) + 2):
+                        cx, cy = (pts[a] + t * (pts[b] - pts[a])).astype(int)
+                        img[max(cy - r, 0):cy + r + 1, max(cx - r, 0):cx + r + 1] = color
+                for cx, cy in pts.astype(int):
+                    img[max(cy - 2 * r, 0):cy + 2 * r + 1, max(cx - 2 * r, 0):cx + 2 * r + 1] = 255 - color
+                lo, hi = pts.min(0) - r, pts.max(0) + r
+                lo, hi = lo.clip(0, size), hi.clip(0, size)
+                vis = np.where(rng.random(17) < 0.1, 1, 2)
+                row = [0, *((lo + hi) / 2 / size), *((hi - lo) / size)]
+                row += [v for (x, y), vi in zip(pts / size, vis) for v in (x, y, vi)]
+                rows.append(" ".join(f"{v:.6f}" if isinstance(v, float) else str(v) for v in row))
+            (root / "images" / split / f"{split}_{i:04d}.jpg").write_bytes(encode_jpeg(img, quality=95))
+            (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nkpt_shape: [17, 3]\n"
+                         f"flip_idx: {COCO_FLIP_IDX}\nnames:\n  0: person\n")
+    return yaml_path
 
 
 def write_dense_dataset(root: Path, n_train: int, n_val: int, size: int, seed: int, nc: int, obj_px) -> tuple[Path, dict]:
@@ -1225,6 +1308,208 @@ def run_entry(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def run_pose(smi: str) -> dict:
+    """Phase 12: pose training and validation on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.cfg import get_val_cfg
+    from drone_yolo_tpu_torch.data.build import build_yolo_dataset
+    from drone_yolo_tpu_torch.data.utils import check_det_dataset
+    from drone_yolo_tpu_torch.models.yolo.pose import PoseTrainer
+    from drone_yolo_tpu_torch.nn.model import PoseModel
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+    from drone_yolo_tpu_torch.ops.conv_s2 import s2_bwd_reference
+
+    c = POSE_CELL
+    k3, k1 = cuda_s2bwd.NAMES[3], cuda_s2bwd.NAMES[1]
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+
+    def counts() -> dict:
+        return {"s2_calls": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+                "nms_calls": cuda_nms.greedy_keep_cuda.calls,
+                "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches,
+                             "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                             **{n: cuda_s2bwd.s2_bwd_cuda.launches.get(n, 0) for n in (k3, k1)}}}
+
+    # the kernels against their plain versions at the pose model's shapes
+    probe = PoseModel(c["model"], nc=1)
+    sites = s2_sites(probe, c["batch"], c["imgsz"])
+    if [s["k"] for s in sites] != [3] * 7:
+        raise AssertionError(f"{c['model']} should have 7 dense k=3 stride-2 sites, found {[s['name'] for s in sites]}")
+    s2_checks = []
+    for i, site in enumerate(sites):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, dy = s2_site_inputs(site, dtype, seed=300 + i)
+            dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+            dx_p, dw_p = s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+            name = str(dtype).split(".")[1]
+            row = {"site": site["name"], "x": site["x"], "dtype": name}
+            for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
+                tol = dict(S2_TOL[name][what])
+                tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"pose {site['name']} {name} {what}: {m}")
+                row[f"{what}_err"] = float((got - want).abs().max())
+            s2_checks.append(row)
+            del x, w, dy, dx, dw, dx_p, dw_p
+    bn = bn_sites(probe, c["batch"], c["imgsz"])
+    bn_checks = []
+    for i, site in enumerate(bn):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = site_input(site["x"], dtype, seed=400 + i)
+            s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
+            errs = bn_stats_errors(x, s_k, q_k)
+            if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
+                raise AssertionError(f"pose BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
+            bn_checks.append({"site": site["name"], "x": site["x"], "dtype": str(dtype).split(".")[1], **errs})
+            del x, s_k, q_k
+    c51 = [b for b in bn if b["x"][1] == 51]
+    if len(c51) != 6:
+        raise AssertionError(f"the keypoint branch should have 6 BN inputs of 51 channels, found {c51}")
+    del probe
+
+    # the two train kernels' times at the pose model's shapes: one bf16 train step's calls (7 stride-2, 63 BN), the
+    # plain versions and the library calls on the same inputs, and the bound summed over the calls
+    s2_in = [s2_site_inputs(site, torch.bfloat16, seed=500 + i) for i, site in enumerate(sites)]
+    pairs = list(zip(sites, s2_in))
+    s2_calls = {
+        "": lambda: [cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
+        "plain_": lambda: [s2_bwd_reference(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
+        "library_": lambda: [torch.ops.aten.convolution_backward(dy, x, w, None, [2, 2], [1, 1], [1, 1], False, [0, 0], 1,
+                                                                 [st["need_dx"], True, False]) for st, (x, w, dy) in pairs]}
+    s2_time = {}
+    for prefix, fn in s2_calls.items():
+        s2_time.update(kernel_times(fn, reps=2 if prefix == "plain_" else 5, prefix=prefix))
+    costs = [s2_cost(st) for st in sites]
+    b_ms = [n_bytes / PEAK_BYTES_PER_S * 1e3 for n_bytes, _ in costs]
+    o_ms = [n_ops / PEAK_BF16_PER_S * 1e3 for _, n_ops in costs]
+    s2_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                   calls=len(sites))
+    del s2_in, pairs
+    xs = [site_input(site["x"], torch.bfloat16, seed=600 + i) for i, site in enumerate(bn)]
+    bn_time = {}
+    for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],
+                       "plain_": lambda: [bn_stats_reference(x) for x in xs],
+                       "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
+        bn_time.update(kernel_times(fn, reps=5, prefix=prefix))
+    b_ms = [(2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3 for x in xs]
+    o_ms = [BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3 for x in xs]
+    bn_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                   calls=len(xs))
+    del xs
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pose_"))
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        checks.append({"K": int(boxes.shape[1]), "valid": int(valid.sum()), "kept": int(keep.sum()),
+                       "equal": bool(torch.equal(keep, nms_ops.greedy_keep_reference(boxes, valid, iou_thres)))})
+        return keep
+
+    try:
+        t0 = time.perf_counter()
+        data = write_pose_dataset(tmp / "pose", c["n_train"], c["n_val"], c["imgsz"], c["seed"])
+        write_s = time.perf_counter() - t0
+        common = dict(data=str(data), imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"], optimizer="SGD", amp=True,
+                      s2grad="cuda", bnstats="cuda", cache="ram", workers=c["workers"], project=str(tmp / "runs"),
+                      exist_ok=True)
+        nms_ops.greedy_keep = checked_keep
+        try:
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = YOLO(c["model"])
+            metrics = model.train(name="train", epochs=c["epochs"], **common)
+            train_wall = time.perf_counter() - t0
+            train_counts = counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            tr = model.trainer
+            n_val_checks = len(checks)
+            reset()
+            last = YOLO(tr.wdir / "last.npz")
+            t0 = time.perf_counter()
+            val_metrics = last.val(data=str(data))  # rect batches: the facade's default
+            val_wall = time.perf_counter() - t0
+            val_counts = counts()
+            validator = last.validator
+        finally:
+            nms_ops.greedy_keep = kernel_keep
+        n_bn, steps = len(bn), c["epochs"] * tr.nb
+        want_s2 = {k3: steps * 7, k1: 0}
+        if train_counts["s2_calls"] != want_s2 or train_counts["bn_calls"] != steps * n_bn:
+            raise AssertionError(f"pose training: {train_counts}, expected stride-2 calls {want_s2} and "
+                                 f"{steps * n_bn} BN calls for {steps} steps")
+        val_batches = c["epochs"] * math.ceil(c["n_val"] / c["batch"]) + len(validator.dataloader)
+        if len(checks) != val_batches or not all(ch["equal"] for ch in checks):
+            raise AssertionError(f"pose validation: {len(checks)} NMS calls for {val_batches} batches; keep masks equal "
+                                 f"to the plain keep: {[ch['equal'] for ch in checks]}")
+        if any(ch["K"] != VAL["pre_nms_topk"] for ch in checks):
+            raise AssertionError(f"pose validation NMS at K {[ch['K'] for ch in checks]}, expected {VAL['pre_nms_topk']}")
+        if train_counts["nms_calls"] + val_counts["nms_calls"] != val_batches:
+            raise AssertionError(f"pose NMS kernel calls {train_counts['nms_calls']} + {val_counts['nms_calls']}")
+        losses = np.array([e["loss_items"] for e in tr.epoch_stats])
+        if not (np.isfinite(losses).all() and losses.shape == (c["epochs"], 5)):
+            raise AssertionError(f"pose loss items {losses}")
+        header = (tr.save_dir / "results.csv").read_text().splitlines()[0].split(",")
+        if not {"train/pose_loss", "train/kobj_loss"} <= set(header):
+            raise AssertionError(f"results.csv columns {header}")
+        for name, m in (("train", metrics), ("val", val_metrics)):
+            if len(m) != 9 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for k, v in m.items() if k != "fitness"):
+                raise AssertionError(f"pose {name} metrics: {m}")
+
+        # a fixed batch of the val split (letterboxed, no augmentation), 30 steps at a constant lr
+        info = check_det_dataset(data)
+        ds = build_yolo_dataset(get_val_cfg(overrides=dict(imgsz=c["imgsz"], task="pose")), info["val"], c["batch"], info,
+                                mode="val")
+        batch = ds.collate([ds[i] for i in range(c["batch"])])
+        reset()
+        fixed = PoseTrainer(overrides=dict(model=c["model"], batch=c["batch"], imgsz=c["imgsz"], nbs=c["batch"],
+                                           optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", warmup_epochs=0.0),
+                            train_loader=[batch] * c["fixed_steps"], data={"nc": 1, "kpt_shape": [17, 3]})
+        run = fixed.run_steps()
+        fixed_counts = counts()
+        pose_loss = [r["items"][1] for r in run]
+        if not (np.isfinite([r["loss"] for r in run]).all() and pose_loss[-1] < pose_loss[0]):
+            raise AssertionError(f"fixed-batch pose_loss did not fall: {pose_loss}")
+        if fixed_counts["s2_calls"] != {k3: 7 * c["fixed_steps"], k1: 0} or fixed_counts["bn_calls"] != n_bn * c["fixed_steps"]:
+            raise AssertionError(f"fixed-batch run: {fixed_counts}")
+        step_ms = float(np.median([r["ms"] for r in run[1:]]))
+        hyp = fixed._warmup_hyp(fixed.ni, 0)
+        prof = profile_device(lambda: fixed.train_step(batch, *hyp)[0].item(), steps=3)
+        launches = {k: train_counts["launches"][k] + val_counts["launches"][k] + fixed_counts["launches"][k]
+                    for k in train_counts["launches"]}
+        ep = tr.epoch_stats
+        return {"model": c["model"], "cell": c, "nvidia_smi": smi, "dataset_write_s": write_s,
+                "s2_sites": [s["name"] for s in sites], "s2_checks": s2_checks, "bn_sites": n_bn,
+                "bn_c51_sites": [b["name"] for b in c51], "bn_checks": bn_checks, "s2_tolerances": S2_TOL,
+                "bn_rtol": BN_RTOL, "bn_atol": BN_ATOL,
+                "counts": {"train": train_counts, "val": val_counts, "fixed": fixed_counts, "launches": launches},
+                "per_step": {"s2_calls": 7, "bn_calls": n_bn}, "nms_keep_checks": {"calls": len(checks),
+                "during_training": n_val_checks, "all_equal_plain": True, "K": VAL["pre_nms_topk"]},
+                "metrics_train": metrics, "metrics_val_rect": val_metrics,
+                "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
+                "results_csv_columns": header, "epochs": ep, "train_wall_s": train_wall,
+                "epoch_s": [e["train_s"] for e in ep], "data_wait_share": sum(e["data_wait_s"] for e in ep) / sum(
+                    e["train_s"] for e in ep), "train_img_per_s": sum(e["images"] for e in ep) / sum(e["train_s"] for e in ep),
+                "val_s": [e["val_s"] for e in ep], "val_img_per_s": validator.seen / val_wall,
+                "val_speed_ms_per_img": validator.speed, "peak_memory_gb": peak_gb,
+                "fixed_batch": {"steps": c["fixed_steps"], "pose_loss_first": pose_loss[0], "pose_loss_last": pose_loss[-1],
+                                "pose_loss": pose_loss, "step_ms_median": step_ms,
+                                "img_per_s": c["batch"] / step_ms * 1e3, "first_step_ms": run[0]["ms"]},
+                "profile_train_step": prof,
+                "kernels_at_pose_shapes": {"per": f"one bf16 train step's calls at batch {c['batch']}, {c['imgsz']} px; "
+                                                  "ms device time (torch.profiler), event_ms CUDA events; library: "
+                                                  "cuDNN convolution_backward, torch.batch_norm_stats",
+                                           k3: s2_time, "bn_stats": bn_time}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1689,12 +1974,27 @@ def main() -> None:
     nms_row["launches_by_path"]["entry"] = entry["nms_launches"]
     emit("entry", t, **entry)
 
-    # 12. imports ---------------------------------------------------------------
+    # 12. pose: training and validation of yolov8s-pose ------------------------------
+    t = time.perf_counter()
+    pose = run_pose(smi)
+    for kern in kernels:
+        n = pose["counts"]["launches"][kern["name"]]
+        kern["launches"] += n
+        kern["launches_by_path"]["pose"] = n
+    nms_row["calls"] += pose["counts"]["train"]["nms_calls"] + pose["counts"]["val"]["nms_calls"]
+    emit("pose", t, **pose)
+
+    # 13. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401
     import drone_yolo_tpu_torch.models.yolo  # noqa: F401
+    import drone_yolo_tpu_torch.models.yolo.pose  # noqa: F401  (the pose trainer and validator)
     import drone_yolo_tpu_torch.trackers  # noqa: F401
+    from drone_yolo_tpu_torch.models.yolo import TASK_MAP
+
+    if {TASK_MAP["pose"][k].__name__ for k in ("trainer", "validator")} != {"PoseTrainer", "PoseValidator"}:
+        raise AssertionError(f"TASK_MAP['pose'] = {TASK_MAP['pose']}")
 
     absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn"]
     loaded = sorted(m for m in absent if m in sys.modules)

@@ -1,14 +1,17 @@
-"""Host augmentation of detection samples: mosaic, affine warp, mixup, HSV, flips, letterbox.
+"""Host augmentation of detection and pose samples: mosaic, affine warp, mixup, HSV, flips, letterbox.
 
-Counterpart of `drone_yolo_tpu/data/augment.py` for the detect task, without cv2: the
-image operations are `ops/image.py`'s and `ops/letterbox.py`'s. Every random draw is made
+Counterpart of `drone_yolo_tpu/data/augment.py` for the detect and pose tasks, without cv2:
+the image operations are `ops/image.py`'s and `ops/letterbox.py`'s. Every random draw is made
 from the same generator, with the same arguments and in the same order as in the JAX
 package, so one `(seed, epoch, index)` gives the same sample in both.
 
 A sample is a dict: `img` (H, W, 3) uint8 RGB, `cls` (N,) float32, `bboxes` (N, 4)
-float32 pixel xyxy, and `im_file`, `ori_shape`. `CopyPaste` is the identity for detect
-samples (it needs segments) and is left out; warpPerspective (`perspective` > 0) is
-refused.
+float32 pixel xyxy, for pose `keypoints` (N, nk, 3) (x, y in pixels, visibility), and
+`im_file`, `ori_shape`. Keypoints follow the JAX package where it departs from the
+reference: the affine zeroes the visibility of points it moves out of the frame and keeps
+their coordinates, and a horizontal flip without `flip_idx` mirrors the points without
+remapping them. `CopyPaste` is the identity for detect and pose samples (it needs segments)
+and is left out; warpPerspective (`perspective` > 0) is refused.
 """
 
 from __future__ import annotations
@@ -112,7 +115,7 @@ class Mosaic:
         xc = int(_rng().uniform(s // 2, 2 * s - s // 2))
         mix = [labels] + [self.dataset.get_sample(i) for i in self._pick(3)]
         canvas = self._canvas(s * 2)
-        cls_all, box_all = [], []
+        cls_all, box_all, kpt_all = [], [], []
         for i, lb in enumerate(mix):
             img = lb["img"]
             h, w = img.shape[:2]
@@ -133,6 +136,11 @@ class Mosaic:
             if len(lb["bboxes"]):
                 box_all.append(lb["bboxes"] + np.array([padw, padh, padw, padh], np.float32))
                 cls_all.append(lb["cls"])
+                if lb.get("keypoints") is not None:
+                    k = lb["keypoints"].copy()
+                    k[..., 0] += padw
+                    k[..., 1] += padh
+                    kpt_all.append(k)
         out = {
             "img": canvas,
             "cls": np.concatenate(cls_all) if cls_all else np.zeros((0,), np.float32),
@@ -141,6 +149,8 @@ class Mosaic:
             "im_file": labels.get("im_file", ""),
             "ori_shape": labels.get("ori_shape", canvas.shape[:2]),
         }
+        if kpt_all:
+            out["keypoints"] = np.concatenate(kpt_all)
         clip_sample(out, (s * 2, s * 2))
         return out
 
@@ -165,12 +175,15 @@ class MixUp:
         labels["img"] = (labels["img"] * r + other["img"] * (1 - r)).astype(np.uint8)
         labels["cls"] = np.concatenate([labels["cls"], other["cls"]])
         labels["bboxes"] = np.concatenate([labels["bboxes"], other["bboxes"]])
+        if labels.get("keypoints") is not None and other.get("keypoints") is not None:
+            labels["keypoints"] = np.concatenate([labels["keypoints"], other["keypoints"]])
         return labels
 
 
 class RandomPerspective:
-    """Affine warp of the image and its boxes (rotation, scale, shear, translation), cropping a mosaic's 2s canvas
-    back to s, and dropping boxes that the warp made degenerate."""
+    """Affine warp of the image, its boxes and keypoints (rotation, scale, shear, translation), cropping a mosaic's
+    2s canvas back to s, and dropping boxes that the warp made degenerate. A kept box's keypoints that land outside
+    the frame keep their coordinates with visibility 0."""
 
     def __init__(self, degrees=0.0, translate=0.1, scale=0.5, shear=0.0, perspective=0.0, border=(0, 0),
                  pre_transform=None):
@@ -225,6 +238,17 @@ class RandomPerspective:
         labels["img"] = img
         labels["bboxes"] = new_boxes[keep]
         labels["cls"] = labels["cls"][keep] if n else labels["cls"]
+        if labels.get("keypoints") is not None and n:
+            k = labels["keypoints"][keep]
+            if len(k):
+                kp = np.ones((k.shape[0] * k.shape[1], 3), np.float32)
+                kp[:, :2] = k[..., :2].reshape(-1, 2)
+                kp = (kp @ Mt.T)[:, :2]
+                vis = k[..., 2].reshape(-1)
+                oob = (kp[:, 0] < 0) | (kp[:, 0] > out_w) | (kp[:, 1] < 0) | (kp[:, 1] > out_h)
+                vis = np.where(oob, 0.0, vis)
+                k = np.concatenate([kp, vis[:, None]], -1).reshape(k.shape[0], k.shape[1], 3)
+            labels["keypoints"] = k
         return labels
 
 
@@ -258,12 +282,13 @@ class RandomHSV:
 
 
 class RandomFlip:
-    """Horizontal or vertical flip with probability p."""
+    """Horizontal or vertical flip with probability p; a horizontal flip reorders the keypoints by `flip_idx`
+    (left and right swap) when it is given."""
 
-    def __init__(self, p=0.5, direction="horizontal"):
+    def __init__(self, p=0.5, direction="horizontal", flip_idx=None):
         if direction not in {"horizontal", "vertical"}:
             raise ValueError(f"direction {direction!r}")
-        self.p, self.direction = p, direction
+        self.p, self.direction, self.flip_idx = p, direction, flip_idx
 
     def __call__(self, labels):
         if _rng().random() >= self.p:
@@ -275,17 +300,25 @@ class RandomFlip:
             labels["img"] = np.ascontiguousarray(img[:, ::-1])
             if len(boxes):
                 boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+            if labels.get("keypoints") is not None:
+                k = labels["keypoints"]
+                k[..., 0] = w - k[..., 0]
+                if self.flip_idx is not None and len(k):
+                    k = k[:, np.asarray(self.flip_idx, int)]
+                labels["keypoints"] = np.ascontiguousarray(k)
         else:
             labels["img"] = np.ascontiguousarray(img[::-1])
             if len(boxes):
                 boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+            if labels.get("keypoints") is not None:
+                labels["keypoints"][..., 1] = h - labels["keypoints"][..., 1]
         labels["bboxes"] = boxes
         return labels
 
 
 class LetterBoxT:
-    """Letterbox to `new_shape` (the uint8 INTER_LINEAR resize and a 114 border), boxes moved with the image;
-    records `ratio_pad` = (gain, (pad_w, pad_h))."""
+    """Letterbox to `new_shape` (the uint8 INTER_LINEAR resize and a 114 border), boxes and keypoints moved with the
+    image; records `ratio_pad` = (gain, (pad_w, pad_h))."""
 
     def __init__(self, new_shape=(640, 640), scaleup=True):
         self.new_shape = new_shape if isinstance(new_shape, (tuple, list)) else (new_shape, new_shape)
@@ -302,6 +335,10 @@ class LetterBoxT:
             b[:, [0, 2]] += dw
             b[:, [1, 3]] += dh
             labels["bboxes"] = b
+        if labels.get("keypoints") is not None:
+            k = labels["keypoints"]
+            k[..., 0] = k[..., 0] * r + dw
+            k[..., 1] = k[..., 1] * r + dh
         labels["ratio_pad"] = (r, (dw, dh))
         return labels
 
@@ -319,7 +356,7 @@ class BGRChannel:
 
 
 def clip_sample(labels, shape):
-    """Clip boxes to (h, w) and drop the empty ones."""
+    """Clip boxes to (h, w) and drop the empty ones, with their keypoints (which are not clipped)."""
     h, w = shape
     b = labels["bboxes"]
     if len(b):
@@ -328,11 +365,14 @@ def clip_sample(labels, shape):
         keep = (b[:, 2] - b[:, 0] > 1e-3) & (b[:, 3] - b[:, 1] > 1e-3)
         labels["bboxes"] = b[keep]
         labels["cls"] = labels["cls"][keep]
+        if labels.get("keypoints") is not None:
+            labels["keypoints"] = labels["keypoints"][keep]
     return labels
 
 
 def v8_transforms(dataset, imgsz: int, hyp):
-    """The train pipeline: mosaic, affine, mixup (over a second mosaic and affine), HSV, BGR, flips."""
+    """The train pipeline: mosaic, affine, mixup (over a second mosaic and affine), HSV, BGR, flips (the horizontal
+    one with the dataset's `flip_idx`)."""
     mosaic = Mosaic(dataset, imgsz=imgsz, p=hyp.mosaic)
     affine = RandomPerspective(degrees=hyp.degrees, translate=hyp.translate, scale=hyp.scale, shear=hyp.shear,
                                perspective=hyp.perspective, pre_transform=LetterBoxT((imgsz, imgsz)))
@@ -343,5 +383,5 @@ def v8_transforms(dataset, imgsz: int, hyp):
         RandomHSV(hgain=hyp.hsv_h, sgain=hyp.hsv_s, vgain=hyp.hsv_v),
         BGRChannel(p=hyp.bgr),
         RandomFlip(p=hyp.flipud, direction="vertical"),
-        RandomFlip(p=hyp.fliplr, direction="horizontal"),
+        RandomFlip(p=hyp.fliplr, direction="horizontal", flip_idx=getattr(dataset, "flip_idx", None)),
     ])

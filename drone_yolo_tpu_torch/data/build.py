@@ -31,7 +31,8 @@ def build_yolo_dataset(cfg, img_path, batch: int, data: dict, mode: str = "train
     return YOLODataset(img_path=img_path, imgsz=cfg.imgsz, cache=cfg.cache in (True, "ram"), augment=mode == "train",
                        hyp=cfg, prefix=f"{mode}: ", batch_size=batch, stride=stride, pad=0.0 if mode == "train" else 0.5,
                        single_cls=cfg.single_cls, classes=cfg.classes,
-                       fraction=cfg.fraction if mode == "train" else 1.0, data=data, max_labels=max_labels, rect=rect,
+                       fraction=cfg.fraction if mode == "train" else 1.0, data=data, task=cfg.task,
+                       max_labels=max_labels, rect=rect,
                        rect_max_shapes=int(cfg.rect_max_shapes or 8))
 
 

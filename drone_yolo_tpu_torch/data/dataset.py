@@ -1,10 +1,11 @@
-"""YOLO-format detection dataset: label cache, image loading with a decode buffer, transforms, padded batches.
+"""YOLO-format detection and pose dataset: label cache, image loading with a decode buffer, transforms, padded batches.
 
-Counterpart of `drone_yolo_tpu/data/dataset.py` (YOLODataset) for the detect task. A batch
-from `collate` is a dict of numpy arrays: `img` (B, H, W, 3) uint8 RGB, `cls` (B, M)
+Counterpart of `drone_yolo_tpu/data/dataset.py` (YOLODataset) for the detect and pose tasks. A
+batch from `collate` is a dict of numpy arrays: `img` (B, H, W, 3) uint8 RGB, `cls` (B, M)
 float32 class ids, `bboxes` (B, M, 4) float32 xyxy pixels and `mask` (B, M) float32 slot
-validity, with M from `round_label_slots`; and per image `im_files`, `ori_shapes` (h, w)
-and `ratio_pads` ((gain, (pad_w, pad_h)) from the letterbox, or None).
+validity, with M from `round_label_slots`; for the pose task `keypoints` (B, M, nk, 3) float32
+(x, y in pixels, visibility), nk from the data yaml's `kpt_shape`; and per image `im_files`,
+`ori_shapes` (h, w) and `ratio_pads` ((gain, (pad_w, pad_h)) from the letterbox, or None).
 
 The label cache is the JAX package's file: `<labels dir>.cache.npz` beside the labels, the
 same version, hash and pickled list of label dicts, so either package reads the other's.
@@ -54,8 +55,8 @@ class YOLODataset:
 
     def __init__(self, img_path, imgsz: int = 640, cache: bool = False, augment: bool = True, hyp=None,
                  prefix: str = "", batch_size: int = 16, stride: int = 32, pad: float = 0.5, single_cls: bool = False,
-                 classes=None, fraction: float = 1.0, data: dict | None = None, max_labels: int | None = None,
-                 rect: bool = False, rect_max_shapes: int = 8):
+                 classes=None, fraction: float = 1.0, data: dict | None = None, task: str = "detect",
+                 max_labels: int | None = None, rect: bool = False, rect_max_shapes: int = 8):
         self.img_path = img_path
         self.imgsz = imgsz
         self.augment = augment
@@ -63,6 +64,11 @@ class YOLODataset:
         self.prefix = prefix
         self.fraction = fraction
         self.data = data or {}
+        if task not in ("detect", "pose"):
+            raise NotImplementedError(f"task {task!r}: the port's dataset reads detect and pose labels only")
+        self.use_keypoints = task == "pose"
+        self.kpt_shape = self.data.get("kpt_shape", (0, 0))
+        self.flip_idx = self.data.get("flip_idx", None)
         self.im_files = self.get_img_files(img_path)
         self.label_files = img2label_paths(self.im_files)
         self.labels = self.cache_labels()
@@ -129,12 +135,13 @@ class YOLODataset:
                     return list(z["labels"])
             except (OSError, ValueError, KeyError) as e:
                 LOGGER.warning(f"{self.prefix}label cache {cache_path} unreadable ({e}); verifying the labels again")
+        nkpt, ndim = self.kpt_shape or (0, 0)
         labels = []
         nm = nf = ne = nc_bad = 0
         msgs = []
         for im_file, lb_file in zip(self.im_files, self.label_files):
             im, lb, shape, segs, kpts, nm_, nf_, ne_, nc_, msg = verify_image_label(
-                im_file, lb_file, self.data.get("nc", 999), self.single_cls)
+                im_file, lb_file, self.data.get("nc", 999), self.use_keypoints, nkpt, ndim, self.single_cls)
             nm, nf, ne, nc_bad = nm + nm_, nf + nf_, ne + ne_, nc_bad + nc_
             if msg:
                 msgs.append(msg)
@@ -162,6 +169,8 @@ class YOLODataset:
             for lb in self.labels:
                 keep = (lb["cls"].reshape(-1, 1) == inc).any(1)
                 lb["cls"], lb["bboxes_n"] = lb["cls"][keep], lb["bboxes_n"][keep]
+                if lb["keypoints"] is not None:
+                    lb["keypoints"] = lb["keypoints"][keep]
         if self.single_cls:
             for lb in self.labels:
                 lb["cls"][:] = 0
@@ -228,7 +237,7 @@ class YOLODataset:
         return im
 
     def get_sample(self, i: int) -> dict:
-        """Sample i before the transforms: the loaded image and its boxes in pixel xyxy."""
+        """Sample i before the transforms: the loaded image, its boxes in pixel xyxy and its keypoints in pixels."""
         lb = self.labels[i]
         img = self.load_image(i)
         h, w = img.shape[:2]
@@ -239,6 +248,11 @@ class YOLODataset:
             boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1).astype(np.float32)
         out = {"img": img, "cls": lb["cls"].astype(np.float32).copy(), "bboxes": boxes, "im_file": lb["im_file"],
                "ori_shape": lb["shape"]}
+        if lb["keypoints"] is not None:
+            k = lb["keypoints"].copy()
+            k[..., 0] *= w
+            k[..., 1] *= h
+            out["keypoints"] = k.astype(np.float32)
         if self.rect:
             out["rect_shape"] = tuple(int(x) for x in self.batch_shapes[self.batch[i]])
         return out
@@ -276,15 +290,22 @@ class YOLODataset:
         self.transforms = self.build_transforms(hyp)
 
     def collate(self, samples: list[dict]) -> dict:
-        """Stack the images and pad the labels to `max_labels` slots (extra labels are dropped)."""
+        """Stack the images and pad the labels (and the pose task's keypoints) to `max_labels` slots (extra labels
+        are dropped)."""
         b, m = len(samples), self.max_labels
         cls = np.zeros((b, m), np.float32)
         boxes = np.zeros((b, m, 4), np.float32)
         mask = np.zeros((b, m), np.float32)
+        kpts = np.zeros((b, m, self.kpt_shape[0], 3), np.float32) if self.use_keypoints else None
         for i, s in enumerate(samples):
             n = min(len(s["cls"]), m)
             cls[i, :n], boxes[i, :n], mask[i, :n] = s["cls"][:n], s["bboxes"][:n], 1.0
-        return {"img": np.stack([s["img"] for s in samples]), "cls": cls, "bboxes": boxes, "mask": mask,
-                "im_files": [s.get("im_file", "") for s in samples],
-                "ori_shapes": [s.get("ori_shape", s["img"].shape[:2]) for s in samples],
-                "ratio_pads": [s.get("ratio_pad") for s in samples]}
+            if kpts is not None and n and s.get("keypoints") is not None:
+                kpts[i, :n] = s["keypoints"][:n]
+        batch = {"img": np.stack([s["img"] for s in samples]), "cls": cls, "bboxes": boxes, "mask": mask,
+                 "im_files": [s.get("im_file", "") for s in samples],
+                 "ori_shapes": [s.get("ori_shape", s["img"].shape[:2]) for s in samples],
+                 "ratio_pads": [s.get("ratio_pad") for s in samples]}
+        if kpts is not None:
+            batch["keypoints"] = kpts
+        return batch

@@ -1,7 +1,7 @@
 """Dataset files: label paths, the cache hash, one image-label check, and the dataset yaml.
 
 Counterpart of `drone_yolo_tpu/data/utils.py` (`img2label_paths`, `get_hash`,
-`verify_image_label` for detect labels, `check_det_dataset`, `imread_rgb`). Images are
+`verify_image_label` for detect and keypoint labels, `check_det_dataset`, `imread_rgb`). Images are
 read by the port's own decoders, JPEG (`data/jpeg.py`) and PNG (`data/png.py`); the other
 formats of the JAX package's `IMG_FORMATS` are refused by name (ROADMAP). The yaml is read by the
 port's YAML subset (`nn/build.py:load_yaml`). Nothing is downloaded: a missing dataset
@@ -68,11 +68,17 @@ def get_hash(paths) -> str:
     return h.hexdigest()
 
 
-def verify_image_label(im_file, lb_file, num_cls: int, single_cls: bool = False):
-    """Check one image and its detect labels: (im_file, labels (N, 5) float32, shape (h, w), segments [],
-    keypoints None, missing, found, empty, corrupt, message); im_file is None for a corrupt pair."""
+def verify_image_label(im_file, lb_file, num_cls: int, keypoint: bool = False, nkpt: int = 0, ndim: int = 0,
+                       single_cls: bool = False):
+    """Check one image and its labels: (im_file, labels (N, 5) float32, shape (h, w), segments [], keypoints
+    (N, nkpt, 3) or None, missing, found, empty, corrupt, message); im_file is None for a corrupt pair.
+
+    With `keypoint`, a row is `cls cx cy w h` and `nkpt` points of `ndim` values (x, y[, visibility]), all
+    normalized; points of two values get visibility 1. Segment rows (more than 6 values without `keypoint`)
+    are refused."""
     nm = nf = ne = 0
     msg = ""
+    keypoints = None
     try:
         fmt = str(im_file).rsplit(".", 1)[-1].lower()
         if fmt not in DECODED_FORMATS:
@@ -84,13 +90,19 @@ def verify_image_label(im_file, lb_file, num_cls: int, single_cls: bool = False)
             nf = 1
             with open(lb_file, encoding="utf-8") as f:
                 rows = [x.split() for x in f.read().strip().splitlines() if len(x)]
-            if any(len(r) > 6 for r in rows):
-                raise ValueError("segment labels are not ported yet (detect labels only)")
-            lb = np.array(rows, dtype=np.float32) if rows else np.zeros((0, 5), np.float32)
+            if any(len(r) > 6 for r in rows) and not keypoint:
+                raise ValueError("segment labels are not ported yet (detect and keypoint labels only)")
+            cols = 5 + nkpt * ndim if keypoint else 5
+            lb = np.array(rows, dtype=np.float32) if rows else np.zeros((0, cols), np.float32)
             n = len(lb)
             if n:
-                if lb.shape[1] != 5:
-                    raise ValueError(f"labels require 5 columns, got {lb.shape[1]}")
+                if lb.shape[1] != cols:
+                    raise ValueError(f"labels require {cols} columns, got {lb.shape[1]}")
+                if keypoint:
+                    keypoints = lb[:, 5:].reshape(-1, nkpt, ndim)
+                    if ndim == 2:  # no visibility column: every point is visible
+                        keypoints = np.concatenate([keypoints, np.ones_like(keypoints[..., :1])], axis=-1)
+                    lb = lb[:, :5]
                 pts = lb[:, 1:]
                 if pts.max() > 1.01:
                     raise ValueError(f"non-normalized or out-of-bounds coordinates {pts[pts > 1.01]}")
@@ -104,13 +116,15 @@ def verify_image_label(im_file, lb_file, num_cls: int, single_cls: bool = False)
                 _, idx = np.unique(lb, axis=0, return_index=True)
                 if len(idx) < n:
                     lb = lb[np.sort(idx)]
+                    if keypoints is not None:  # the JAX package keeps every row's points here; kept in step instead
+                        keypoints = keypoints[np.sort(idx)]
                     msg = f"removed {n - len(idx)} duplicate labels"
             else:
                 ne = 1
         else:
             nm = 1
             lb = np.zeros((0, 5), np.float32)
-        return im_file, lb, shape, [], None, nm, nf, ne, 0, msg
+        return im_file, lb, shape, [], keypoints, nm, nf, ne, 0, msg
     except (ValueError, OSError) as e:
         return None, None, None, [], None, nm, nf, ne, 1, f"ignoring corrupt image/label {im_file}: {e}"
 

@@ -1,7 +1,7 @@
 """`YOLO` facade: build from a model yaml or load a `drone_yolo_tpu.v1` npz, then predict, track, train or validate.
 
-Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect and pose models: predict
-and track (the predictor chosen by the task), train and val (detect), `save`, `load` (a
+Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect and pose models: predict,
+track, train and val (the predictor, trainer and validator chosen by the task), `save`, `load` (a
 transfer of the weights whose name and shape match), `info`, `embed`, `reset_weights`,
 `names`, `stride`, and user callbacks forwarded to every trainer, validator and predictor
 the facade makes. The model lives on `device`, which is the CUDA card unless the caller
@@ -210,22 +210,17 @@ class YOLO:
         kwargs["mode"] = "track"
         return self.predict(source=source, stream=stream, **kwargs)
 
-    def _detect_only(self, mode: str) -> None:
-        if self.task != "detect":
-            raise NotImplementedError(f"{mode} of a {self.task} model is not ported yet (ROADMAP.md queue 1 item 6)")
-
     def train(self, data=None, **kwargs) -> dict:
-        """Train on the dataset yaml `data` (`engine/trainer.py`), then take over the best EMA weights; returns the
-        last epoch's validation metrics."""
-        from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+        """Train on the dataset yaml `data` with the task's trainer (`engine/trainer.py`, `models/yolo/pose.py`), then
+        take over the best EMA weights; returns the last epoch's validation metrics."""
+        from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
-        self._detect_only("train")
         overrides = {**self.overrides, "device": str(self.device), **kwargs, "mode": "train"}
         if data is not None:
             overrides["data"] = str(data)
         if not overrides.get("data"):
             raise ValueError("a dataset is required: pass data=<data.yaml>")
-        self.trainer = BaseTrainer(overrides=overrides)
+        self.trainer = TASK_MAP[self.task]["trainer"](overrides=overrides)
         self._forward_callbacks(self.trainer)
         self.trainer.model_facade = self
         self.trainer.train()
@@ -236,17 +231,17 @@ class YOLO:
         return self.trainer.metrics
 
     def val(self, data=None, **kwargs) -> dict:
-        """Validate on the val split of the dataset yaml `data` (`engine/validator.py`) in rectangular batches
-        (rect=True unless the call says otherwise, as the JAX facade); returns the metrics."""
-        from drone_yolo_tpu_torch.engine.validator import DetectionValidator
+        """Validate on the val split of the dataset yaml `data` with the task's validator (`engine/validator.py`,
+        `models/yolo/pose.py`) in rectangular batches (rect=True unless the call says otherwise, as the JAX facade);
+        returns the metrics."""
+        from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
-        self._detect_only("val")
         args = {**self.overrides, "rect": True, "mode": "val", "device": str(self.device), **kwargs}
         if data is not None:
             args["data"] = str(data)
         if not args.get("data"):
             raise ValueError("a dataset is required: pass data=<data.yaml>")
-        self.validator = DetectionValidator(args=args)
+        self.validator = TASK_MAP[self.task]["validator"](args=args)
         self._forward_callbacks(self.validator)
         self.metrics = self.validator(model=self)
         return self.metrics

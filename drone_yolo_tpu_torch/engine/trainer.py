@@ -1,4 +1,4 @@
-"""Detection trainer: one optimizer step of the JAX package's train step, in PyTorch.
+"""Detection trainer, and the base of the pose task's: one optimizer step of the JAX package's train step, in PyTorch.
 
 Counterpart of `drone_yolo_tpu/engine/trainer.py` (`_setup_train`'s optimizer and
 state part, `_build_train_step`/`step_fn`, `preprocess_batch`, `_warmup_hyp`). A
@@ -25,6 +25,10 @@ Built with `train_loader` (any sized iterable of batches in the collate format,
 `data/dataset.py`) instead, the trainer takes steps on them with `run_steps`; with
 `val_loader` (collate-format batches with `ori_shapes` and `ratio_pads`) `validate` runs
 `engine/validator.py` on the EMA weights over it. Device augmentation is not ported.
+
+A task trainer (`models/yolo/pose.py:PoseTrainer`) sets `task`, `loss_names` and `validator_class` and overrides
+`build_model`, `fits_data` and `get_criterion`; the loss items, the metrics and the columns of `results.csv`
+follow from them.
 """
 
 from __future__ import annotations
@@ -63,10 +67,13 @@ class BaseTrainer(CallbackMixin):
     The model trains on `args.device`, the CUDA card unless the caller passes device="cpu".
     """
 
+    task = "detect"
     loss_names = ("box_loss", "cls_loss", "dfl_loss")
+    validator_class = DetectionValidator
 
     def __init__(self, cfg=None, overrides=None, train_loader=None, data: dict | None = None, val_loader=None):
         self.args = get_train_cfg(cfg, overrides)
+        self.args.task = self.task  # the dataset reads this task's labels
         self.device = select_device(self.args.device)
         self.batch_size = self.args.batch
         self.epochs = self.args.epochs
@@ -88,20 +95,33 @@ class BaseTrainer(CallbackMixin):
         self.epoch_stats: list[dict] = []  # per epoch: wall seconds, seconds waiting for the loader, validation
         self.callbacks = get_default_callbacks()
 
+    def build_model(self, cfg) -> DetectionModel:
+        """This task's model of the yaml (or yaml dict) `cfg`, for the data's class count."""
+        return DetectionModel(cfg, nc=self.data.get("nc"))
+
+    def fits_data(self, model) -> bool:
+        """Whether `model`'s head fits the data: its class count."""
+        nc = self.data.get("nc")
+        return not nc or model.nc == nc
+
+    def get_criterion(self):
+        return v8DetectionLoss(self.model, box=self.args.box, cls=self.args.cls, dfl=self.args.dfl)
+
     def setup_model(self) -> None:
         """The model to train, with the data's class count and names, on the device, in train mode: the facade's,
         or `args.model` (a yaml, initialised from `args.seed`, or a `drone_yolo_tpu.v1` npz of unfused weights).
-        A model whose class count differs from the data's is rebuilt and initialised, as in the JAX trainer."""
-        nc = self.data.get("nc")
+        A model whose head does not fit the data (`fits_data`) is rebuilt and initialised, as in the JAX trainer."""
         if self.model_facade is not None:
             model = self.model_facade.ensure_variables(imgsz=self.args.imgsz, seed=self.args.seed)
         elif str(self.args.model).endswith(".npz"):
             model, _ = load_checkpoint(self.args.model)
         else:
-            model = DetectionModel(self.args.model, nc=nc)
+            model = self.build_model(self.args.model)
             model.init(self.args.seed, imgsz=self.args.imgsz)
-        if nc and model.nc != nc:
-            model = DetectionModel(model.yaml, nc=nc)
+        if model.task != self.task:
+            raise ValueError(f"{self.args.model}: a {model.task} model, which the {self.task} trainer does not train")
+        if not self.fits_data(model):
+            model = self.build_model(model.yaml)
             model.init(self.args.seed, imgsz=self.args.imgsz)
         if not any(isinstance(m, M.BatchNorm2d) for m in model.modules()):
             raise ValueError(f"{self.args.model}: fused weights (no BatchNorm) cannot be trained")
@@ -126,7 +146,7 @@ class BaseTrainer(CallbackMixin):
         iterations = math.ceil(self.nb / self.accumulate) * self.epochs
         self.opt_name, self.lr0, self.momentum = auto_optimizer(self.args, self.model.nc, iterations)
         self.lf = build_lr_fn(self.args, self.epochs)
-        self.criterion = v8DetectionLoss(self.model, box=self.args.box, cls=self.args.cls, dfl=self.args.dfl)
+        self.criterion = self.get_criterion()
         self.optimizer = build_optimizer(self.model, self.opt_name, self.lr0, self.momentum, self.weight_decay)
         self.ema = ModelEMA(self.model)
         self.count = 0  # micro-steps since the last optimizer step
@@ -156,18 +176,21 @@ class BaseTrainer(CallbackMixin):
         return lr, lr, self.momentum
 
     def train_step(self, batch: dict, lr_w: float, lr_b: float, momentum: float, size: int | None = None):
-        """One micro-step on a collate-format batch, resized on the device to `size` (with its boxes) when given;
-        returns (loss, items (3,)) on the device, detached."""
+        """One micro-step on a collate-format batch, resized on the device to `size` (with its boxes and keypoints)
+        when given; returns (loss, items (len(loss_names),)) on the device, detached."""
         batch = self.preprocess_batch(batch)
         if size and size != batch["img"].shape[2]:
             scale = size / batch["img"].shape[2]
             batch["img"] = F.interpolate(batch["img"], size=(size, size), mode="bilinear", align_corners=False,
                                          antialias=True)
             batch["bboxes"] = batch["bboxes"] * scale
+            if "keypoints" in batch:  # x, y move with the image, visibility stays
+                kp = batch["keypoints"]
+                batch["keypoints"] = torch.cat([kp[..., :2] * scale, kp[..., 2:]], -1)
         with collect_bn_stats() as bn_stats:
             with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.args.amp):
-                maps = self.model(batch["img"])
-            loss, items = self.criterion(maps, batch)
+                out = self.model(batch["img"])  # the head's train output: maps (and a pose head's raw keypoints)
+            loss, items = self.criterion(out, batch)
         loss.backward()
         self.count += 1
         if self.count >= self.accumulate:
@@ -202,16 +225,16 @@ class BaseTrainer(CallbackMixin):
             out.append({"loss": float(loss), "items": items.tolist(), "ms": dt.dt * 1e3})
         return out
 
-    def get_validator(self) -> DetectionValidator:
-        """A validator at the train size and device, in bfloat16 when `amp` is set, conf 0.001: over `val_loader`,
-        or over the val split of `args.data` at the train batch (in rectangular batches with `rect`)."""
+    def get_validator(self):
+        """This task's validator at the train size and device, in bfloat16 when `amp` is set, conf 0.001: over
+        `val_loader`, or over the val split of `args.data` at the train batch (in rectangular batches with `rect`)."""
         args = dict(imgsz=self.args.imgsz, device=str(self.device), conf=0.001,
                     dtype="bfloat16" if self.args.amp else "float32", plots=False)
         if self.val_loader is None:
             args.update(data=self.args.data, batch=self.batch_size, workers=self.args.workers, cache=self.args.cache,
                         single_cls=self.args.single_cls, classes=self.args.classes, rect=self.args.rect,
                         rect_max_shapes=self.args.rect_max_shapes)
-        return DetectionValidator(self.val_loader, args=args)
+        return self.validator_class(self.val_loader, args=args)
 
     def validate(self) -> dict:
         """Validate the EMA weights: sets and returns `metrics`, and sets `fitness`."""

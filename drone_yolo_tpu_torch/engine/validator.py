@@ -1,13 +1,16 @@
 """Detection validator: the forward and multi-label NMS on the device, TP matching and mAP on the host.
 
 Counterpart of `drone_yolo_tpu/engine/validator.py` (BaseValidator, DetectionValidator)
-for the detect task. A batch goes to the device as uint8 and is normalised there; the
-model, an eval-mode fused copy in `args.dtype`, gives (B, A, 4 + nc) predictions;
-`ops/nms.py` keeps up to `max_det` per image from the top `pre_nms_topk` (anchor,
-class) candidates (K = 4096 by default, the greedy-keep kernel on the card); only the
-detections and their counts come back to the host, where `update_metrics` rescales
-them and the GT to the original frames and matches them, and `get_stats` computes
-P, R, mAP50 and mAP50-95 with `utils/metrics.py`.
+for the detect task, and the base of the pose task's (`models/yolo/pose.py:PoseValidator`).
+A batch goes to the device as uint8 and is normalised there; the model, an eval-mode fused
+copy in `args.dtype`, gives (B, A, 4 + nc [+ extra]) predictions; `ops/nms.py` keeps up to
+`max_det` per image from the top `pre_nms_topk` (anchor, class) candidates (K = 4096 by
+default, the greedy-keep kernel on the card), carrying a pose model's keypoint columns with
+them; only the detections and their counts come back to the host, where `update_metrics`
+rescales them and the GT to the original frames and matches them, and `get_stats` computes
+P, R, mAP50 and mAP50-95 with `utils/metrics.py`. A task validator sets `task`, `metrics_class`,
+`stat_keys` (the arguments of its metrics' `process`, in order) and `print_cols`, and overrides
+`update_metrics`.
 
 `dataloader` is any iterable of batches in the collate format
 (`drone_yolo_tpu/data/dataset.py:YOLODataset.collate`): `img` (B, H, W, 3) uint8 RGB,
@@ -47,14 +50,20 @@ class BaseValidator(CallbackMixin):
     the metrics by the JAX package's keys, with `fitness`, each rounded to 5 decimals.
     """
 
+    task = "detect"
+    metrics_class = DetMetrics
+    stat_keys = ("tp", "conf", "pred_cls", "target_cls")  # accumulated per image; `metrics.process`'s arguments
+    print_cols = ("P", "R", "mAP50", "mAP50-95")  # the columns of `metrics.mean_results()` in the printed table
+
     def __init__(self, dataloader=None, args: dict | None = None):
         self.args = get_val_cfg(overrides=args)
+        self.args.task = self.task  # the dataset reads this task's labels
         self.device = select_device(self.args.device)
         self.dtype = torch.bfloat16 if self.args.dtype == "bfloat16" else torch.float32
         self.dataloader = dataloader
         self.data = None  # the dataset yaml's contents, when the validator builds its own loader
         self.iouv = np.linspace(0.5, 0.95, 10)
-        self.metrics = DetMetrics()
+        self.metrics = self.metrics_class()
         self.speed = {}
         self.model = None
         self.callbacks = get_default_callbacks()
@@ -78,7 +87,7 @@ class BaseValidator(CallbackMixin):
             self.dataloader = build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False,
                                                drop_last=False)
         self.names = self.data["names"] if self.data else self.model.names
-        self.metrics = DetMetrics(self.names)  # a fresh one per call: a reused validator reports no stale metrics
+        self.metrics = self.metrics_class(self.names)  # a fresh one per call: a reused validator reports no stale metrics
 
     def preprocess(self, batch: dict) -> torch.Tensor:
         """The uint8 NHWC batch to the device, there NCHW float32 in [0, 1]."""
@@ -87,19 +96,20 @@ class BaseValidator(CallbackMixin):
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Decoded predictions (B, A, 4 + nc), float32."""
+        """Decoded predictions (B, A, 4 + nc [+ extra]), float32."""
         return self.model(x)[0]
 
     @torch.inference_mode()
     def postprocess(self, preds: torch.Tensor):
-        """Multi-label NMS over the top `pre_nms_topk` candidates -> (dets (B, max_det, 6), n_valid (B,))."""
+        """Multi-label NMS over the top `pre_nms_topk` candidates -> (dets (B, max_det, 6 + extra), n_valid (B,)); the
+        columns after the nc scores (a pose model's keypoints) ride with their candidates."""
         return non_max_suppression(preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
-                                   pre_topk=self.args.pre_nms_topk, multi_label=True)
+                                   pre_topk=self.args.pre_nms_topk, multi_label=True, nc=self.nc)
 
     def __call__(self, model=None, ema_state: dict | None = None) -> dict:
         self.run_callbacks("on_val_start")
         self.setup_model(model, ema_state)
-        self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        self.stats = {k: [] for k in self.stat_keys}
         self.seen = 0
         dt = [Profile(self.device) for _ in range(3)]
         totals = [0.0, 0.0, 0.0]
@@ -144,21 +154,19 @@ class BaseValidator(CallbackMixin):
             self.stats["target_cls"].append(gt_cls)
 
     def get_stats(self) -> dict:
-        """P, R, mAP50 and mAP50-95 of everything accumulated, by the JAX package's keys."""
-        tp = np.concatenate(self.stats["tp"]) if self.stats["tp"] else np.zeros((0, len(self.iouv)), bool)
-        conf = np.concatenate(self.stats["conf"]) if self.stats["conf"] else np.zeros(0)
-        pred_cls = np.concatenate(self.stats["pred_cls"]) if self.stats["pred_cls"] else np.zeros(0)
-        target_cls = np.concatenate(self.stats["target_cls"]) if self.stats["target_cls"] else np.zeros(0)
-        if len(conf):
-            self.metrics.process(tp, conf, pred_cls, target_cls)
-        self.nt_per_class = np.bincount(target_cls.astype(int), minlength=self.nc)
-        mp, mr, map50, map5095 = self.metrics.mean_results()
-        return {"metrics/precision(B)": mp, "metrics/recall(B)": mr, "metrics/mAP50(B)": map50,
-                "metrics/mAP50-95(B)": map5095}
+        """The metrics' means (P, R, mAP50 and mAP50-95 of each kind) over everything accumulated, by the JAX
+        package's keys."""
+        st = {k: np.concatenate(v) if v else np.zeros((0, len(self.iouv)) if k.startswith("tp") else 0, bool)
+              for k, v in self.stats.items()}
+        if len(st["conf"]):
+            self.metrics.process(*(st[k] for k in self.stat_keys))
+        self.nt_per_class = np.bincount(st["target_cls"].astype(int), minlength=self.nc)
+        return dict(zip(self.metrics.keys, self.metrics.mean_results()))
 
     def print_results(self) -> None:
-        pf = "%22s%11i%11i%11.3g%11.3g%11.3g%11.3g"
-        LOGGER.info(("%22s%11s%11s%11s%11s%11s%11s") % ("Class", "Images", "Instances", "P", "R", "mAP50", "mAP50-95"))
+        """One line for all classes (and one a class with `verbose`) of the metrics' mean results, then the speed."""
+        pf = "%22s%11i%11i" + "%11.3g" * len(self.print_cols)
+        LOGGER.info(("%22s%11s%11s" + "%11s" * len(self.print_cols)) % ("Class", "Images", "Instances", *self.print_cols))
         LOGGER.info(pf % ("all", self.seen, int(self.nt_per_class.sum()), *self.metrics.mean_results()))
         if self.args.verbose and self.nc > 1 and len(self.metrics.box.ap_class_index):
             for i, c in enumerate(self.metrics.box.ap_class_index):

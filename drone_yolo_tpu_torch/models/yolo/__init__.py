@@ -1,7 +1,10 @@
-"""Task registry of the port: {task: {predictor}} (`drone_yolo_tpu/models/yolo/__init__.py:TASK_MAP` for the
-ported predictors; the model classes are `nn.model.TASK2MODELCLASS`)."""
+"""Task registry of the port: {task: {trainer, validator, predictor}} (`drone_yolo_tpu/models/yolo/__init__.py:TASK_MAP`
+for the ported tasks; the model classes are `nn.model.TASK2MODELCLASS`)."""
 
 from drone_yolo_tpu_torch.engine.predictor import DetectionPredictor
-from drone_yolo_tpu_torch.models.yolo.pose import PosePredictor
+from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+from drone_yolo_tpu_torch.engine.validator import DetectionValidator
+from drone_yolo_tpu_torch.models.yolo.pose import PosePredictor, PoseTrainer, PoseValidator
 
-TASK_MAP = {"detect": {"predictor": DetectionPredictor}, "pose": {"predictor": PosePredictor}}
+TASK_MAP = {"detect": {"trainer": BaseTrainer, "validator": DetectionValidator, "predictor": DetectionPredictor},
+            "pose": {"trainer": PoseTrainer, "validator": PoseValidator, "predictor": PosePredictor}}

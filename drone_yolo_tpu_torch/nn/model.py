@@ -87,8 +87,9 @@ class DetectionModel(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, raw: bool = False):
-        """(B, 3, H, W) -> ((B, A, 4 + nc) decoded predictions, per-level maps); `raw=True`, and train
-        mode, give the per-level (B, 4 * reg_max + nc, H, W) maps only.
+        """(B, 3, H, W) -> ((B, A, 4 + nc) decoded predictions, per-level maps); `raw=True` gives the per-level
+        (B, 4 * reg_max + nc, H, W) maps only; train mode gives the head's train output (`Detect.train_out`: the
+        maps, and for a pose head the raw keypoints with them), undecoded.
 
         The input is cast to the parameters' dtype, the compute dtype. Train mode runs under
         `nn.modules.collect_bn_stats()`.
@@ -101,7 +102,7 @@ class DetectionModel(nn.Module):
             if f != -1:
                 out = y[f] if isinstance(f, int) else [out if j == -1 else y[j] for j in f]
             if mod is self.head:
-                return mod.raw_maps(out) if raw or self.training else mod(out)
+                return mod.raw_maps(out) if raw else mod.train_out(out) if self.training else mod(out)
             out = mod(out)
             y.append(out if i in self.save else None)
         raise AssertionError("the last layer is the head")
@@ -128,12 +129,17 @@ class DetectionModel(nn.Module):
 
 class PoseModel(DetectionModel):
     """Pose model: a DetectionModel whose head is `Pose` (keypoints of the yaml's `kpt_shape` per detection).
-    Counterpart of `drone_yolo_tpu/nn/model.py` `PoseModel` for predict."""
+    Counterpart of `drone_yolo_tpu/nn/model.py` `PoseModel`: a `data_kpt_shape` that differs from the yaml's
+    (a dataset's) replaces it, so the head is built for the dataset's keypoints."""
 
     task = "pose"
 
-    def __init__(self, cfg="yolov8n-pose.yaml", nc: int | None = None):
-        super().__init__(cfg, nc=nc)
+    def __init__(self, cfg="yolov8n-pose.yaml", nc: int | None = None, data_kpt_shape=(None, None),
+                 s2grad: str | None = None, bnstats: str | None = None):
+        cfg = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
+        if any(data_kpt_shape) and list(data_kpt_shape) != list(cfg.get("kpt_shape", [])):
+            cfg["kpt_shape"] = list(data_kpt_shape)
+        super().__init__(cfg, nc=nc, s2grad=s2grad, bnstats=bnstats)
 
 
 TASK2MODELCLASS = {"detect": DetectionModel, "pose": PoseModel}

@@ -314,6 +314,10 @@ class Detect(nn.Module):
         dbox = dist2bbox(dist, anchors[None]) * strides[None]
         return torch.cat((dbox, cls_logits.float().sigmoid()), -1)
 
+    def train_out(self, xs):
+        """The train-mode output the loss reads: the per-level maps, undecoded."""
+        return self.raw_maps(xs)
+
     def forward(self, xs):
         maps = self.raw_maps(xs)
         return self.decode(maps), maps
@@ -324,7 +328,9 @@ class Pose(Detect):
 
     Counterpart of `drone_yolo_tpu/nn/modules.py` `Pose`. `forward` gives (B, A, 4 + nc + nk): Detect's decoded
     predictions, then the keypoints decoded to pixels in float32, (x, y[, sigmoid visibility]) per keypoint; and
-    (maps, raw keypoints (B, A, nk)). `cv4`'s last conv keeps its init (no prior), as in the JAX package.
+    (maps, raw keypoints (B, A, nk)). In train mode (`train_out`) it gives (maps, raw keypoints) undecoded, as the
+    JAX head does, so the keypoint branch takes part in the loss. `cv4`'s last conv keeps its init (no prior), as in
+    the JAX package.
     """
 
     def __init__(self, nc=80, kpt_shape=(17, 3), ch=(), reg_max=16):
@@ -344,8 +350,16 @@ class Pose(Detect):
             xy = torch.cat((xy, y[..., 2:3].sigmoid()), -1)
         return xy.reshape(b, a, self.nk)
 
+    def raw_kpts(self, xs) -> torch.Tensor:
+        """(B, A, nk) raw keypoint outputs, anchors level by level and row-major."""
+        return torch.cat([cv(x).flatten(2) for cv, x in zip(self.cv4, xs)], 2).transpose(1, 2)
+
+    def train_out(self, xs):
+        kpt = self.raw_kpts(xs)
+        return self.raw_maps(xs), kpt
+
     def forward(self, xs):
-        kpt = torch.cat([cv(x).flatten(2) for cv, x in zip(self.cv4, xs)], 2).transpose(1, 2)  # (B, A, nk)
+        kpt = self.raw_kpts(xs)
         maps = self.raw_maps(xs)
         pkpt = self.kpts_decode(kpt, [m.shape[2:] for m in maps])
         return torch.cat((self.decode(maps), pkpt), -1), (maps, kpt)

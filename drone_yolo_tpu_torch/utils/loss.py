@@ -1,7 +1,7 @@
-"""v8 detection loss: BCE on class logits, CIoU and DFL on task-aligned targets.
+"""v8 detection and pose losses: BCE on class logits, CIoU and DFL on task-aligned targets, keypoint OKS and visibility.
 
 Counterpart of `drone_yolo_tpu/utils/loss.py` (`bce_with_logits`, `df_loss`,
-`v8DetectionLoss`). Targets arrive padded to M slots per image with a validity
+`v8DetectionLoss`, `v8PoseLoss`). Targets arrive padded to M slots per image with a validity
 mask, in the collate format (`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels,
 `mask` (B, M)); padded slots are zeroed so that they catch no anchor.
 """
@@ -13,6 +13,7 @@ import torch
 from drone_yolo_tpu_torch.nn.modules import dfl_expectation, wide
 from drone_yolo_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
 from drone_yolo_tpu_torch.ops.boxes import bbox_ciou
+from drone_yolo_tpu_torch.utils.metrics import kpt_sigmas
 from drone_yolo_tpu_torch.utils.tal import TaskAlignedAssigner
 
 
@@ -46,8 +47,11 @@ class v8DetectionLoss:
         self.gains = (box, cls, dfl)
         self.assigner = TaskAlignedAssigner(topk=tal_topk, num_classes=self.nc, alpha=0.5, beta=6.0)
 
-    def __call__(self, feats, targets: dict):
-        b = feats[0].shape[0]
+    def _detect_parts(self, feats, targets: dict) -> dict:
+        """The detection losses and the intermediates a task loss builds on (`drone_yolo_tpu/utils/loss.py:
+        _detect_parts`): anchor_points (A, 2) and stride_tensor (A, 1) in grid units, fg_mask (B, A), t_gt_idx
+        (B, A) the assigned GT slot, t_bboxes (B, A, 4) the assigned boxes in pixels, weight (B, A) the summed
+        target scores of foreground anchors, and the unweighted loss_box, loss_cls, loss_dfl."""
         anchor_points, stride_tensor = make_anchors([f.shape[2:] for f in feats], self.strides, device=feats[0].device)
         # (B, A, no) in the compute dtype, anchors ordered level by level and row-major, as the JAX NHWC reshape
         flat = torch.cat([f.flatten(2) for f in feats], 2).transpose(1, 2)
@@ -56,19 +60,84 @@ class v8DetectionLoss:
 
         mask_gt = targets["mask"].to(pred_scores.dtype)
         gt_bboxes = targets["bboxes"].to(pred_scores.dtype) * mask_gt[..., None]
-        _, target_bboxes, target_scores, fg_mask, _ = self.assigner(
+        _, t_bboxes, target_scores, fg_mask, t_gt_idx = self.assigner(
             pred_scores.detach().sigmoid(), pred_bboxes.detach() * stride_tensor, anchor_points * stride_tensor,
             targets["cls"].long(), gt_bboxes, mask_gt)
         target_scores_sum = target_scores.sum().clamp(min=1.0)
 
         loss_cls = bce_with_logits(pred_scores, target_scores).sum() / target_scores_sum
-        target_bboxes = target_bboxes / stride_tensor
+        target_bboxes = t_bboxes / stride_tensor
         weight = target_scores.sum(-1) * fg_mask
         iou = bbox_ciou(pred_bboxes, target_bboxes)
         loss_box = ((1.0 - iou) * weight).sum() / target_scores_sum
         target_ltrb = bbox2dist(anchor_points, target_bboxes, self.reg_max - 1)
         dfl = df_loss(wide(pred_distri).unflatten(-1, (4, self.reg_max)), target_ltrb, self.reg_max)[..., 0]
         loss_dfl = (dfl * weight).sum() / target_scores_sum
+        return {"anchor_points": anchor_points, "stride_tensor": stride_tensor, "fg_mask": fg_mask,
+                "t_gt_idx": t_gt_idx, "t_bboxes": t_bboxes, "weight": weight, "loss_box": loss_box,
+                "loss_cls": loss_cls, "loss_dfl": loss_dfl}
 
-        items = torch.stack([loss_box * self.gains[0], loss_cls * self.gains[1], loss_dfl * self.gains[2]])
+    def __call__(self, feats, targets: dict):
+        p = self._detect_parts(feats, targets)
+        items = torch.stack([p["loss_box"] * self.gains[0], p["loss_cls"] * self.gains[1], p["loss_dfl"] * self.gains[2]])
+        return items.sum() * feats[0].shape[0], items.detach()
+
+
+class v8PoseLoss(v8DetectionLoss):
+    """Pose criterion over the pose head's train output (maps, raw keypoints (B, A, nk * nd)): the detection losses,
+    an OKS-shaped keypoint location loss and a keypoint visibility BCE, in float32.
+
+    Counterpart of `drone_yolo_tpu/utils/loss.py:v8PoseLoss`, whose result it copies where that departs from the
+    reference: only the top `max_fg` anchors of each image by `weight` carry the keypoint losses (ties to the lower
+    anchor index, as `jax.lax.top_k`), each keypoint loss is averaged over those anchors, its `nk / labelled points`
+    factor is per anchor, the area is the assigned GT box's, and the sigmas are uniform 1 / nk unless nk == 17.
+    Targets add `keypoints` (B, M, nk, 3) in pixels with visibility.
+
+    Returns (sum of the gained items * B, items (5,) detached: box, pose, kobj, cls, dfl).
+    """
+
+    def __init__(self, model, pose_gain: float = 12.0, kobj_gain: float = 1.0, max_fg: int = 128, **kw):
+        super().__init__(model, **kw)
+        self.kpt_shape = tuple(model.head.kpt_shape)
+        self.pose_gain, self.kobj_gain, self.max_fg = pose_gain, kobj_gain, max_fg
+        self.sigmas = torch.from_numpy(kpt_sigmas(self.kpt_shape[0])).float()
+
+    def __call__(self, outs, targets: dict):
+        feats, pred_kpts = outs
+        p = self._detect_parts(feats, targets)
+        b, a = pred_kpts.shape[:2]
+        nk, nd = self.kpt_shape
+        anchors, strides = p["anchor_points"], p["stride_tensor"]
+        kr = wide(pred_kpts).reshape(b, a, nk, nd)
+        kxy = (kr[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * strides[None, :, None, :]  # pixels
+
+        k = min(self.max_fg, a)
+        score = p["weight"]
+        top_scores, top_idx = score.sort(dim=1, descending=True, stable=True)  # ties: lower index first
+        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+        sel_valid = (top_scores > 0).float()
+        sel_kxy = kxy.gather(1, top_idx[:, :, None, None].expand(b, k, nk, 2))
+        sel_gt_idx = p["t_gt_idx"].gather(1, top_idx)
+        sel_boxes = p["t_bboxes"].gather(1, top_idx[..., None].expand(b, k, 4))  # pixels
+        gt_kpts = targets["keypoints"].float()
+        sel_gt = gt_kpts.gather(1, sel_gt_idx[:, :, None, None].expand(b, k, nk, 3))  # (B, K, nk, 3)
+
+        kpt_mask = (sel_gt[..., 2] > 0).float()
+        area = ((sel_boxes[..., 2] - sel_boxes[..., 0]) * (sel_boxes[..., 3] - sel_boxes[..., 1])).clamp(min=1e-9)
+        d2 = ((sel_kxy - sel_gt[..., :2]) ** 2).sum(-1)
+        factor = nk / kpt_mask.sum(-1, keepdim=True).clamp(min=1.0)
+        if self.sigmas.device != d2.device:  # moved once, not copied to the card every step
+            self.sigmas = self.sigmas.to(d2.device)
+        e = d2 / (2 * self.sigmas) ** 2 / (area[..., None] * 2) / 2
+        oks_loss = factor * (1.0 - torch.exp(-e)) * kpt_mask
+        n_fg = sel_valid.sum().clamp(min=1.0)
+        loss_kpt = (oks_loss.mean(-1) * sel_valid).sum() / n_fg
+        if nd == 3:
+            sel_kconf = kr[..., 2].gather(1, top_idx[..., None].expand(b, k, nk))
+            loss_kobj = (bce_with_logits(sel_kconf, kpt_mask).mean(-1) * sel_valid).sum() / n_fg
+        else:
+            loss_kobj = torch.zeros((), device=d2.device)
+
+        items = torch.stack([p["loss_box"] * self.gains[0], loss_kpt * self.pose_gain, loss_kobj * self.kobj_gain,
+                             p["loss_cls"] * self.gains[1], p["loss_dfl"] * self.gains[2]])
         return items.sum() * b, items.detach()

@@ -1,7 +1,8 @@
-"""Detection metrics on the host, in numpy: box IoU, TP matching, 101-point AP, per-class P/R/AP.
+"""Detection and pose metrics on the host, in numpy: box IoU, keypoint OKS, TP matching, 101-point AP, per-class P/R/AP.
 
 A copy of `drone_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions`,
-`compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`), which follows the
+`compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`, `kpt_iou`, `PoseMetrics`) and of
+the COCO keypoint sigmas of `drone_yolo_tpu/models/yolo/pose.py:OKS_SIGMA_NP`, which follow the
 reference ultralytics `utils/metrics.py`. The card produces the detections; matching
 and accumulation are host work, as in the JAX package.
 """
@@ -11,6 +12,15 @@ from __future__ import annotations
 import numpy as np
 
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2 has only the old name
+
+# COCO's 17 keypoint sigmas (nose, eyes, ears, shoulders, elbows, wrists, hips, knees, ankles)
+OKS_SIGMA = np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87, 0.89,
+                      0.89]) / 10.0
+
+
+def kpt_sigmas(nk: int) -> np.ndarray:
+    """The OKS sigmas of `nk` keypoints: COCO's for 17, else uniform 1 / nk (as the JAX package)."""
+    return OKS_SIGMA if nk == 17 else np.ones(nk) / nk
 
 
 def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
@@ -212,3 +222,44 @@ class DetMetrics:
     @property
     def results_dict(self):
         return dict(zip(self.keys + ["fitness"], self.mean_results() + [self.fitness]))
+
+
+def kpt_iou(gt_kpts, pred_kpts, area, sigmas, eps: float = 1e-7) -> np.ndarray:
+    """OKS of (M, K, 3) GT keypoints against (N, K, 2|3) predicted ones, with (M,) GT areas -> (M, N): the mean over
+    the GT's labelled points (visibility != 0) of exp(-d^2 / (2 sigma)^2 / (area + eps) / 2)."""
+    d = (gt_kpts[:, None, :, 0] - pred_kpts[None, :, :, 0]) ** 2 + (gt_kpts[:, None, :, 1] - pred_kpts[None, :, :, 1]) ** 2
+    sigmas = np.asarray(sigmas)
+    kpt_mask = gt_kpts[..., 2] != 0  # (M, K)
+    e = d / ((2 * sigmas) ** 2)[None, None, :] / (area[:, None, None] + eps) / 2
+    oks = np.exp(-e) * kpt_mask[:, None, :]
+    return oks.sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
+
+
+class PoseMetrics(DetMetrics):
+    """Box metrics and keypoint (OKS) metrics of a pose validation: 8 means, fitness = box fitness + pose fitness."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.pose = Metric()
+        self.task = "pose"
+
+    def process(self, tp, tp_p, conf, pred_cls, target_cls):
+        super().process(tp, conf, pred_cls, target_cls)
+        results = ap_per_class(np.asarray(tp_p), np.asarray(conf), np.asarray(pred_cls), np.asarray(target_cls))
+        self.pose.nc = len(self.names)
+        self.pose.update(results)
+
+    @property
+    def keys(self):
+        return ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)",
+                "metrics/precision(P)", "metrics/recall(P)", "metrics/mAP50(P)", "metrics/mAP50-95(P)"]
+
+    def mean_results(self):
+        return self.box.mean_results() + self.pose.mean_results()
+
+    def class_result(self, i):
+        return self.box.class_result(i) + self.pose.class_result(i)
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.pose.fitness()

@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import S2_SUM_FLOOR, S2_TOL, bn_stats_errors, clustered_boxes, synthetic_batch
+from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_stats_errors, clustered_boxes, s2_site_inputs, s2_sites, synthetic_batch,
+                        synthetic_pose_batch)
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+from drone_yolo_tpu_torch.models.yolo.pose import PoseTrainer
+from drone_yolo_tpu_torch.nn import modules as M
+from drone_yolo_tpu_torch.nn.model import PoseModel
 from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
 from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
 from drone_yolo_tpu_torch.ops.nms import (
@@ -254,6 +258,70 @@ def test_train_step_with_both_kernels_matches_stock(cuda_device):
         assert cuda_bnstats.bn_stats_cuda.calls == cuda_bnstats.bn_stats_cuda.launches == (2 * 77 if mode else 0)
         runs[mode] = (steps, trainer.train_state())
     (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
+    np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
+    for name, want in st_s["params"].items():
+        torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [80, 40, 20])
+def test_bn_stats_kernel_at_the_pose_branch(cuda_device, hw, dtype):
+    """The BN inputs of yolov8s-pose's keypoint branch (cv4: c4 = max(128 // 4, 51) = 51 channels, not a multiple of
+    8) at batch 8, 640 px, against `bn_stats_reference` at chip_smoke's tolerance; the channel's plan of runs reads
+    each value once."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(hw)
+    x = (torch.randn(8, 51, hw, hw, generator=g, device=cuda_device) * 2 + 0.5).to(dt)
+    parts, chunk = cuda_bnstats.split_channel(8 * hw * hw)
+    assert (parts - 1) * chunk < 8 * hw * hw <= parts * chunk and chunk % cuda_bnstats.VEC == 0
+    cuda_bnstats.reset_counts()
+    s, q = bn_stats(x)
+    torch.cuda.synchronize()
+    assert (cuda_bnstats.bn_stats_cuda.calls, cuda_bnstats.bn_stats_cuda.launches) == (1, 1)
+    errs = bn_stats_errors(x, s, q)
+    assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, errs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s2_kernel_at_the_pose_sites(cuda_device, dtype):
+    """yolov8s-pose's 7 dense k=3 stride-2 sites (layers 0, 1, 3, 5, 7, 16, 19; batch 8, 640 px) against the plain
+    version at chip_smoke.S2_TOL plus S2_SUM_FLOOR of the largest entry, as chip_smoke's pose phase holds them."""
+    sites = s2_sites(PoseModel("yolov8s-pose.yaml", nc=1), 8, 640)
+    assert [s["name"].split(".")[1] for s in sites] == ["0", "1", "3", "5", "7", "16", "19"]
+    assert all(s["k"] == 3 for s in sites) and [s["need_dx"] for s in sites] == [False] + [True] * 6
+    dt = getattr(torch, dtype)
+    for i, site in enumerate(sites):
+        x, w, dy = s2_site_inputs(site, dt, seed=i)
+        dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+        torch.cuda.synchronize()
+        dx_p, dw_p = conv_s2.s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+        pairs = [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else [])
+        for what, got, want in pairs:
+            tol = dict(S2_TOL[dtype][what])
+            tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{site['name']} {what}: {m}")
+        del x, w, dy, dx, dw, dx_p, dw_p
+
+
+def test_pose_train_step_with_both_kernels_matches_stock(cuda_device):
+    """yolov8n-pose (nc 1, 17 keypoints), imgsz 64, batch 2, float32 (TF32 off): 2 steps with s2grad="cuda" and
+    bnstats="cuda" against 2 stock steps from the same init: 7 stride-2 calls and one BN-statistics call at every
+    train-mode BN (the keypoint branch's included) a step."""
+    loader = [synthetic_pose_batch(np.random.default_rng(i), 2, 64, 1, 17) for i in range(2)]
+    n_bn = sum(isinstance(m, M.BatchNorm2d) for m in PoseModel("yolov8n-pose.yaml", nc=1).modules())
+    runs = {}
+    for mode in ("cuda", None):
+        trainer = PoseTrainer(overrides=dict(model="yolov8n-pose.yaml", batch=2, imgsz=64, nbs=2, optimizer="SGD",
+                                             amp=False, s2grad=mode, bnstats=mode), train_loader=loader,
+                              data={"nc": 1, "kpt_shape": [17, 3]})
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        steps = trainer.run_steps()
+        assert cuda_s2bwd.s2_bwd_cuda.calls == {"s2_bwd_k3": 14 if mode else 0, "s2_bwd_k1": 0}
+        assert cuda_bnstats.bn_stats_cuda.calls == (2 * n_bn if mode else 0)
+        runs[mode] = (steps, trainer.train_state())
+    (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
+    assert all(len(r["items"]) == 5 for r in steps_k)
     np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
     for name, want in st_s["params"].items():
         torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)

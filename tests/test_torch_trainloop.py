@@ -16,7 +16,7 @@
   largest update: the port against a float64 run of itself within `REF_NOISE` (the bar of
   tests/test_torch_train.py), the JAX package against that float64 run within `JAX_LOOP_NOISE`,
   and the port against the JAX package within the sum of the two;
-- the loop with jax, drone_yolo_tpu, cv2, PIL and yaml blocked.
+- the loop, and a pose model's epoch and val, with jax, drone_yolo_tpu, cv2, PIL and yaml blocked.
 """
 
 import json
@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from make_dataset import make_dataset
+from make_dataset import make_dataset, make_pose_dataset
 from test_torch_predict import BLOCKER
 from drone_yolo_tpu.engine.checkpoint import load_checkpoint as jax_load_checkpoint
 from drone_yolo_tpu.engine.checkpoint import save_checkpoint as jax_save_checkpoint
@@ -237,20 +237,29 @@ model = YOLO("yolov8n-p2-repvgg-sf.yaml", device="cpu")
 metrics = model.train(data=sys.argv[1], project=sys.argv[2], name="blocked", epochs=2, imgsz=64, batch=4, nbs=4,
                       workers=2, cache="ram", close_mosaic=1, amp=False, s2grad="cuda", bnstats="cuda")
 again = YOLO(model.trainer.wdir / "last.npz", device="cpu").val(data=sys.argv[1], imgsz=64, batch=4, dtype="float32")
+pose = YOLO("yolov8n-pose.yaml", device="cpu")
+pose_metrics = pose.train(data=sys.argv[3], project=sys.argv[2], name="pose", epochs=1, imgsz=64, batch=2, nbs=2,
+                          workers=1, amp=False, s2grad="cuda", bnstats="cuda")
+pose_again = YOLO(pose.trainer.wdir / "last.npz", device="cpu").val(data=sys.argv[3], imgsz=64, batch=2, dtype="float32")
 print(json.dumps({"metrics": metrics, "again": again, "epochs": len(model.trainer.epoch_stats),
+                  "pose_metrics": pose_metrics, "pose_again": pose_again,
                   "loaded": sorted(m for m in BLOCKED if m in sys.modules)}))
 """
 
 
 def test_loop_runs_without_jax_cv2_pil_yaml(data_yaml, tmp_path):
-    """Two epochs (mosaic, then closed), validation, checkpoints and a val of last.npz with the imports blocked."""
+    """Two epochs (mosaic, then closed), validation, checkpoints and a val of last.npz with the imports blocked; then
+    a pose model's epoch over a pose dataset (`make_pose_dataset`) and a val of its last.npz."""
+    pose_yaml = str(make_pose_dataset(tmp_path / "pose", n_val=2, nc=2, seed=0, size=96, nkpt=4, n_train=4))
     env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run([sys.executable, "-c", RUN_LOOP, data_yaml, str(tmp_path)], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", RUN_LOOP, data_yaml, str(tmp_path), pose_yaml], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == [] and out["epochs"] == 2
     assert set(out["metrics"]) == set(out["again"]) == set(METRIC_KEYS)
+    pose_keys = {*METRIC_KEYS, "metrics/precision(P)", "metrics/recall(P)", "metrics/mAP50(P)", "metrics/mAP50-95(P)"}
+    assert set(out["pose_metrics"]) == set(out["pose_again"]) == pose_keys
 
 
 def test_multi_scale_sizes_and_device_resize():
