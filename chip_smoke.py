@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
 validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, drives the
-command line over image files, an MJPEG AVI and a rect-validated dataset, and trains and validates a pose model.
+command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model, and
+predicts with, trains and validates an instance segmentation model.
 
     python3 chip_smoke.py
 
@@ -115,8 +116,25 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    batch (the val split's first 8 images, letterboxed) at a constant lr, whose `pose_loss` must end below its first
    value. Printed: step ms and img/s of the fixed batch, its device idle share (torch.profiler), epoch seconds and
    the data-wait share, validation img/s, peak card memory, each beside the nvidia-smi line;
-13. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
-   modules of every path (apps, trackers, the pose predictor, trainer and validator, the loaders) loaded.
+13. segment: instance segmentation. `yolov8s-seg.yaml` (nc 80, 32 prototypes) at full width and depth: the stride-2
+   backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites and the BN-statistics kernel against
+   `bn_stats_reference` at the 9 BN inputs the detect part lacks (Proto's 3 at 80x80 and 160x160, cv4's 6), in
+   bfloat16 and float32 at batch 8, 640 px, and timed there against the plain version and `torch.batch_norm_stats`;
+   a seeded dataset of 8 train and 8 val images of 2-12 filled polygons (`write_seg_dataset`, the port's `fill_poly`
+   and JPEG encoder, nc 80); predict on 1080x1920 frames (`moving_frames`) at batch 1 and 8 with `calibrated_weights`
+   (0.2% of frame 0's anchors above conf 0.25): every image's masks at the frame's shape; then
+   `YOLO("yolov8s-seg.yaml").train(...)` 1 epoch at batch 8, 640 px, bf16 autocast, SGD, default augmentation,
+   cache="ram", both kernels, with the EMA validated, and `YOLO(last.npz).val(...)` in rect batches. Every NMS keep
+   mask (predict K = 1024 and validation K = 4096, 32 coefficient columns riding) is held against
+   `greedy_keep_reference`. Counts are set to 0 before each run and read after it. Checks: 7 stride-2 calls (k=3)
+   and 66 BN-statistics calls a step (57 of the detect part, cv4's 6, Proto's 3), one NMS call (two launches) a
+   val batch, the loss items finite, box and mask metrics in [0, 1]; then 30 steps on one fixed batch (the val
+   split's 8 images, letterboxed) at a constant lr, whose `seg_loss` must end below its first value. Printed:
+   predict img/s and masks per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and
+   the data-wait share, validation img/s, box and mask mAP, peak card memory, each beside the nvidia-smi line;
+14. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
+   modules of every path (apps, trackers, the pose and segment predictors, trainers and validators, the loaders)
+   loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -225,6 +243,12 @@ ENTRY_CELL = dict(dir_from_avi=4, frames=(("jpg", (1920, 1080), 3), ("jpg", (720
 # fixed batch at a constant lr (warmup_epochs 0), whose pose loss must fall
 POSE_CELL = dict(model="yolov8s-pose.yaml", n_train=32, n_val=16, imgsz=640, batch=8, epochs=2, seed=7, workers=4,
                  fixed_steps=30)
+# the segment phase: yolov8s-seg (nc 80, 32 prototypes) at full width on a seeded dataset of polygons
+# (`write_seg_dataset`): predict on 1080p frames at batch 1 and 8 with calibrated weights, one epoch from disk at
+# batch 8, 640 px, bf16 autocast, SGD, both kernels, rect val of last.npz; then 30 steps on one fixed batch at a
+# constant lr, whose mask loss must fall
+SEG_CELL = dict(model="yolov8s-seg.yaml", nc=80, n_train=8, n_val=8, imgsz=640, batch=8, seed=11, workers=4,
+                fixed_steps=30, frames_hw=(1080, 1920), cls_gain=30.0, share_above_conf=0.002, conf=0.25)
 ENTRY_VAL_ASPECTS = ((1.0, 1.0), (0.5625, 1.0), (1.0, 0.5625), (0.75, 1.0), (1.0, 0.75), (0.6, 1.0), (1.0, 0.8),
                      (0.9, 1.0))
 
@@ -348,6 +372,19 @@ def synthetic_pose_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: i
     return out
 
 
+def synthetic_seg_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n_max: int = 24) -> dict:
+    """`synthetic_batch` with `masks` (B, imgsz / 4, imgsz / 4) int32, the collated overlap index mask: each live
+    slot's box filled with its slot + 1 at mask ratio 4, later slots on top. Shared with the tests."""
+    out = synthetic_batch(rng, batch, imgsz, nc, n_max)
+    masks = np.zeros((batch, imgsz // 4, imgsz // 4), np.int32)
+    for i in range(batch):
+        for j in np.flatnonzero(out["mask"][i]):
+            x1, y1, x2, y2 = (out["bboxes"][i, j] / 4).astype(int)
+            masks[i, y1:y2 + 1, x1:x2 + 1] = j + 1
+    out["masks"] = masks
+    return out
+
+
 # A standing figure's 17 COCO keypoints in its unit box (x right, y down), facing the camera: nose, eyes, ears,
 # shoulders, elbows, wrists, hips, knees, ankles, each pair the person's left first (the image's right), and the
 # limbs drawn between them
@@ -397,6 +434,36 @@ def write_pose_dataset(root: Path, n_train: int, n_val: int, size: int, seed: in
     yaml_path = root / "data.yaml"
     yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nkpt_shape: [17, 3]\n"
                          f"flip_idx: {COCO_FLIP_IDX}\nnames:\n  0: person\n")
+    return yaml_path
+
+
+def write_seg_dataset(root: Path, n_train: int, n_val: int, size: int, seed: int, nc: int) -> Path:
+    """A seeded polygon dataset of `nc` classes: per image 2-12 filled polygons (5-16 vertices around a centre, radii
+    jittered, so many are concave) of 3-30% of the image on a noisy background, drawn by the port's `fill_poly` and
+    written by its JPEG encoder at quality 95, with segment labels (`cls x1 y1 x2 y2 ...`, normalized) and a data.yaml.
+    Returns the yaml path."""
+    from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
+    from drone_yolo_tpu_torch.ops.polygon import fill_poly
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img = (rng.random((size, size, 3)) * 50 + 80).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(2, 13))):
+                k = int(rng.integers(5, 17))
+                ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+                r = rng.uniform(0.015, 0.15) * size * rng.uniform(0.5, 1.0, (k, 1))
+                pts = (rng.uniform(0.1, 0.9, 2) * size + np.stack([np.cos(ang), np.sin(ang)], 1) * r).clip(0, size - 1)
+                mask = fill_poly(np.zeros((size, size), np.uint8), [pts.astype(np.int32)], 1).astype(bool)
+                img[mask] = rng.integers(0, 256, 3)
+                rows.append(f"{int(rng.integers(0, nc))} " + " ".join(f"{v / size:.6f}" for v in pts.reshape(-1)))
+            (root / "images" / split / f"{split}_{i:04d}.jpg").write_bytes(encode_jpeg(img, quality=95))
+            (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnc: {nc}\n")
     return yaml_path
 
 
@@ -1510,6 +1577,214 @@ def run_pose(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def run_segment(smi: str) -> dict:
+    """Phase 13: instance segmentation on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.cfg import get_val_cfg
+    from drone_yolo_tpu_torch.data.build import build_yolo_dataset
+    from drone_yolo_tpu_torch.data.utils import check_det_dataset
+    from drone_yolo_tpu_torch.models.yolo.segment import SegmentationTrainer
+    from drone_yolo_tpu_torch.nn.model import SegmentationModel
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+    from drone_yolo_tpu_torch.ops.conv_s2 import s2_bwd_reference
+
+    c = SEG_CELL
+    k3, k1 = cuda_s2bwd.NAMES[3], cuda_s2bwd.NAMES[1]
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+
+    def counts() -> dict:
+        return {"s2_calls": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+                "nms_calls": cuda_nms.greedy_keep_cuda.calls,
+                "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches,
+                             "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                             **{n: cuda_s2bwd.s2_bwd_cuda.launches.get(n, 0) for n in (k3, k1)}}}
+
+    # the kernels against their plain versions at the segment model's shapes: the stride-2 backward at its 7 sites, the
+    # BN statistics at the inputs the detect part does not have (Proto's 3, cv4's 6)
+    probe = SegmentationModel(c["model"], nc=c["nc"])
+    sites = s2_sites(probe, c["batch"], c["imgsz"])
+    if [s["k"] for s in sites] != [3] * 7:
+        raise AssertionError(f"{c['model']} should have 7 dense k=3 stride-2 sites, found {[s['name'] for s in sites]}")
+    s2_checks = []
+    for i, site in enumerate(sites):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, dy = s2_site_inputs(site, dtype, seed=700 + i)
+            dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+            dx_p, dw_p = s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+            name = str(dtype).split(".")[1]
+            row = {"site": site["name"], "x": site["x"], "dtype": name}
+            for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
+                tol = dict(S2_TOL[name][what])
+                tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"segment {site['name']} {name} {what}: {m}")
+                row[f"{what}_err"] = float((got - want).abs().max())
+            s2_checks.append(row)
+            del x, w, dy, dx, dw, dx_p, dw_p
+    bn = bn_sites(probe, c["batch"], c["imgsz"])
+    seg_bn = [b for b in bn if ".proto." in b["name"] or ".cv4." in b["name"]]
+    if len(bn) != 66 or len(seg_bn) != 9:
+        raise AssertionError(f"{c['model']}: {len(bn)} BN inputs ({len(seg_bn)} in proto and cv4), expected 66 (9)")
+    bn_checks = []
+    for i, site in enumerate(seg_bn):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = site_input(site["x"], dtype, seed=800 + i)
+            s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
+            errs = bn_stats_errors(x, s_k, q_k)
+            if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
+                raise AssertionError(f"segment BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
+            bn_checks.append({"site": site["name"], "x": site["x"], "dtype": str(dtype).split(".")[1], **errs})
+            del x, s_k, q_k
+    del probe
+    xs = [site_input(site["x"], torch.bfloat16, seed=900 + i) for i, site in enumerate(seg_bn)]
+    bn_time = {}
+    for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],
+                       "plain_": lambda: [bn_stats_reference(x) for x in xs],
+                       "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
+        bn_time.update(kernel_times(fn, reps=5, prefix=prefix))
+    b_ms = [(2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3 for x in xs]
+    o_ms = [BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3 for x in xs]
+    bn_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                   calls=len(xs), inputs=[s["x"] for s in seg_bn])
+    del xs
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_segment_"))
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        checks.append({"K": int(boxes.shape[1]), "valid": int(valid.sum()), "kept": int(keep.sum()),
+                       "equal": bool(torch.equal(keep, nms_ops.greedy_keep_reference(boxes, valid, iou_thres)))})
+        return keep
+
+    try:
+        t0 = time.perf_counter()
+        data = write_seg_dataset(tmp / "seg", c["n_train"], c["n_val"], c["imgsz"], c["seed"], c["nc"])
+        write_s = time.perf_counter() - t0
+        nms_ops.greedy_keep = checked_keep
+        try:
+            # predict: 1080p frames at batch 1 and 8, weights calibrated so that some anchors score above conf
+            frames = moving_frames(np.random.default_rng(c["seed"]), 8, c["frames_hw"], 40, size=(40, 200))
+            pred_model = YOLO(c["model"])
+            bias = calibrated_weights(pred_model, frames[0], c["seed"], c["cls_gain"], c["share_above_conf"], c["conf"],
+                                      c["imgsz"])
+            predict = {}
+            reset()
+            for b in (1, 8):
+                pred_model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = pred_model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)
+                wall = time.perf_counter() - t0
+                n_masks = [0 if r.masks is None else len(r.masks) for r in res]
+                shapes = {tuple(r.masks.data.shape[1:]) for r in res if r.masks is not None}
+                if not sum(n_masks) or shapes != {c["frames_hw"]} or any(
+                        len(r.boxes) != (0 if r.masks is None else len(r.masks)) for r in res):
+                    raise AssertionError(f"segment predict at batch {b}: masks {n_masks} of shapes {shapes}")
+                predict[f"batch{b}"] = {"img_per_s": b / wall, "masks_per_image": n_masks,
+                                        "mask_shape": list(c["frames_hw"]), "speed_ms_per_img": res[0].speed}
+            predict_counts = counts()
+            predict_checks = list(checks)
+            if any(ch["K"] != 1024 for ch in predict_checks) or not all(ch["equal"] for ch in predict_checks):
+                raise AssertionError(f"segment predict NMS: {predict_checks}")
+            del pred_model, res
+
+            # one epoch from disk with both kernels, then rect val of last.npz
+            checks.clear()
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = YOLO(c["model"])
+            metrics = model.train(data=str(data), epochs=1, imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"],
+                                  optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
+                                  workers=c["workers"], project=str(tmp / "runs"), name="train", exist_ok=True)
+            train_wall = time.perf_counter() - t0
+            train_counts = counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            tr = model.trainer
+            n_val_checks = len(checks)
+            reset()
+            last = YOLO(tr.wdir / "last.npz")
+            t0 = time.perf_counter()
+            val_metrics = last.val(data=str(data))  # rect batches: the facade's default
+            val_wall = time.perf_counter() - t0
+            val_counts = counts()
+            validator = last.validator
+        finally:
+            nms_ops.greedy_keep = kernel_keep
+        n_bn, steps = len(bn), tr.nb
+        if train_counts["s2_calls"] != {k3: steps * 7, k1: 0} or train_counts["bn_calls"] != steps * n_bn:
+            raise AssertionError(f"segment training: {train_counts}, expected {steps * 7} stride-2 and "
+                                 f"{steps * n_bn} BN calls for {steps} steps")
+        val_batches = math.ceil(c["n_val"] / c["batch"]) + len(validator.dataloader)
+        if len(checks) != val_batches or not all(ch["equal"] for ch in checks) or any(
+                ch["K"] != VAL["pre_nms_topk"] for ch in checks):
+            raise AssertionError(f"segment validation NMS: {checks}, expected {val_batches} calls at K = 4096")
+        if train_counts["nms_calls"] + val_counts["nms_calls"] != val_batches:
+            raise AssertionError(f"segment NMS kernel calls {train_counts['nms_calls']} + {val_counts['nms_calls']}")
+        losses = np.array([e["loss_items"] for e in tr.epoch_stats])
+        if not (np.isfinite(losses).all() and losses.shape == (1, 4)):
+            raise AssertionError(f"segment loss items {losses}")
+        for name, m in (("train", metrics), ("val", val_metrics)):
+            if len(m) != 9 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for k, v in m.items() if k != "fitness"):
+                raise AssertionError(f"segment {name} metrics: {m}")
+
+        # a fixed batch of the val split (letterboxed, no augmentation), 30 steps at a constant lr
+        info = check_det_dataset(data)
+        ds = build_yolo_dataset(get_val_cfg(overrides=dict(imgsz=c["imgsz"], task="segment")), info["val"], c["batch"],
+                                info, mode="val")
+        batch = ds.collate([ds[i] for i in range(c["batch"])])
+        reset()
+        fixed = SegmentationTrainer(overrides=dict(model=c["model"], batch=c["batch"], imgsz=c["imgsz"], nbs=c["batch"],
+                                                   optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda",
+                                                   warmup_epochs=0.0),
+                                    train_loader=[batch] * c["fixed_steps"], data={"nc": c["nc"]})
+        run = fixed.run_steps()
+        fixed_counts = counts()
+        seg_loss = [r["items"][1] for r in run]
+        if not (np.isfinite([r["loss"] for r in run]).all() and seg_loss[-1] < seg_loss[0]):
+            raise AssertionError(f"fixed-batch seg_loss did not fall: {seg_loss}")
+        if (fixed_counts["s2_calls"] != {k3: 7 * c["fixed_steps"], k1: 0}
+                or fixed_counts["bn_calls"] != n_bn * c["fixed_steps"]):
+            raise AssertionError(f"fixed-batch run: {fixed_counts}")
+        step_ms = float(np.median([r["ms"] for r in run[1:]]))
+        hyp = fixed._warmup_hyp(fixed.ni, 0)
+        prof = profile_device(lambda: fixed.train_step(batch, *hyp)[0].item(), steps=3)
+        launches = {k: sum(cnt["launches"][k] for cnt in (predict_counts, train_counts, val_counts, fixed_counts))
+                    for k in train_counts["launches"]}
+        ep = tr.epoch_stats[0]
+        return {"model": c["model"], "cell": {**c, "frames_hw": list(c["frames_hw"])}, "nvidia_smi": smi,
+                "dataset_write_s": write_s, "predict": {**predict, "cls_bias": bias},
+                "s2_sites": [s["name"] for s in sites],
+                "s2_checks": s2_checks, "bn_sites": n_bn, "bn_checked_sites": [b["name"] for b in seg_bn],
+                "bn_checks": bn_checks, "s2_tolerances": S2_TOL, "bn_rtol": BN_RTOL, "bn_atol": BN_ATOL,
+                "counts": {"predict": predict_counts, "train": train_counts, "val": val_counts, "fixed": fixed_counts,
+                           "launches": launches},
+                "per_step": {"s2_calls": 7, "bn_calls": n_bn},
+                "nms_keep_checks": {"predict": len(predict_checks), "val": len(checks), "during_training": n_val_checks,
+                                    "all_equal_plain": True, "K": {"predict": 1024, "val": VAL["pre_nms_topk"]},
+                                    "extra_columns": 32},
+                "metrics_train": metrics, "metrics_val_rect": val_metrics,
+                "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
+                "epoch": ep, "train_wall_s": train_wall, "data_wait_share": ep["data_wait_s"] / ep["train_s"],
+                "val_img_per_s": validator.seen / val_wall, "val_speed_ms_per_img": validator.speed,
+                "peak_memory_gb": peak_gb,
+                "fixed_batch": {"steps": c["fixed_steps"], "seg_loss_first": seg_loss[0], "seg_loss_last": seg_loss[-1],
+                                "seg_loss": seg_loss, "step_ms_median": step_ms,
+                                "img_per_s": c["batch"] / step_ms * 1e3, "first_step_ms": run[0]["ms"]},
+                "profile_train_step": prof,
+                "bn_at_segment_inputs": {"per": "the 9 BN inputs of proto and cv4 at batch 8, 640 px, bf16; ms device "
+                                                "time (torch.profiler), event_ms CUDA events; library: "
+                                                "torch.batch_norm_stats", **bn_time}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1984,17 +2259,31 @@ def main() -> None:
     nms_row["calls"] += pose["counts"]["train"]["nms_calls"] + pose["counts"]["val"]["nms_calls"]
     emit("pose", t, **pose)
 
-    # 13. imports ---------------------------------------------------------------
+    # 13. segment: prediction, training and validation of yolov8s-seg ---------------------
+    t = time.perf_counter()
+    seg = run_segment(smi)
+    for kern in kernels:
+        n = seg["counts"]["launches"][kern["name"]]
+        kern["launches"] += n
+        kern["launches_by_path"]["segment"] = n
+    nms_row["calls"] += sum(seg["counts"][k]["nms_calls"] for k in ("predict", "train", "val"))
+    emit("segment", t, **seg)
+
+    # 14. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401
     import drone_yolo_tpu_torch.models.yolo  # noqa: F401
     import drone_yolo_tpu_torch.models.yolo.pose  # noqa: F401  (the pose trainer and validator)
+    import drone_yolo_tpu_torch.models.yolo.segment  # noqa: F401  (the segment predictor, trainer and validator)
     import drone_yolo_tpu_torch.trackers  # noqa: F401
     from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
     if {TASK_MAP["pose"][k].__name__ for k in ("trainer", "validator")} != {"PoseTrainer", "PoseValidator"}:
         raise AssertionError(f"TASK_MAP['pose'] = {TASK_MAP['pose']}")
+    if [v.__name__ for v in TASK_MAP["segment"].values()] != ["SegmentationTrainer", "SegmentationValidator",
+                                                               "SegmentationPredictor"]:
+        raise AssertionError(f"TASK_MAP['segment'] = {TASK_MAP['segment']}")
 
     absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn"]
     loaded = sorted(m for m in absent if m in sys.modules)

@@ -11,9 +11,10 @@ JAX package does; a key outside the set is refused. `check_ported(args, mode)` r
 name every key whose feature the port lacks in that mode when it is set to a value other
 than its default (`UNPORTED`): image and video writing, display, feature maps and
 test-time augmentation on predict; COCO JSON on val; device augmentation, the mesh
-options and the perspective warp on train. Keys the JAX package itself does not read
-(export options, `time`, `freeze`, `profile`, ...) are accepted and, as there, have no
-effect. `plots` (default True) draws nothing yet: a warning says so once.
+options, the perspective warp and `overlap_mask=False` (which the JAX package accepts and
+ignores) on train. Keys the JAX package itself does not read (export options, `time`,
+`freeze`, `profile`, `retina_masks`, ...) are accepted and, as there, have no effect.
+`plots` (default True) draws nothing yet: a warning says so once.
 
 `entrypoint` is the `k=v` command line (`dyt-torch`, `python -m drone_yolo_tpu_torch`).
 """
@@ -115,6 +116,8 @@ UNPORTED = {
         "perspective": "the perspective warp is not ported yet (ROADMAP.md queue 1 item 3)",
         "zero": _MESH, "tp": _MESH, "sp": _MESH, "mesh_shape": _MESH, "mesh_axes": _MESH,
         "lane_pad": _TPU, "spd_stem": _TPU,
+        "overlap_mask": "the segment loss reads the overlap index mask only: overlap_mask=False has no effect in the "
+                        "JAX package either",
     },
 }
 _WARNED: set = set()

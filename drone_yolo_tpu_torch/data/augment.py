@@ -1,17 +1,22 @@
-"""Host augmentation of detection and pose samples: mosaic, affine warp, mixup, HSV, flips, letterbox.
+"""Host augmentation of detection, segmentation and pose samples: mosaic, copy-paste, affine warp, mixup, HSV, flips,
+letterbox.
 
-Counterpart of `drone_yolo_tpu/data/augment.py` for the detect and pose tasks, without cv2:
-the image operations are `ops/image.py`'s and `ops/letterbox.py`'s. Every random draw is made
-from the same generator, with the same arguments and in the same order as in the JAX
-package, so one `(seed, epoch, index)` gives the same sample in both.
+Counterpart of `drone_yolo_tpu/data/augment.py` for the detect, segment and pose tasks, without
+cv2: the image operations are `ops/image.py`'s, `ops/letterbox.py`'s and `ops/polygon.py`'s. Every
+random draw is made from the same generator, with the same arguments and in the same order as in
+the JAX package, so one `(seed, epoch, index)` gives the same sample in both.
 
 A sample is a dict: `img` (H, W, 3) uint8 RGB, `cls` (N,) float32, `bboxes` (N, 4)
-float32 pixel xyxy, for pose `keypoints` (N, nk, 3) (x, y in pixels, visibility), and
+float32 pixel xyxy, with polygon labels `segments` (N polygons (K, 2) float32 pixel x, y,
+for any task), for pose `keypoints` (N, nk, 3) (x, y in pixels, visibility), and
 `im_file`, `ori_shape`. Keypoints follow the JAX package where it departs from the
 reference: the affine zeroes the visibility of points it moves out of the frame and keeps
 their coordinates, and a horizontal flip without `flip_idx` mirrors the points without
-remapping them. `CopyPaste` is the identity for detect and pose samples (it needs segments)
-and is left out; warpPerspective (`perspective` > 0) is refused.
+remapping them. Polygons follow it too: the affine warps and clips their points and takes
+each box from its polygon (area threshold 0.01), without the reference's resampling to 1000
+points. `MixUp` also adds the second sample's polygons, which the JAX package leaves out, so that
+its segment batches fail to collate there (ROADMAP queue 3). `CopyPaste` pastes flipped instances
+(flip mode) of samples with polygons. warpPerspective (`perspective` > 0) is refused.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from drone_yolo_tpu_torch.ops.image import get_rotation_matrix_2d, hsv_to_rgb_u8, rgb_to_hsv_u8, warp_affine_u8
 from drone_yolo_tpu_torch.ops.letterbox import letterbox_params, letterbox_u8
+from drone_yolo_tpu_torch.ops.polygon import fill_poly
 
 # Per-sample deterministic draws: each sample seeds this thread's generators from (seed, epoch, index), so a
 # sample does not depend on the worker count or the scheduling of the loader's threads.
@@ -115,7 +121,7 @@ class Mosaic:
         xc = int(_rng().uniform(s // 2, 2 * s - s // 2))
         mix = [labels] + [self.dataset.get_sample(i) for i in self._pick(3)]
         canvas = self._canvas(s * 2)
-        cls_all, box_all, kpt_all = [], [], []
+        cls_all, box_all, kpt_all, seg_all = [], [], [], []
         for i, lb in enumerate(mix):
             img = lb["img"]
             h, w = img.shape[:2]
@@ -141,6 +147,7 @@ class Mosaic:
                     k[..., 0] += padw
                     k[..., 1] += padh
                     kpt_all.append(k)
+                seg_all += [seg + np.array([padw, padh], np.float32) for seg in lb.get("segments") or []]
         out = {
             "img": canvas,
             "cls": np.concatenate(cls_all) if cls_all else np.zeros((0,), np.float32),
@@ -149,6 +156,8 @@ class Mosaic:
             "im_file": labels.get("im_file", ""),
             "ori_shape": labels.get("ori_shape", canvas.shape[:2]),
         }
+        if seg_all:
+            out["segments"] = seg_all
         if kpt_all:
             out["keypoints"] = np.concatenate(kpt_all)
         clip_sample(out, (s * 2, s * 2))
@@ -156,7 +165,7 @@ class Mosaic:
 
 
 class MixUp:
-    """Blend with a second sample by a Beta(32, 32) ratio."""
+    """Blend with a second sample by a Beta(32, 32) ratio; its boxes, keypoints and polygons join the sample's."""
 
     def __init__(self, dataset, pre_transform=None, p: float = 0.0):
         self.dataset = dataset
@@ -177,13 +186,62 @@ class MixUp:
         labels["bboxes"] = np.concatenate([labels["bboxes"], other["bboxes"]])
         if labels.get("keypoints") is not None and other.get("keypoints") is not None:
             labels["keypoints"] = np.concatenate([labels["keypoints"], other["keypoints"]])
+        segs = list(labels.get("segments") or []) + list(other.get("segments") or [])
+        if segs and len(segs) == len(labels["bboxes"]):  # the JAX package drops the second's polygons here
+            labels["segments"] = segs
         return labels
 
 
+class CopyPaste:
+    """Flip-mode copy-paste: with probability p, a share p of the instances whose mirrored box overlaps every box by
+    less than 30% of that box (IoA) are pasted mirrored, their polygons filled by `fill_poly` (`cv2.fillPoly`) as
+    the mask of the pixels taken from the mirrored image. Needs polygons; a sample without them is returned as it is,
+    with no draw. It pastes into a copy: the JAX package pastes into the image it is given, which without mosaic is
+    the loaded image that its RAM cache and decode buffer hold, so that later samples see the pastes."""
+
+    def __init__(self, p: float = 0.0):
+        self.p = p
+
+    def __call__(self, labels):
+        segs = labels.get("segments")
+        if self.p == 0 or not segs or _rng().random() > self.p:
+            return labels
+        img = labels["img"] = labels["img"].copy()  # without mosaic, the loaded image itself (cache, buffer)
+        h, w = img.shape[:2]
+        boxes = labels["bboxes"]
+        flipped = boxes.copy()
+        flipped[:, [0, 2]] = w - boxes[:, [2, 0]]
+        candidates = np.nonzero((bbox_ioa(flipped, boxes) < 0.30).all(1))[0]
+        new_cls, new_box, new_seg = [], [], []
+        for j in _rng().sample(list(candidates), k=round(self.p * len(candidates))):
+            seg = segs[j].copy()
+            seg[:, 0] = w - seg[:, 0]
+            mask = fill_poly(np.zeros((h, w), np.uint8), [seg.astype(np.int32)], 1).astype(bool)
+            img[mask] = img[:, ::-1][mask]
+            new_cls.append(labels["cls"][j])
+            new_box.append(flipped[j])
+            new_seg.append(seg)
+        if new_box:
+            labels["cls"] = np.concatenate([labels["cls"], np.asarray(new_cls)])
+            labels["bboxes"] = np.concatenate([labels["bboxes"], np.stack(new_box)])
+            labels["segments"] = segs + new_seg
+        return labels
+
+
+def bbox_ioa(box1, box2, eps=1e-7):
+    """(N, M) intersection of box1[i] and box2[j] over box2[j]'s area, xyxy."""
+    a1, a2 = box1[:, None, :2], box1[:, None, 2:]
+    b1, b2 = box2[None, :, :2], box2[None, :, 2:]
+    inter = np.clip(np.minimum(a2, b2) - np.maximum(a1, b1), 0, None).prod(-1)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1])
+    return inter / (area2[None] + eps)
+
+
 class RandomPerspective:
-    """Affine warp of the image, its boxes and keypoints (rotation, scale, shear, translation), cropping a mosaic's
-    2s canvas back to s, and dropping boxes that the warp made degenerate. A kept box's keypoints that land outside
-    the frame keep their coordinates with visibility 0."""
+    """Affine warp of the image, its boxes, polygons and keypoints (rotation, scale, shear, translation), cropping a
+    mosaic's 2s canvas back to s, and dropping boxes that the warp made degenerate. With one polygon per box, the
+    polygons are warped and clipped to the frame and give the boxes; otherwise the box corners are warped. A kept
+    box's keypoints that land outside the frame keep their coordinates with visibility 0."""
 
     def __init__(self, degrees=0.0, translate=0.1, scale=0.5, shear=0.0, perspective=0.0, border=(0, 0),
                  pre_transform=None):
@@ -223,9 +281,30 @@ class RandomPerspective:
         if (border[0] != 0) or (border[1] != 0) or (Mt != np.eye(3)).any():
             img = warp_affine_u8(img, Mt[:2], (out_w, out_h), border=114)
         boxes = labels["bboxes"]
+        segments = labels.get("segments")
         n = len(boxes)
         new_boxes = np.zeros((0, 4), np.float32)
         keep = np.zeros((0,), bool)
+        if n and segments and len(segments) == n:  # boxes from the warped, clipped polygons
+            new_segments, sb = [], []
+            for seg in segments:
+                pts = np.ones((len(seg), 3), np.float32)
+                pts[:, :2] = seg
+                p2 = (pts @ Mt.T)[:, :2]
+                p2[:, 0] = p2[:, 0].clip(0, out_w)
+                p2[:, 1] = p2[:, 1].clip(0, out_h)
+                new_segments.append(p2.astype(np.float32))
+                sb.append([p2[:, 0].min(), p2[:, 1].min(), p2[:, 0].max(), p2[:, 1].max()])
+            new_boxes = np.asarray(sb, np.float32)
+            keep = box_candidates(boxes.T * s, new_boxes.T, area_thr=0.01)
+            labels["img"] = img
+            labels["bboxes"] = new_boxes[keep]
+            labels["cls"] = labels["cls"][keep]
+            labels["segments"] = [sg for sg, k in zip(new_segments, keep) if k]
+            if labels.get("keypoints") is not None:  # kept, not warped, as in the JAX package's polygon path
+                labels["keypoints"] = labels["keypoints"][keep]
+            return labels
+        labels.pop("segments", None)  # out of step with the boxes: dropped, as in the JAX package
         if n:
             pts = np.ones((n * 4, 3), np.float32)
             pts[:, :2] = boxes[:, [0, 1, 2, 1, 2, 3, 0, 3]].reshape(n * 4, 2)
@@ -282,8 +361,8 @@ class RandomHSV:
 
 
 class RandomFlip:
-    """Horizontal or vertical flip with probability p; a horizontal flip reorders the keypoints by `flip_idx`
-    (left and right swap) when it is given."""
+    """Horizontal or vertical flip (boxes, polygons, keypoints) with probability p; a horizontal flip reorders the
+    keypoints by `flip_idx` (left and right swap) when it is given."""
 
     def __init__(self, p=0.5, direction="horizontal", flip_idx=None):
         if direction not in {"horizontal", "vertical"}:
@@ -300,6 +379,8 @@ class RandomFlip:
             labels["img"] = np.ascontiguousarray(img[:, ::-1])
             if len(boxes):
                 boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+            for seg in labels.get("segments") or []:
+                seg[:, 0] = w - seg[:, 0]
             if labels.get("keypoints") is not None:
                 k = labels["keypoints"]
                 k[..., 0] = w - k[..., 0]
@@ -310,6 +391,8 @@ class RandomFlip:
             labels["img"] = np.ascontiguousarray(img[::-1])
             if len(boxes):
                 boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+            for seg in labels.get("segments") or []:
+                seg[:, 1] = h - seg[:, 1]
             if labels.get("keypoints") is not None:
                 labels["keypoints"][..., 1] = h - labels["keypoints"][..., 1]
         labels["bboxes"] = boxes
@@ -317,8 +400,8 @@ class RandomFlip:
 
 
 class LetterBoxT:
-    """Letterbox to `new_shape` (the uint8 INTER_LINEAR resize and a 114 border), boxes and keypoints moved with the
-    image; records `ratio_pad` = (gain, (pad_w, pad_h))."""
+    """Letterbox to `new_shape` (the uint8 INTER_LINEAR resize and a 114 border), boxes, polygons and keypoints moved
+    with the image; records `ratio_pad` = (gain, (pad_w, pad_h))."""
 
     def __init__(self, new_shape=(640, 640), scaleup=True):
         self.new_shape = new_shape if isinstance(new_shape, (tuple, list)) else (new_shape, new_shape)
@@ -339,6 +422,8 @@ class LetterBoxT:
             k = labels["keypoints"]
             k[..., 0] = k[..., 0] * r + dw
             k[..., 1] = k[..., 1] * r + dh
+        if labels.get("segments"):
+            labels["segments"] = [seg * r + np.array([dw, dh], np.float32) for seg in labels["segments"]]
         labels["ratio_pad"] = (r, (dw, dh))
         return labels
 
@@ -356,7 +441,8 @@ class BGRChannel:
 
 
 def clip_sample(labels, shape):
-    """Clip boxes to (h, w) and drop the empty ones, with their keypoints (which are not clipped)."""
+    """Clip boxes (and polygons, one per box) to (h, w) and drop the empty ones, with their polygons and keypoints
+    (which are not clipped)."""
     h, w = shape
     b = labels["bboxes"]
     if len(b):
@@ -367,19 +453,25 @@ def clip_sample(labels, shape):
         labels["cls"] = labels["cls"][keep]
         if labels.get("keypoints") is not None:
             labels["keypoints"] = labels["keypoints"][keep]
+        if labels.get("segments") and len(labels["segments"]) == len(keep):
+            for seg in labels["segments"]:
+                seg[:, 0] = seg[:, 0].clip(0, w)
+                seg[:, 1] = seg[:, 1].clip(0, h)
+            labels["segments"] = [seg for seg, k in zip(labels["segments"], keep) if k]
     return labels
 
 
 def v8_transforms(dataset, imgsz: int, hyp):
-    """The train pipeline: mosaic, affine, mixup (over a second mosaic and affine), HSV, BGR, flips (the horizontal
-    one with the dataset's `flip_idx`)."""
+    """The train pipeline: mosaic, copy-paste, affine, mixup (over a second mosaic, copy-paste and affine), HSV, BGR,
+    flips (the horizontal one with the dataset's `flip_idx`)."""
     mosaic = Mosaic(dataset, imgsz=imgsz, p=hyp.mosaic)
     affine = RandomPerspective(degrees=hyp.degrees, translate=hyp.translate, scale=hyp.scale, shear=hyp.shear,
                                perspective=hyp.perspective, pre_transform=LetterBoxT((imgsz, imgsz)))
     return Compose([
         mosaic,
+        CopyPaste(p=hyp.copy_paste),
         affine,
-        MixUp(dataset, pre_transform=Compose([mosaic, affine]), p=hyp.mixup),
+        MixUp(dataset, pre_transform=Compose([mosaic, CopyPaste(p=hyp.copy_paste), affine]), p=hyp.mixup),
         RandomHSV(hgain=hyp.hsv_h, sgain=hyp.hsv_s, vgain=hyp.hsv_v),
         BGRChannel(p=hyp.bgr),
         RandomFlip(p=hyp.flipud, direction="vertical"),

@@ -1,11 +1,16 @@
-"""YOLO-format detection and pose dataset: label cache, image loading with a decode buffer, transforms, padded batches.
+"""YOLO-format detection, segmentation and pose dataset: label cache, image loading with a decode buffer, transforms,
+padded batches.
 
-Counterpart of `drone_yolo_tpu/data/dataset.py` (YOLODataset) for the detect and pose tasks. A
+Counterpart of `drone_yolo_tpu/data/dataset.py` (YOLODataset) for the detect, segment and pose tasks. A
 batch from `collate` is a dict of numpy arrays: `img` (B, H, W, 3) uint8 RGB, `cls` (B, M)
 float32 class ids, `bboxes` (B, M, 4) float32 xyxy pixels and `mask` (B, M) float32 slot
-validity, with M from `round_label_slots`; for the pose task `keypoints` (B, M, nk, 3) float32
-(x, y in pixels, visibility), nk from the data yaml's `kpt_shape`; and per image `im_files`,
-`ori_shapes` (h, w) and `ratio_pads` ((gain, (pad_w, pad_h)) from the letterbox, or None).
+validity, with M from `round_label_slots`; for the segment task `masks` (B, H / r, W / r) int32, the
+overlap index mask of each image at `mask_ratio` r (`polygons2masks_overlap`: pixel value j + 1 for the
+j-th instance by area, largest first), with each image's instances reordered to match; for the pose task
+`keypoints` (B, M, nk, 3) float32 (x, y in pixels, visibility), nk from the data yaml's `kpt_shape`; and
+per image `im_files`, `ori_shapes` (h, w) and `ratio_pads` ((gain, (pad_w, pad_h)) from the letterbox, or
+None). Polygon labels are read for every task and go through the augmentation (`data/augment.py`); only
+the segment task turns them into masks.
 
 The label cache is the JAX package's file: `<labels dir>.cache.npz` beside the labels, the
 same version, hash and pickled list of label dicts, so either package reads the other's.
@@ -34,7 +39,7 @@ import torch
 
 from drone_yolo_tpu_torch.data.augment import Compose, LetterBoxT, seed_sample, v8_transforms
 from drone_yolo_tpu_torch.data.utils import (DECODED_FORMATS, IMG_FORMATS, get_hash, img2label_paths, imread_rgb,
-                                             verify_image_label)
+                                             polygons2masks_overlap, verify_image_label)
 from drone_yolo_tpu_torch.ops.image import resize_area_u8
 from drone_yolo_tpu_torch.ops.letterbox import resize_linear_u8
 
@@ -51,7 +56,8 @@ def round_label_slots(n_max: int, headroom: float) -> int:
 
 
 class YOLODataset:
-    """Detection dataset over YOLO-txt labels. `hyp` is the train configuration (augmentation keys)."""
+    """Detection, segmentation and pose dataset over YOLO-txt labels. `hyp` is the train configuration (augmentation
+    keys, `mask_ratio`)."""
 
     def __init__(self, img_path, imgsz: int = 640, cache: bool = False, augment: bool = True, hyp=None,
                  prefix: str = "", batch_size: int = 16, stride: int = 32, pad: float = 0.5, single_cls: bool = False,
@@ -64,8 +70,9 @@ class YOLODataset:
         self.prefix = prefix
         self.fraction = fraction
         self.data = data or {}
-        if task not in ("detect", "pose"):
-            raise NotImplementedError(f"task {task!r}: the port's dataset reads detect and pose labels only")
+        if task not in ("detect", "segment", "pose"):
+            raise NotImplementedError(f"task {task!r}: the port's dataset reads detect, segment and pose labels only")
+        self.use_segments = task == "segment"
         self.use_keypoints = task == "pose"
         self.kpt_shape = self.data.get("kpt_shape", (0, 0))
         self.flip_idx = self.data.get("flip_idx", None)
@@ -163,7 +170,7 @@ class YOLODataset:
         return labels
 
     def update_labels(self, classes) -> None:
-        """Keep only `classes`; single_cls makes every class 0."""
+        """Keep only `classes` (with their polygons and keypoints); single_cls makes every class 0."""
         if classes is not None:
             inc = np.asarray(classes).reshape(1, -1)
             for lb in self.labels:
@@ -171,6 +178,8 @@ class YOLODataset:
                 lb["cls"], lb["bboxes_n"] = lb["cls"][keep], lb["bboxes_n"][keep]
                 if lb["keypoints"] is not None:
                     lb["keypoints"] = lb["keypoints"][keep]
+                if lb["segments"]:  # the JAX package keeps every polygon here; kept in step with the boxes instead
+                    lb["segments"] = [seg for seg, k in zip(lb["segments"], keep) if k]
         if self.single_cls:
             for lb in self.labels:
                 lb["cls"][:] = 0
@@ -237,7 +246,8 @@ class YOLODataset:
         return im
 
     def get_sample(self, i: int) -> dict:
-        """Sample i before the transforms: the loaded image, its boxes in pixel xyxy and its keypoints in pixels."""
+        """Sample i before the transforms: the loaded image, its boxes in pixel xyxy, its polygons and keypoints in
+        pixels."""
         lb = self.labels[i]
         img = self.load_image(i)
         h, w = img.shape[:2]
@@ -248,6 +258,8 @@ class YOLODataset:
             boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1).astype(np.float32)
         out = {"img": img, "cls": lb["cls"].astype(np.float32).copy(), "bboxes": boxes, "im_file": lb["im_file"],
                "ori_shape": lb["shape"]}
+        if lb["segments"]:
+            out["segments"] = [seg * np.array([w, h], np.float32) for seg in lb["segments"]]
         if lb["keypoints"] is not None:
             k = lb["keypoints"].copy()
             k[..., 0] *= w
@@ -291,21 +303,32 @@ class YOLODataset:
 
     def collate(self, samples: list[dict]) -> dict:
         """Stack the images and pad the labels (and the pose task's keypoints) to `max_labels` slots (extra labels
-        are dropped)."""
+        are dropped); for the segment task draw each image's overlap index mask of its first `max_labels` polygons
+        and reorder those instances' classes and boxes to its order."""
         b, m = len(samples), self.max_labels
+        imgs = np.stack([s["img"] for s in samples])
         cls = np.zeros((b, m), np.float32)
         boxes = np.zeros((b, m, 4), np.float32)
         mask = np.zeros((b, m), np.float32)
         kpts = np.zeros((b, m, self.kpt_shape[0], 3), np.float32) if self.use_keypoints else None
+        seg_masks = None
+        if self.use_segments:
+            ratio = int(getattr(self.hyp, "mask_ratio", 4) or 4)
+            seg_masks = np.zeros((b, imgs.shape[1] // ratio, imgs.shape[2] // ratio), np.int32)
         for i, s in enumerate(samples):
             n = min(len(s["cls"]), m)
+            if seg_masks is not None and s.get("segments"):
+                seg_masks[i], order = polygons2masks_overlap(imgs.shape[1:3], s["segments"][:n], ratio)
+                s = {**s, "cls": s["cls"][order], "bboxes": s["bboxes"][order]}
             cls[i, :n], boxes[i, :n], mask[i, :n] = s["cls"][:n], s["bboxes"][:n], 1.0
             if kpts is not None and n and s.get("keypoints") is not None:
                 kpts[i, :n] = s["keypoints"][:n]
-        batch = {"img": np.stack([s["img"] for s in samples]), "cls": cls, "bboxes": boxes, "mask": mask,
+        batch = {"img": imgs, "cls": cls, "bboxes": boxes, "mask": mask,
                  "im_files": [s.get("im_file", "") for s in samples],
                  "ori_shapes": [s.get("ori_shape", s["img"].shape[:2]) for s in samples],
                  "ratio_pads": [s.get("ratio_pad") for s in samples]}
         if kpts is not None:
             batch["keypoints"] = kpts
+        if seg_masks is not None:
+            batch["masks"] = seg_masks
         return batch

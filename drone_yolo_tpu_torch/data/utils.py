@@ -1,7 +1,8 @@
 """Dataset files: label paths, the cache hash, one image-label check, and the dataset yaml.
 
 Counterpart of `drone_yolo_tpu/data/utils.py` (`img2label_paths`, `get_hash`,
-`verify_image_label` for detect and keypoint labels, `check_det_dataset`, `imread_rgb`). Images are
+`verify_image_label` for box, polygon and keypoint labels, `polygon2mask`, `polygons2masks_overlap`,
+`check_det_dataset`, `imread_rgb`). Polygons are drawn by `ops/polygon.py:fill_poly` (`cv2.fillPoly`). Images are
 read by the port's own decoders, JPEG (`data/jpeg.py`) and PNG (`data/png.py`); the other
 formats of the JAX package's `IMG_FORMATS` are refused by name (ROADMAP). The yaml is read by the
 port's YAML subset (`nn/build.py:load_yaml`). Nothing is downloaded: a missing dataset
@@ -15,10 +16,13 @@ import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from drone_yolo_tpu_torch.data.jpeg import decode_jpeg, jpeg_shape
 from drone_yolo_tpu_torch.data.png import decode_png, png_shape
 from drone_yolo_tpu_torch.nn.build import load_yaml
+from drone_yolo_tpu_torch.ops.letterbox import resize_linear_u8
+from drone_yolo_tpu_torch.ops.polygon import fill_poly
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm", "heic"}  # listed as images
 VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv", "webm"}  # listed as videos
@@ -70,15 +74,18 @@ def get_hash(paths) -> str:
 
 def verify_image_label(im_file, lb_file, num_cls: int, keypoint: bool = False, nkpt: int = 0, ndim: int = 0,
                        single_cls: bool = False):
-    """Check one image and its labels: (im_file, labels (N, 5) float32, shape (h, w), segments [], keypoints
-    (N, nkpt, 3) or None, missing, found, empty, corrupt, message); im_file is None for a corrupt pair.
+    """Check one image and its labels: (im_file, labels (N, 5) float32, shape (h, w), segments (N polygons (K, 2)
+    float32, normalized, or []), keypoints (N, nkpt, 3) or None, missing, found, empty, corrupt, message); im_file
+    is None for a corrupt pair.
 
-    With `keypoint`, a row is `cls cx cy w h` and `nkpt` points of `ndim` values (x, y[, visibility]), all
-    normalized; points of two values get visibility 1. Segment rows (more than 6 values without `keypoint`)
-    are refused."""
+    A row is `cls cx cy w h`, normalized. Without `keypoint`, a file with a row of more than 6 values holds
+    polygons, `cls x1 y1 x2 y2 ...`: each row's box is its polygon's extent, for every task, as in the JAX package.
+    With `keypoint`, a row is `cls cx cy w h` and `nkpt` points of `ndim` values (x, y[, visibility]); points of two
+    values get visibility 1. Duplicate rows are dropped with their polygons and keypoints."""
     nm = nf = ne = 0
     msg = ""
     keypoints = None
+    segments = []
     try:
         fmt = str(im_file).rsplit(".", 1)[-1].lower()
         if fmt not in DECODED_FORMATS:
@@ -90,10 +97,13 @@ def verify_image_label(im_file, lb_file, num_cls: int, keypoint: bool = False, n
             nf = 1
             with open(lb_file, encoding="utf-8") as f:
                 rows = [x.split() for x in f.read().strip().splitlines() if len(x)]
-            if any(len(r) > 6 for r in rows) and not keypoint:
-                raise ValueError("segment labels are not ported yet (detect and keypoint labels only)")
             cols = 5 + nkpt * ndim if keypoint else 5
-            lb = np.array(rows, dtype=np.float32) if rows else np.zeros((0, cols), np.float32)
+            if any(len(r) > 6 for r in rows) and not keypoint:  # polygons
+                segments = [np.array(r[1:], dtype=np.float32).reshape(-1, 2) for r in rows]
+                boxes = np.array([_segment2box_norm(seg) for seg in segments], dtype=np.float32)
+                lb = np.concatenate([np.array([r[0] for r in rows], dtype=np.float32).reshape(-1, 1), boxes], 1)
+            else:
+                lb = np.array(rows, dtype=np.float32) if rows else np.zeros((0, cols), np.float32)
             n = len(lb)
             if n:
                 if lb.shape[1] != cols:
@@ -118,15 +128,49 @@ def verify_image_label(im_file, lb_file, num_cls: int, keypoint: bool = False, n
                     lb = lb[np.sort(idx)]
                     if keypoints is not None:  # the JAX package keeps every row's points here; kept in step instead
                         keypoints = keypoints[np.sort(idx)]
+                    if segments:
+                        segments = [segments[i] for i in np.sort(idx)]
                     msg = f"removed {n - len(idx)} duplicate labels"
             else:
                 ne = 1
         else:
             nm = 1
             lb = np.zeros((0, 5), np.float32)
-        return im_file, lb, shape, [], keypoints, nm, nf, ne, 0, msg
+        return im_file, lb, shape, segments, keypoints, nm, nf, ne, 0, msg
     except (ValueError, OSError) as e:
         return None, None, None, [], None, nm, nf, ne, 1, f"ignoring corrupt image/label {im_file}: {e}"
+
+
+def _segment2box_norm(seg: np.ndarray) -> list:
+    """A normalized polygon (K, 2) -> its extent as [cx, cy, w, h], in float32."""
+    x, y = seg[:, 0], seg[:, 1]
+    x1, y1, x2, y2 = x.min(), y.min(), x.max(), y.max()
+    return [(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]
+
+
+def polygon2mask(imgsz, polygons, color: int = 1, downsample_ratio: int = 1) -> np.ndarray:
+    """An (h, w) uint8 mask of `polygons` (pixel x, y, truncated to integers) filled with `color`
+    (`cv2.fillPoly`), then with `downsample_ratio` > 1 resized to (h // r, w // r) as `cv2.resize`'s INTER_LINEAR
+    (`resize_linear_u8`)."""
+    mask = np.zeros(imgsz, dtype=np.uint8)
+    fill_poly(mask, np.asarray(polygons, dtype=np.int32).reshape(len(polygons), -1, 2), color)
+    if downsample_ratio > 1:
+        size = (imgsz[0] // downsample_ratio, imgsz[1] // downsample_ratio)
+        mask = resize_linear_u8(torch.from_numpy(mask)[None, :, :, None], size)[0, :, :, 0].numpy()
+    return mask
+
+
+def polygons2masks_overlap(imgsz, segments, downsample_ratio: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """One index mask of (h // r, w // r) for overlapping instances: pixel value j + 1 for the j-th instance by
+    area, largest first, so that a smaller instance overwrites a larger one; returns (mask, order), order[j] the
+    index in `segments` of the j-th instance (`drone_yolo_tpu/data/utils.py:polygons2masks_overlap`)."""
+    masks = np.zeros((imgsz[0] // downsample_ratio, imgsz[1] // downsample_ratio),
+                     dtype=np.uint8 if len(segments) <= 255 else np.int32)
+    ms = [polygon2mask(imgsz, [seg.reshape(-1)], 1, downsample_ratio) for seg in segments]
+    order = np.argsort(-np.asarray([m.sum() for m in ms]))
+    for i, oi in enumerate(order):
+        masks = np.where(ms[oi], i + 1, masks)
+    return masks, order
 
 
 def check_det_dataset(dataset) -> dict:

@@ -7,8 +7,10 @@ YAML parsing (format: `drone_yolo_tpu/engine/checkpoint.py`).
 `from_jax_variables` maps a JAX variables tree to the port's `state_dict`:
 HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `weight/bias/running_mean/running_var`, RepVGG `dense/one/idbn` become
-`rbr_dense/rbr_1x1/rbr_identity`, and the head's sequences drop the JAX `m`
-level (Detect's `cv2`, `cv3`, Pose's `cv4`). Names are the reference torch names (`model.<i>....`), which
+`rbr_dense/rbr_1x1/rbr_identity`, Proto's transposed conv `up` (a (2, 2, out, in) kernel) becomes
+`upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's), and the head's
+sequences drop the JAX `m` level (Detect's `cv2`, `cv3`, Pose's and Segment's `cv4`). Names are the
+reference torch names (`model.<i>....`), which
 `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back.
 `from_jax_train_state` maps a whole JAX train state (params, optimizer state,
 EMA, accumulated gradients) the same way.
@@ -32,10 +34,10 @@ import torch
 
 FORMAT = "drone_yolo_tpu.v1"
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
-_BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity"}
+_BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity", "up": "upsample"}
 _BRANCH_JAX = {v: k for k, v in _BRANCH.items()}
 _LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias"}
-_HEAD_SEQS = ("cv2", "cv3", "cv4")  # Detect's box and class branches, Pose's keypoint branch
+_HEAD_SEQS = ("cv2", "cv3", "cv4")  # Detect's box and class branches, Pose's keypoint and Segment's mask branch
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -111,7 +113,7 @@ def to_jax_variables(state_dict: dict) -> dict:
     for name, t in state_dict.items():
         a = t.detach().cpu().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
         if a.ndim == 4:
-            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))  # OIHW -> HWIO (a transposed conv's IOHW -> HWOI)
         flat["/".join(_jax_path(name, a.ndim))] = a
     return unflatten_tree(flat)
 

@@ -1,6 +1,6 @@
 """`YOLO` facade: build from a model yaml or load a `drone_yolo_tpu.v1` npz, then predict, track, train or validate.
 
-Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect and pose models: predict,
+Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect, segment and pose models: predict,
 track, train and val (the predictor, trainer and validator chosen by the task), `save`, `load` (a
 transfer of the weights whose name and shape match), `info`, `embed`, `reset_weights`,
 `names`, `stride`, and user callbacks forwarded to every trainer, validator and predictor
@@ -176,10 +176,10 @@ class YOLO:
 
     # -- modes -------------------------------------------------------------------------------------
     def predict(self, source=None, stream: bool = False, **kwargs):
-        """Detect (with keypoints for a pose model) on a source (`data/loaders.py`: files, directories, globs, .txt
-        lists, MJPEG AVI, numpy frames); returns a list of Results (a generator with stream=True). The predictor,
-        chosen by the task, is made at the first call, and again when the dtype changes; later calls update its
-        arguments with theirs."""
+        """Detect (with masks for a segment model, keypoints for a pose model) on a source (`data/loaders.py`: files,
+        directories, globs, .txt lists, MJPEG AVI, numpy frames); returns a list of Results (a generator with
+        stream=True). The predictor, chosen by the task, is made at the first call, and again when the dtype changes;
+        later calls update its arguments with theirs."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         custom = {"conf": 0.25, "batch": 1, "save": False, "mode": "predict"}
@@ -211,8 +211,8 @@ class YOLO:
         return self.predict(source=source, stream=stream, **kwargs)
 
     def train(self, data=None, **kwargs) -> dict:
-        """Train on the dataset yaml `data` with the task's trainer (`engine/trainer.py`, `models/yolo/pose.py`), then
-        take over the best EMA weights; returns the last epoch's validation metrics."""
+        """Train on the dataset yaml `data` with the task's trainer (`engine/trainer.py`, `models/yolo/segment.py`,
+        `models/yolo/pose.py`), then take over the best EMA weights; returns the last epoch's validation metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         overrides = {**self.overrides, "device": str(self.device), **kwargs, "mode": "train"}
@@ -232,8 +232,8 @@ class YOLO:
 
     def val(self, data=None, **kwargs) -> dict:
         """Validate on the val split of the dataset yaml `data` with the task's validator (`engine/validator.py`,
-        `models/yolo/pose.py`) in rectangular batches (rect=True unless the call says otherwise, as the JAX facade);
-        returns the metrics."""
+        `models/yolo/segment.py`, `models/yolo/pose.py`) in rectangular batches (rect=True unless the call says
+        otherwise, as the JAX facade); returns the metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         args = {**self.overrides, "rect": True, "mode": "val", "device": str(self.device), **kwargs}

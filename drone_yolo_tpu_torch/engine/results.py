@@ -1,11 +1,16 @@
-"""Inference results: `Results` per image with its `Boxes` and `Keypoints`, numpy-backed.
+"""Inference results: `Results` per image with its `Boxes`, `Masks` and `Keypoints`, numpy-backed.
 
-Counterpart of `drone_yolo_tpu/engine/results.py` (Boxes, Keypoints, Results) for
-detection, tracking and pose: boxes of 6 columns (xyxy, conf, cls) or, from a
-tracker, 7 (xyxy, track id, conf, cls); keypoints (N, K, 2 or 3). `save_txt` writes
-YOLO-format label lines, `save_crop` the boxes' crops as JPEG (the port's encoder),
-`summary`/`to_json` a list of dicts. Drawing (`plot`, and `save` and `show`, which draw)
-is not ported yet and is refused by name.
+Counterpart of `drone_yolo_tpu/engine/results.py` (Boxes, Masks, Keypoints, Results) for
+detection, tracking, segmentation and pose: boxes of 6 columns (xyxy, conf, cls) or, from a
+tracker, 7 (xyxy, track id, conf, cls); masks (N, H, W) bool at the original image's size,
+whose `xy` outlines come from `ops/polygon.py:find_contours` (`cv2.findContours`); keypoints
+(N, K, 2 or 3). A `Results` indexes, slices and updates all of them together. `save_txt` writes
+YOLO-format label lines (of the boxes, as the JAX package), `save_crop` the boxes' crops as JPEG (the
+port's encoder), `summary`/`to_json` a list of dicts (with each mask's outline as `segments`). Drawing
+(`plot`, and `save` and `show`, which draw) is not ported yet and is refused by name.
+
+`summary` differs from the JAX package on purpose for masks: there it reads `self.masks[i].xy[0]`, the outline of
+the mask's first row, which fails; here it reads the i-th mask's outline, `masks.xy[i]`, as Ultralytics does.
 
 `save_crop` differs from the JAX package on purpose: there every crop of one class in
 one image goes to the same `<stem>.jpg`, each overwriting the last; here the second and
@@ -21,6 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
+from drone_yolo_tpu_torch.ops.polygon import contour_area, find_contours
 
 PLOT_REFUSAL = "drawing results (Results.plot, save, show) is not ported yet (ROADMAP.md queue 1 item 4)"
 
@@ -41,6 +47,9 @@ class Boxes:
 
     def __len__(self):
         return len(self.data)
+
+    def __getitem__(self, idx):
+        return Boxes(self.data[idx], self.orig_shape)
 
     @property
     def xyxy(self):
@@ -78,6 +87,9 @@ class Keypoints:
     def __len__(self):
         return len(self.data)
 
+    def __getitem__(self, idx):
+        return Keypoints(self.data[idx], self.orig_shape)
+
     @property
     def xy(self):
         return self.data[..., :2]
@@ -95,28 +107,67 @@ class Keypoints:
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
-class Results:
-    """Result of one image: the original frame, its path, the class names, boxes, keypoints and timings."""
+class Masks:
+    """Instance masks (N, H, W), bool, at the original image's size."""
 
-    def __init__(self, orig_img, path, names, boxes=None, keypoints=None, speed=None):
+    def __init__(self, masks, orig_shape):
+        self.data = np.asarray(masks)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        return Masks(self.data[idx], self.orig_shape)
+
+    @property
+    def xy(self) -> list[np.ndarray]:
+        """Per mask its outline in the original image's pixels, (K, 2) float32: of the outer borders that
+        `cv2.findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)` finds, the first of largest `cv2.contourArea`; (0, 2)
+        for an empty mask."""
+        out = []
+        for m in self.data.astype(np.uint8):
+            contours = find_contours(m)
+            c = (max(contours, key=contour_area).reshape(-1, 2).astype(np.float32) if contours
+                 else np.zeros((0, 2), np.float32))
+            out.append(c * np.array([self.orig_shape[1] / m.shape[1], self.orig_shape[0] / m.shape[0]], np.float32))
+        return out
+
+
+class Results:
+    """Result of one image: the original frame, its path, the class names, boxes, masks, keypoints and timings."""
+
+    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, speed=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.names = names
         self.path = path
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
-        for v in (self.boxes, self.keypoints):
+        for v in (self.boxes, self.masks, self.keypoints):
             if v is not None:
                 return len(v)
         return 0
 
-    def update(self, boxes=None, keypoints=None) -> None:
-        """Replace the boxes (6 or 7 columns) and/or the keypoints; what is None stays."""
+    def __getitem__(self, idx) -> Results:
+        """The result of the instances `idx` (an index, a slice or an index array) of boxes, masks and keypoints."""
+        r = Results(self.orig_img, self.path, self.names, speed=self.speed)
+        for k in ("boxes", "masks", "keypoints"):
+            v = getattr(self, k)
+            if v is not None:
+                setattr(r, k, v[idx])
+        return r
+
+    def update(self, boxes=None, masks=None, keypoints=None) -> None:
+        """Replace the boxes (6 or 7 columns), the masks and/or the keypoints; what is None stays."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
         if keypoints is not None:
             self.keypoints = Keypoints(keypoints, self.orig_shape)
 
@@ -170,17 +221,23 @@ class Results:
         return written
 
     def summary(self, normalize: bool = False, decimals: int = 5) -> list[dict]:
-        """One dict per box: name, class, confidence, box (x1, y1, x2, y2; over the image size with normalize), and
-        the keypoints' x, y (and visible) when there are keypoints."""
+        """One dict per box: name, class, confidence, box (x1, y1, x2, y2; over the image size with normalize), the
+        mask's outline x, y as `segments` when there are masks, and the keypoints' x, y (and visible) when there are
+        keypoints."""
         out = []
         if self.boxes is None:
             return out
         h, w = self.orig_shape if normalize else (1, 1)
+        outlines = self.masks.xy if self.masks is not None else None
         for i, d in enumerate(self.boxes.data):
             c, conf_v = int(d[-1]), float(d[-2])
             rec = {"name": self._name(c), "class": c, "confidence": round(conf_v, decimals),
                    "box": {k: round(float(v) / (w if k in "x1x2" else h), decimals)
                            for k, v in zip(["x1", "y1", "x2", "y2"], d[:4])}}
+            if outlines is not None:
+                xy = outlines[i]
+                rec["segments"] = {"x": (xy[:, 0] / w).round(decimals).tolist(),
+                                   "y": (xy[:, 1] / h).round(decimals).tolist()}
             if self.keypoints is not None:
                 k = self.keypoints.data[i]
                 rec["keypoints"] = {"x": (k[:, 0] / w).round(decimals).tolist(), "y": (k[:, 1] / h).round(decimals).tolist(),

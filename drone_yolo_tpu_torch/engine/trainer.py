@@ -1,4 +1,5 @@
-"""Detection trainer, and the base of the pose task's: one optimizer step of the JAX package's train step, in PyTorch.
+"""Detection trainer, and the base of the segment and pose tasks': one optimizer step of the JAX package's train step,
+in PyTorch.
 
 Counterpart of `drone_yolo_tpu/engine/trainer.py` (`_setup_train`'s optimizer and
 state part, `_build_train_step`/`step_fn`, `preprocess_batch`, `_warmup_hyp`). A
@@ -26,9 +27,10 @@ Built with `train_loader` (any sized iterable of batches in the collate format,
 `val_loader` (collate-format batches with `ori_shapes` and `ratio_pads`) `validate` runs
 `engine/validator.py` on the EMA weights over it. Device augmentation is not ported.
 
-A task trainer (`models/yolo/pose.py:PoseTrainer`) sets `task`, `loss_names` and `validator_class` and overrides
-`build_model`, `fits_data` and `get_criterion`; the loss items, the metrics and the columns of `results.csv`
-follow from them.
+A task trainer (`models/yolo/segment.py:SegmentationTrainer`, `models/yolo/pose.py:PoseTrainer`) sets `task`,
+`loss_names` and `validator_class` and overrides `build_model`, `fits_data` and `get_criterion`; the loss items, the
+metrics and the columns of `results.csv` follow from them. A segment batch's `masks` go to the device with the rest
+of it; a multi-scale resize leaves them at their size, as in the JAX step (the loss resamples them).
 """
 
 from __future__ import annotations

@@ -26,8 +26,9 @@ REGISTRY = {
     "nn.Upsample": M.Upsample,
     "Detect": M.Detect,
     "Pose": M.Pose,
+    "Segment": M.Segment,
 }
-HEAD_MODULES = {M.Detect, M.Pose}  # take the input widths of their levels as their last argument
+HEAD_MODULES = {M.Detect, M.Pose, M.Segment}  # take the input widths of their levels as their last argument
 BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.SPPF, M.RepVGGBlock}  # take (c1, c2, ...)
 REPEAT_MODULES = {M.C2f}  # take the repeat count as their third argument
 
@@ -223,6 +224,8 @@ def parse_model(d: dict, ch: int = 3):
         elif cls is M.Concat:
             c2 = sum(ch_list[x] for x in f)
         elif cls in HEAD_MODULES:
+            if cls is M.Segment and len(args) > 2:  # Segment(nc, nm, npr): npr is width-scaled, as the JAX package
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             args = [*args, [ch_list[x] for x in f]]
             c2 = ch_list[f[0]]
         else:  # Upsample keeps its input's channels

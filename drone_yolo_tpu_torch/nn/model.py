@@ -1,6 +1,8 @@
-"""Detection and pose models: the built layer list as one `nn.Module`, with stride probe, seeded init and fuse.
+"""Detection, segmentation and pose models: the built layer list as one `nn.Module`, with stride probe, seeded init
+and fuse.
 
-Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel / PoseModel, `guess_model_task`). Layers
+Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel / SegmentationModel / PoseModel,
+`guess_model_task`). Layers
 live in `self.model` (an `nn.ModuleList`), so parameter names are the reference
 torch names `model.<i>....`.
 """
@@ -54,12 +56,12 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def init(self, seed: int = 0, imgsz: int = 640) -> None:
-        """Random init from a seed: conv weights and biases U(+-1/sqrt(fan_in)) as torch's Conv2d
-        default, BN at identity, then the head's bias priors for `imgsz`."""
+        """Random init from a seed: conv weights and biases U(+-1/sqrt(fan_in)) as torch's Conv2d and
+        ConvTranspose2d defaults, BN at identity, then the head's bias priors for `imgsz`."""
         g = torch.Generator().manual_seed(seed)
         for mod in self.modules():
-            if isinstance(mod, nn.Conv2d):
-                fan_in = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                fan_in = mod.weight.shape[1] * mod.kernel_size[0] * mod.kernel_size[1]
                 bound = 1.0 / math.sqrt(fan_in)
                 for p in (mod.weight, mod.bias):
                     if p is not None:
@@ -89,7 +91,8 @@ class DetectionModel(nn.Module):
     def forward(self, x: torch.Tensor, raw: bool = False):
         """(B, 3, H, W) -> ((B, A, 4 + nc) decoded predictions, per-level maps); `raw=True` gives the per-level
         (B, 4 * reg_max + nc, H, W) maps only; train mode gives the head's train output (`Detect.train_out`: the
-        maps, and for a pose head the raw keypoints with them), undecoded.
+        maps, for a pose head the raw keypoints with them, for a segment head the mask coefficients and prototypes),
+        undecoded.
 
         The input is cast to the parameters' dtype, the compute dtype. Train mode runs under
         `nn.modules.collect_bn_stats()`.
@@ -142,10 +145,19 @@ class PoseModel(DetectionModel):
         super().__init__(cfg, nc=nc, s2grad=s2grad, bnstats=bnstats)
 
 
-TASK2MODELCLASS = {"detect": DetectionModel, "pose": PoseModel}
+class SegmentationModel(DetectionModel):
+    """Instance segmentation model: a DetectionModel whose head is `Segment` (mask coefficients per detection and
+    prototype masks per image). Counterpart of `drone_yolo_tpu/nn/model.py` `SegmentationModel`."""
+
+    task = "segment"
+
+
+TASK2MODELCLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel}
 
 
 def guess_model_task(cfg) -> str:
-    """The task of a model yaml (or its dict) by the name of its head: "pose" for `Pose`, else "detect"."""
+    """The task of a model yaml (or its dict) by the name of its head, as the JAX package's: "classify", "segment",
+    "pose", "obb" or "rtdetr" when the head's name holds it, else "detect"."""
     d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
-    return "pose" if "pose" in d["head"][-1][2].lower() else "detect"
+    head = d["head"][-1][2].lower()
+    return next((t for t in ("classify", "segment", "pose", "obb", "rtdetr") if t in head), "detect")

@@ -363,3 +363,54 @@ class Pose(Detect):
         maps = self.raw_maps(xs)
         pkpt = self.kpts_decode(kpt, [m.shape[2:] for m in maps])
         return torch.cat((self.decode(maps), pkpt), -1), (maps, kpt)
+
+
+class Proto(nn.Module):
+    """Mask prototypes: Conv k3 -> 2x2 stride-2 transposed conv (with bias) -> Conv k3 -> Conv k1 to `c2` maps.
+
+    Counterpart of `drone_yolo_tpu/nn/modules.py` `Proto`. `upsample` holds the torch `ConvTranspose2d` weight
+    (in, out, 2, 2), which the JAX package keeps as `up/kernel` (2, 2, out, in) and applies with
+    `conv_transpose(transpose_kernel=True)`.
+    """
+
+    def __init__(self, c1, c_=256, c2=32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, k=3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, k=3)
+        self.cv3 = Conv(c_, c2)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+class Segment(Detect):
+    """Segmentation head: Detect plus `proto` (nm prototype maps at twice the first level's resolution) and a
+    coefficient branch `cv4` -> nm mask coefficients per anchor.
+
+    Counterpart of `drone_yolo_tpu/nn/modules.py` `Segment`. `forward` gives (B, A, 4 + nc + nm): Detect's decoded
+    predictions, then the coefficients in float32; and (maps, coefficients (B, A, nm), protos (B, nm, Hm, Wm)). In
+    train mode (`train_out`) it gives (maps, coefficients, protos), so that `cv4` and `proto` take part in the loss.
+    """
+
+    def __init__(self, nc=80, nm=32, npr=256, ch=(), reg_max=16):
+        super().__init__(nc, ch, reg_max)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, nm, 1)) for x in ch)
+
+    def coeffs(self, xs) -> torch.Tensor:
+        """(B, A, nm) mask coefficients, anchors level by level and row-major."""
+        return torch.cat([cv(x).flatten(2) for cv, x in zip(self.cv4, xs)], 2).transpose(1, 2)
+
+    def train_out(self, xs):
+        protos = self.proto(xs[0])
+        return self.raw_maps(xs), self.coeffs(xs), protos
+
+    def forward(self, xs):
+        protos = self.proto(xs[0])
+        mc = self.coeffs(xs)
+        maps = self.raw_maps(xs)
+        preds = self.decode(maps)
+        return torch.cat((preds, mc.to(preds.dtype)), -1), (maps, mc, protos)

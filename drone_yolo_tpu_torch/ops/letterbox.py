@@ -9,6 +9,9 @@ Two letterboxes, as in the JAX package (`drone_yolo_tpu/ops/letterbox.py`):
   INTER_LINEAR on uint8, then `cv2.copyMakeBorder` with 114) through
   `resize_linear_u8`, OpenCV's fixed-point bilinear resize in integer tensor
   arithmetic: the same integers on the card and on the CPU, and no image library.
+
+The segment task's masks take two more of `cv2.resize`'s interpolations on tensors:
+`resize_linear_f32` (INTER_LINEAR on float32 maps) and `resize_nearest` (INTER_NEAREST).
 """
 
 from __future__ import annotations
@@ -44,23 +47,56 @@ def letterbox(img: torch.Tensor, new_shape=(640, 640), pad_value: float = 114.0 
     return out
 
 
-def _linear_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """OpenCV's INTER_LINEAR taps along one axis: (i0, i1, w0, w1) per output index, weights in 2**-11 units.
+def _linear_coords(n_in: int, n_out: int, fixed_point: bool = True) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV's INTER_LINEAR taps along one axis: (i0, i1, f) per output index, f the float32 weight of i1.
 
-    The source coordinate is (d + 0.5) * n_in / n_out - 0.5, computed in double and rounded to float;
-    its floor is the left tap and the rest its weight, both in float, as `cv::resize` sets them up
-    (coordinates before the first source pixel or at or past the last take that pixel alone).
+    The source coordinate is (d + 0.5) * n_in / n_out - 0.5, computed in double; its floor is the left tap
+    and the rest its weight (coordinates before the first source pixel or at or past the last take that
+    pixel alone). For the fixed-point (uint8) path `cv::resize` rounds the coordinate to float before
+    taking its floor; for float maps it keeps the double fraction, rounded to float once.
     """
     scale = 1.0 / (n_out / n_in)
-    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    f = (np.arange(n_out) + 0.5) * scale - 0.5
+    if fixed_point:
+        f = f.astype(np.float32)
     i0 = np.floor(f).astype(np.int64)
-    f = f - i0.astype(np.float32)
+    f = (f - i0.astype(f.dtype)).astype(np.float32)
     edge = (i0 < 0) | (i0 >= n_in - 1)
     f[edge] = 0.0
     i0 = np.clip(i0, 0, n_in - 1)
+    return i0, np.minimum(i0 + 1, n_in - 1), f
+
+
+def _linear_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV's fixed-point INTER_LINEAR taps along one axis: (i0, i1, w0, w1), weights in 2**-11 units."""
+    i0, i1, f = _linear_coords(n_in, n_out)
     w0 = np.rint((np.float32(1.0) - f) * np.float32(2**COEF_BITS)).astype(np.int64)
     w1 = np.rint(f * np.float32(2**COEF_BITS)).astype(np.int64)
-    return i0, np.minimum(i0 + 1, n_in - 1), w0, w1
+    return i0, i1, w0, w1
+
+
+def resize_linear_f32(x: torch.Tensor, size) -> torch.Tensor:
+    """Bilinear resize of float32 maps (N, H, W) to `size` (h, w), as `cv2.resize(map, (w, h), INTER_LINEAR)` of
+    each map: OpenCV's float path, a horizontal pass S[i0] * (1 - f) + S[i1] * f, then the same vertical pass, in
+    float32 with its taps (`_linear_coords`). The two differ in the rounding of a product or sum: within one
+    float32 ulp of the result. Runs on the tensor's device."""
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"expected float32 (N, H, W) maps, got {x.dtype} {tuple(x.shape)}")
+    _, h, w = x.shape
+    out_h, out_w = int(size[0]), int(size[1])
+    dev = x.device
+    xi0, xi1, xf = (torch.from_numpy(t).to(dev) for t in _linear_coords(w, out_w, fixed_point=False))
+    yi0, yi1, yf = (torch.from_numpy(t).to(dev) for t in _linear_coords(h, out_h, fixed_point=False))
+    rows = x[:, :, xi0] * (1.0 - xf) + x[:, :, xi1] * xf  # (N, H, out_w)
+    return rows[:, yi0] * (1.0 - yf)[:, None] + rows[:, yi1] * yf[:, None]
+
+
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """Nearest-neighbour resize of maps (..., H, W) to `size` (h, w), as `cv2.resize(..., INTER_NEAREST)`: output
+    index d reads source floor(d * n_in / n_out), at most n_in - 1."""
+    idx = [torch.from_numpy(np.minimum(np.floor(np.arange(n_out) * (1.0 / (n_out / n_in))), n_in - 1).astype(np.int64))
+           .to(x.device) for n_in, n_out in zip(x.shape[-2:], size)]
+    return x[..., idx[0][:, None], idx[1][None, :]]
 
 
 def resize_linear_u8(img: torch.Tensor, size) -> torch.Tensor:

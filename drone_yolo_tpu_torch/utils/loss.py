@@ -1,7 +1,8 @@
-"""v8 detection and pose losses: BCE on class logits, CIoU and DFL on task-aligned targets, keypoint OKS and visibility.
+"""v8 detection, segmentation and pose losses: BCE on class logits, CIoU and DFL on task-aligned targets, mask BCE,
+keypoint OKS and visibility.
 
 Counterpart of `drone_yolo_tpu/utils/loss.py` (`bce_with_logits`, `df_loss`,
-`v8DetectionLoss`, `v8PoseLoss`). Targets arrive padded to M slots per image with a validity
+`v8DetectionLoss`, `v8SegmentationLoss`, `v8PoseLoss`). Targets arrive padded to M slots per image with a validity
 mask, in the collate format (`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels,
 `mask` (B, M)); padded slots are zeroed so that they catch no anchor.
 """
@@ -9,10 +10,12 @@ mask, in the collate format (`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels,
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from drone_yolo_tpu_torch.nn.modules import dfl_expectation, wide
 from drone_yolo_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
 from drone_yolo_tpu_torch.ops.boxes import bbox_ciou
+from drone_yolo_tpu_torch.ops.masks import crop_mask
 from drone_yolo_tpu_torch.utils.metrics import kpt_sigmas
 from drone_yolo_tpu_torch.utils.tal import TaskAlignedAssigner
 
@@ -83,6 +86,62 @@ class v8DetectionLoss:
         return items.sum() * feats[0].shape[0], items.detach()
 
 
+def top_foreground(weight: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The `k` anchors of each image with the largest `weight` (B, A), as `jax.lax.top_k` picks them (ties to the
+    lower anchor index): (scores (B, k), indices (B, k))."""
+    scores, idx = weight.sort(dim=1, descending=True, stable=True)
+    return scores[:, :k], idx[:, :k]
+
+
+class v8SegmentationLoss(v8DetectionLoss):
+    """Segmentation criterion over the segment head's train output (maps, coefficients (B, A, nm), protos
+    (B, nm, Hm, Wm)): the detection losses and a mask BCE, in float32.
+
+    Counterpart of `drone_yolo_tpu/utils/loss.py:v8SegmentationLoss`, whose result it copies where that departs
+    from the reference: only the top `max_fg` anchors of each image by `weight` carry the mask loss (ties to the
+    lower anchor index); an anchor's GT mask is the pixels of the collated overlap index mask `masks` equal to its
+    assigned slot + 1, resized to the protos' shape by half-pixel nearest sampling when the two differ (a
+    multi-scale batch); its loss is the BCE of `coeffs @ protos` against it, cropped to the assigned box in mask
+    space, summed and divided by that box's area (at least 1); the loss is the mean over the selected anchors and
+    takes the box gain. Targets add `masks` (B, H / r, W / r), the collated overlap index masks.
+
+    Returns (sum of the gained items * B, items (4,) detached: box, seg, cls, dfl).
+    """
+
+    def __init__(self, model, max_fg: int = 128, **kw):
+        super().__init__(model, **kw)
+        self.max_fg, self.nm = max_fg, model.head.nm
+
+    def __call__(self, outs, targets: dict):
+        feats, coeffs, protos = outs
+        p = self._detect_parts(feats, targets)
+        b, _, hm, wm = protos.shape
+        imgsz_h, imgsz_w = feats[0].shape[2] * int(self.strides[0]), feats[0].shape[3] * int(self.strides[0])
+
+        k = min(self.max_fg, p["fg_mask"].shape[1])
+        top_scores, top_idx = top_foreground(p["weight"], k)
+        sel_valid = (top_scores > 0).float()
+        sel_coeffs = wide(coeffs).gather(1, top_idx[..., None].expand(b, k, self.nm))
+        sel_gt_idx = p["t_gt_idx"].gather(1, top_idx)
+        sel_boxes = p["t_bboxes"].gather(1, top_idx[..., None].expand(b, k, 4))  # pixels
+
+        pm = torch.einsum("bkn,bnhw->bkhw", sel_coeffs, wide(protos))  # mask logits
+        om = targets["masks"]
+        if om.shape[1:] != (hm, wm):  # jax.image.resize "nearest": half-pixel centres
+            om = F.interpolate(om[:, None].float(), size=(hm, wm), mode="nearest-exact")[:, 0]
+        gt_m = (om.long()[:, None] == (sel_gt_idx[:, :, None, None] + 1)).float()
+        scale = torch.tensor([wm / imgsz_w, hm / imgsz_h, wm / imgsz_w, hm / imgsz_h], dtype=sel_boxes.dtype,
+                             device=sel_boxes.device)
+        mboxes = sel_boxes * scale
+        bce = crop_mask(bce_with_logits(pm, gt_m).flatten(0, 1), mboxes.flatten(0, 1)).view(b, k, hm, wm)
+        area = ((mboxes[..., 2] - mboxes[..., 0]) * (mboxes[..., 3] - mboxes[..., 1])).clamp(min=1.0)
+        loss_seg = (bce.sum((2, 3)) / area * sel_valid).sum() / sel_valid.sum().clamp(min=1.0)
+
+        items = torch.stack([p["loss_box"] * self.gains[0], loss_seg * self.gains[0], p["loss_cls"] * self.gains[1],
+                             p["loss_dfl"] * self.gains[2]])
+        return items.sum() * b, items.detach()
+
+
 class v8PoseLoss(v8DetectionLoss):
     """Pose criterion over the pose head's train output (maps, raw keypoints (B, A, nk * nd)): the detection losses,
     an OKS-shaped keypoint location loss and a keypoint visibility BCE, in float32.
@@ -112,9 +171,7 @@ class v8PoseLoss(v8DetectionLoss):
         kxy = (kr[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * strides[None, :, None, :]  # pixels
 
         k = min(self.max_fg, a)
-        score = p["weight"]
-        top_scores, top_idx = score.sort(dim=1, descending=True, stable=True)  # ties: lower index first
-        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+        top_scores, top_idx = top_foreground(p["weight"], k)
         sel_valid = (top_scores > 0).float()
         sel_kxy = kxy.gather(1, top_idx[:, :, None, None].expand(b, k, nk, 2))
         sel_gt_idx = p["t_gt_idx"].gather(1, top_idx)

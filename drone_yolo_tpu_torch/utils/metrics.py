@@ -1,7 +1,8 @@
-"""Detection and pose metrics on the host, in numpy: box IoU, keypoint OKS, TP matching, 101-point AP, per-class P/R/AP.
+"""Detection, segmentation and pose metrics on the host, in numpy: box IoU, keypoint OKS, TP matching, 101-point AP,
+per-class P/R/AP.
 
 A copy of `drone_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions`,
-`compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`, `kpt_iou`, `PoseMetrics`) and of
+`compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`, `SegmentMetrics`, `kpt_iou`, `PoseMetrics`) and of
 the COCO keypoint sigmas of `drone_yolo_tpu/models/yolo/pose.py:OKS_SIGMA_NP`, which follow the
 reference ultralytics `utils/metrics.py`. The card produces the detections; matching
 and accumulation are host work, as in the JAX package.
@@ -263,3 +264,33 @@ class PoseMetrics(DetMetrics):
     @property
     def fitness(self):
         return self.box.fitness() + self.pose.fitness()
+
+
+class SegmentMetrics(DetMetrics):
+    """Box metrics and mask metrics of a segmentation validation: 8 means, fitness = box fitness + mask fitness."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.seg = Metric()
+        self.task = "segment"
+
+    def process(self, tp, tp_m, conf, pred_cls, target_cls):
+        super().process(tp, conf, pred_cls, target_cls)
+        results = ap_per_class(np.asarray(tp_m), np.asarray(conf), np.asarray(pred_cls), np.asarray(target_cls))
+        self.seg.nc = len(self.names)
+        self.seg.update(results)
+
+    @property
+    def keys(self):
+        return ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)",
+                "metrics/precision(M)", "metrics/recall(M)", "metrics/mAP50(M)", "metrics/mAP50-95(M)"]
+
+    def mean_results(self):
+        return self.box.mean_results() + self.seg.mean_results()
+
+    def class_result(self, i):
+        return self.box.class_result(i) + self.seg.class_result(i)
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.seg.fitness()

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain versions, and a train step through them, on the card.
+"""The port's CUDA kernels against their plain versions, a train step through them, and the segment masks, on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device. The module
 imports neither JAX nor the JAX package, so it runs on a machine that has only
@@ -11,13 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_stats_errors, clustered_boxes, s2_site_inputs, s2_sites, synthetic_batch,
-                        synthetic_pose_batch)
+from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_sites, bn_stats_errors, clustered_boxes, s2_site_inputs, s2_sites,
+                        synthetic_batch, synthetic_pose_batch, synthetic_seg_batch)
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
 from drone_yolo_tpu_torch.models.yolo.pose import PoseTrainer
+from drone_yolo_tpu_torch.models.yolo.segment import SegmentationTrainer
 from drone_yolo_tpu_torch.nn import modules as M
-from drone_yolo_tpu_torch.nn.model import PoseModel
+from drone_yolo_tpu_torch.nn.model import PoseModel, SegmentationModel
 from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
+from drone_yolo_tpu_torch.ops.masks import process_mask, scale_masks
 from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
 from drone_yolo_tpu_torch.ops.nms import (
     compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates, suppression_words_reference,
@@ -322,6 +324,84 @@ def test_pose_train_step_with_both_kernels_matches_stock(cuda_device):
         runs[mode] = (steps, trainer.train_state())
     (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
     assert all(len(r["items"]) == 5 for r in steps_k)
+    np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
+    for name, want in st_s["params"].items():
+        torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("n,hm,wm,inp,orig", [(32, 160, 160, (640, 640), (1080, 1920)),
+                                              (7, 120, 160, (480, 640), (97, 211)), (3, 160, 128, (640, 512), (640, 512))])
+def test_scale_masks_on_the_card_matches_the_cpu(cuda_device, n, hm, wm, inp, orig):
+    """The segment predictor's masks on the card (`process_mask`, then `scale_masks`' float bilinear resize to the
+    frame) against the same functions on the CPU: within 1e-6 before the 0.5 threshold, equal after it except within
+    1e-5 of 0.5."""
+    g = torch.Generator().manual_seed(n)
+    protos = torch.randn(32, hm, wm, generator=g)
+    coeffs = torch.randn(n, 32, generator=g)
+    xy = torch.rand(n, 2, generator=g) * torch.tensor([inp[1], inp[0]]) * 0.7
+    boxes = torch.cat([xy, xy + 20 + torch.rand(n, 2, generator=g) * 200], 1)
+    want = scale_masks(process_mask(protos, coeffs, boxes, inp), orig, inp)
+    got = scale_masks(process_mask(protos.to(cuda_device), coeffs.to(cuda_device), boxes.to(cuda_device), inp), orig,
+                      inp).cpu()
+    assert got.shape == want.shape == (n, *orig)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    diff = (got > 0.5) != (want > 0.5)
+    assert bool(((want[diff] - 0.5).abs() < 1e-5).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_stats_kernel_at_the_segment_inputs(cuda_device, dtype):
+    """The 9 BN inputs of yolov8s-seg that the detect part lacks (Proto's (8, 128, 80, 80), (8, 128, 160, 160) and
+    (8, 32, 160, 160), cv4's 32 channels at 80, 40 and 20) against `bn_stats_reference` at chip_smoke's tolerance."""
+    sites = [b for b in bn_sites(SegmentationModel("yolov8s-seg.yaml", nc=80), 8, 640)
+             if ".proto." in b["name"] or ".cv4." in b["name"]]
+    assert sorted({b["x"] for b in sites}) == [(8, 32, 20, 20), (8, 32, 40, 40), (8, 32, 80, 80), (8, 32, 160, 160),
+                                              (8, 128, 80, 80), (8, 128, 160, 160)]
+    for i, site in enumerate(sites):
+        g = torch.Generator(device=cuda_device).manual_seed(i)
+        x = (torch.randn(site["x"], generator=g, device=cuda_device) * 2 + 0.5).to(getattr(torch, dtype))
+        s, q = bn_stats(x)
+        errs = bn_stats_errors(x, s, q)
+        assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, (site, errs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s2_kernel_at_the_segment_sites(cuda_device, dtype):
+    """yolov8s-seg's 7 dense k=3 stride-2 sites (batch 8, 640 px) against the plain version, as chip_smoke's segment
+    phase holds them."""
+    sites = s2_sites(SegmentationModel("yolov8s-seg.yaml", nc=80), 8, 640)
+    assert [s["name"].split(".")[1] for s in sites] == ["0", "1", "3", "5", "7", "16", "19"]
+    dt = getattr(torch, dtype)
+    for i, site in enumerate(sites):
+        x, w, dy = s2_site_inputs(site, dt, seed=100 + i)
+        dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+        torch.cuda.synchronize()
+        dx_p, dw_p = conv_s2.s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+        pairs = [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else [])
+        for what, got, want in pairs:
+            tol = dict(S2_TOL[dtype][what])
+            tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{site['name']} {what}: {m}")
+        del x, w, dy, dx, dw, dx_p, dw_p
+
+
+def test_segment_train_step_with_both_kernels_matches_stock(cuda_device):
+    """yolov8n-seg (nc 3), imgsz 64, batch 2, float32 (TF32 off): 2 steps with s2grad="cuda" and bnstats="cuda"
+    against 2 stock steps from the same init: 7 stride-2 calls and 66 BN-statistics calls a step."""
+    loader = [synthetic_seg_batch(np.random.default_rng(i), 2, 64, 3) for i in range(2)]
+    runs = {}
+    for mode in ("cuda", None):
+        trainer = SegmentationTrainer(overrides=dict(model="yolov8n-seg.yaml", batch=2, imgsz=64, nbs=2,
+                                                     optimizer="SGD", amp=False, s2grad=mode, bnstats=mode),
+                                      train_loader=loader, data={"nc": 3})
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        steps = trainer.run_steps()
+        assert cuda_s2bwd.s2_bwd_cuda.calls == {"s2_bwd_k3": 14 if mode else 0, "s2_bwd_k1": 0}
+        assert cuda_bnstats.bn_stats_cuda.calls == (2 * 66 if mode else 0)
+        runs[mode] = (steps, trainer.train_state())
+    (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
+    assert all(len(r["items"]) == 4 and r["items"][1] > 0 for r in steps_k)
     np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
     for name, want in st_s["params"].items():
         torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)

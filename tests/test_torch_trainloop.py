@@ -16,7 +16,8 @@
   largest update: the port against a float64 run of itself within `REF_NOISE` (the bar of
   tests/test_torch_train.py), the JAX package against that float64 run within `JAX_LOOP_NOISE`,
   and the port against the JAX package within the sum of the two;
-- the loop, and a pose model's epoch and val, with jax, drone_yolo_tpu, cv2, PIL and yaml blocked.
+- the loop, a pose model's epoch and val, and a segment model's epoch, val and predict, with jax, drone_yolo_tpu,
+  cv2, PIL, yaml and sklearn blocked.
 """
 
 import json
@@ -30,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from make_dataset import make_dataset, make_pose_dataset
+from make_dataset import make_dataset, make_pose_dataset, make_seg_dataset
 from test_torch_predict import BLOCKER
 from drone_yolo_tpu.engine.checkpoint import load_checkpoint as jax_load_checkpoint
 from drone_yolo_tpu.engine.checkpoint import save_checkpoint as jax_save_checkpoint
@@ -229,6 +230,7 @@ def test_train_loop_matches_jax(data_yaml, init, tmp_path):
 
 
 RUN_LOOP = BLOCKER + """
+sys.modules["sklearn"] = None  # import fails, find_spec gives None (torch's optional-import probes ask for it)
 import json, sys
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -241,25 +243,39 @@ pose = YOLO("yolov8n-pose.yaml", device="cpu")
 pose_metrics = pose.train(data=sys.argv[3], project=sys.argv[2], name="pose", epochs=1, imgsz=64, batch=2, nbs=2,
                           workers=1, amp=False, s2grad="cuda", bnstats="cuda")
 pose_again = YOLO(pose.trainer.wdir / "last.npz", device="cpu").val(data=sys.argv[3], imgsz=64, batch=2, dtype="float32")
+seg = YOLO("yolov8n-seg.yaml", device="cpu")
+seg_metrics = seg.train(data=sys.argv[4], project=sys.argv[2], name="seg", epochs=1, imgsz=64, batch=2, nbs=2,
+                        workers=1, amp=False, copy_paste=0.5, s2grad="cuda", bnstats="cuda")
+seg_last = YOLO(seg.trainer.wdir / "last.npz", device="cpu")
+seg_again = seg_last.val(data=sys.argv[4], imgsz=64, batch=2, dtype="float32")
+seg_pred = seg_last.predict(np.zeros((72, 96, 3), np.uint8), imgsz=64, conf=0.0, max_det=3, dtype="float32")[0]
 print(json.dumps({"metrics": metrics, "again": again, "epochs": len(model.trainer.epoch_stats),
-                  "pose_metrics": pose_metrics, "pose_again": pose_again,
-                  "loaded": sorted(m for m in BLOCKED if m in sys.modules)}))
+                  "pose_metrics": pose_metrics, "pose_again": pose_again, "seg_metrics": seg_metrics,
+                  "seg_again": seg_again, "seg_masks": list(seg_pred.masks.data.shape),
+                  "seg_outline": len(seg_pred.masks.xy), "loaded": sorted(m for m in BLOCKED if m in sys.modules),
+                  "sklearn": sys.modules["sklearn"] is None}))
 """
 
 
 def test_loop_runs_without_jax_cv2_pil_yaml(data_yaml, tmp_path):
-    """Two epochs (mosaic, then closed), validation, checkpoints and a val of last.npz with the imports blocked; then
-    a pose model's epoch over a pose dataset (`make_pose_dataset`) and a val of its last.npz."""
+    """Two epochs (mosaic, then closed), validation, checkpoints and a val of last.npz with the imports blocked (and
+    sklearn); then a pose model's epoch over a pose dataset (`make_pose_dataset`) and a val of its last.npz; then a
+    segment model's epoch over a polygon dataset (`make_seg_dataset`, copy-paste on), a val and a predict of its
+    last.npz with the masks' outlines."""
     pose_yaml = str(make_pose_dataset(tmp_path / "pose", n_val=2, nc=2, seed=0, size=96, nkpt=4, n_train=4))
+    seg_yaml = str(make_seg_dataset(tmp_path / "seg", n_val=2, nc=2, seed=0, size=96, n_train=4))
     env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run([sys.executable, "-c", RUN_LOOP, data_yaml, str(tmp_path), pose_yaml], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=240)
+    proc = subprocess.run([sys.executable, "-c", RUN_LOOP, data_yaml, str(tmp_path), pose_yaml, seg_yaml], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == [] and out["epochs"] == 2
     assert set(out["metrics"]) == set(out["again"]) == set(METRIC_KEYS)
     pose_keys = {*METRIC_KEYS, "metrics/precision(P)", "metrics/recall(P)", "metrics/mAP50(P)", "metrics/mAP50-95(P)"}
     assert set(out["pose_metrics"]) == set(out["pose_again"]) == pose_keys
+    seg_keys = {*METRIC_KEYS, "metrics/precision(M)", "metrics/recall(M)", "metrics/mAP50(M)", "metrics/mAP50-95(M)"}
+    assert set(out["seg_metrics"]) == set(out["seg_again"]) == seg_keys
+    assert out["seg_masks"] == [3, 72, 96] and out["seg_outline"] == 3 and out["sklearn"]
 
 
 def test_multi_scale_sizes_and_device_resize():
