@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
 validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, drives the
 command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model, and
-predicts with, trains and validates an instance segmentation model.
+predicts with, trains and validates an instance segmentation model and an oriented box model.
 
     python3 chip_smoke.py
 
@@ -132,9 +132,27 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    split's 8 images, letterboxed) at a constant lr, whose `seg_loss` must end below its first value. Printed:
    predict img/s and masks per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and
    the data-wait share, validation img/s, box and mask mAP, peak card memory, each beside the nvidia-smi line;
-14. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
-   modules of every path (apps, trackers, the pose and segment predictors, trainers and validators, the loaders)
-   loaded.
+14. obb: oriented boxes. `yolov8s-obb.yaml` (nc 15, DOTA-v1's class count) at full width and depth and DOTA's
+   training size, 1024 px: the stride-2 backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites (layer
+   0's dw a sum of 2,097,152 products) and the BN-statistics kernel against `bn_stats_reference` at all its 63
+   train-mode BN inputs (the angle branch cv4's 6 among them), in bfloat16 and float32 at batch 8, and one step's
+   calls of each timed against the plain versions, cuDNN's `convolution_backward` and `torch.batch_norm_stats`; a
+   seeded dataset of 8 train and 8 val images of 8-40 rotated rectangles of 12-160 px, aspect 1-4
+   (`write_obb_dataset`: the port's `fill_poly` and JPEG encoder, YOLO-OBB corner labels); predict on 1024x1024
+   frames of rotated rectangles at batch 1 and 8 with `calibrated_weights` (2% of frame 0's anchors above conf
+   0.25): every image's oriented boxes finite, above conf, with their corners; then
+   `YOLO("yolov8s-obb.yaml").train(...)` 1 epoch at batch 8, bf16 autocast, SGD, default augmentation, cache="ram",
+   both kernels, with the EMA validated, and `YOLO(last.npz).val(...)` in rect batches. Rotated NMS is the JAX
+   package's fast NMS by probiou in plain tensor operations, so the greedy-NMS kernel must not be called. Counts are
+   set to 0 before each run and read after it. Checks: 7 stride-2 calls (k=3) and 63 BN-statistics calls a step, no
+   NMS kernel call, the loss items finite, the metrics in [0, 1]; then 30 steps on one fixed batch (the val split's
+   8 images, letterboxed) at a constant lr, whose `box_loss` must end below its first value. Printed: predict img/s
+   and oriented boxes per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and the
+   data-wait share, validation img/s, peak card memory, the kernels' errors against the tolerance and their times,
+   each beside the nvidia-smi line;
+15. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
+   modules of every path (apps, trackers, the pose, segment and obb predictors, trainers and validators, the
+   loaders, `ops/rotated.py`) loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -249,6 +267,13 @@ POSE_CELL = dict(model="yolov8s-pose.yaml", n_train=32, n_val=16, imgsz=640, bat
 # constant lr, whose mask loss must fall
 SEG_CELL = dict(model="yolov8s-seg.yaml", nc=80, n_train=8, n_val=8, imgsz=640, batch=8, seed=11, workers=4,
                 fixed_steps=30, frames_hw=(1080, 1920), cls_gain=30.0, share_above_conf=0.002, conf=0.25)
+# the obb phase: yolov8s-obb (nc 15, DOTA-v1's class count) at full width and DOTA's training size, 1024 px, on a seeded
+# dataset of rotated rectangles (`write_obb_dataset`): predict on 1024x1024 frames at batch 1 and 8 with calibrated
+# weights, one epoch from disk at batch 8, bf16 autocast, SGD, both kernels, rect val of last.npz; then 30 steps on
+# one fixed batch at a constant lr, whose box loss must fall
+OBB_CELL = dict(model="yolov8s-obb.yaml", nc=15, n_train=8, n_val=8, imgsz=1024, batch=8, seed=13, workers=4,
+                fixed_steps=30, objects=(8, 40), obj_px=(12, 160), frames=8, cls_gain=30.0, share_above_conf=0.02,
+                conf=0.25)
 ENTRY_VAL_ASPECTS = ((1.0, 1.0), (0.5625, 1.0), (1.0, 0.5625), (0.75, 1.0), (1.0, 0.75), (0.6, 1.0), (1.0, 0.8),
                      (0.9, 1.0))
 
@@ -466,6 +491,69 @@ def write_seg_dataset(root: Path, n_train: int, n_val: int, size: int, seed: int
     yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnc: {nc}\n")
     return yaml_path
 
+
+
+def rotated_rect_image(rng: np.random.Generator, size: int, n_range, px_range, nc: int):
+    """A size x size BGR uint8 image of rotated rectangles on a noisy background, as an aerial view shows vehicles,
+    ships and planes: n in `n_range` rectangles of long side in `px_range` and aspect 1-4 at any angle, each filled by
+    the port's `fill_poly` in a random colour, corners clipped to the frame. Returns (image, [(cls, corners (4, 2)
+    float32 pixels)]). Shared with the tests."""
+    from drone_yolo_tpu_torch.ops.polygon import fill_poly
+
+    img = (rng.random((size, size, 3)) * 50 + 80).astype(np.uint8)
+    out = []
+    for _ in range(int(rng.integers(n_range[0], n_range[1] + 1))):
+        w = float(rng.uniform(*px_range))
+        h = w / float(rng.uniform(1.0, 4.0))
+        c, ang = rng.uniform(0, size, 2), float(rng.uniform(0, np.pi))
+        dx, dy = np.array([-w, w, w, -w]) / 2, np.array([-h, -h, h, h]) / 2
+        pts = c + np.stack([dx * np.cos(ang) - dy * np.sin(ang), dx * np.sin(ang) + dy * np.cos(ang)], 1)
+        pts = pts.clip(0, size - 1).astype(np.float32)
+        if np.ptp(pts[:, 0]) < 2 or np.ptp(pts[:, 1]) < 2:  # clipped to a sliver of the edge
+            continue
+        mask = fill_poly(np.zeros((size, size), np.uint8), [np.round(pts).astype(np.int32)], 1).astype(bool)
+        img[mask] = rng.integers(0, 256, 3)
+        out.append((int(rng.integers(0, nc)), pts))
+    return img, out
+
+
+def write_obb_dataset(root: Path, n_train: int, n_val: int, size: int, seed: int, nc: int, n_range, px_range) -> Path:
+    """A seeded oriented-box dataset of `nc` classes (`rotated_rect_image`), written by the port's JPEG encoder at
+    quality 95 with YOLO-OBB labels (`cls x1 y1 x2 y2 x3 y3 x4 y4`, normalized) and a data.yaml. Returns the yaml
+    path."""
+    from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img, objs = rotated_rect_image(rng, size, n_range, px_range, nc)
+            rows = [f"{c} " + " ".join(f"{v / size:.6f}" for v in pts.reshape(-1)) for c, pts in objs]
+            rgb = np.ascontiguousarray(img[..., ::-1])
+            (root / "images" / split / f"{split}_{i:04d}.jpg").write_bytes(encode_jpeg(rgb, quality=95))
+            (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(rows) + "\n")
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnc: {nc}\n")
+    return yaml_path
+
+
+def synthetic_obb_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int, n_max: int = 12,
+                        slots: int = 32) -> dict:
+    """A collate-format OBB batch of `batch` images of rotated rectangles (`rotated_rect_image`, 1 to n_max a
+    frame, 8-40% of imgsz): `segments_list` (their corners), the boxes their extents. Shared with the tests."""
+    out = {"img": np.zeros((batch, imgsz, imgsz, 3), np.uint8), "cls": np.zeros((batch, slots), np.float32),
+           "bboxes": np.zeros((batch, slots, 4), np.float32), "mask": np.zeros((batch, slots), np.float32),
+           "segments_list": []}
+    for i in range(batch):
+        img, objs = rotated_rect_image(rng, imgsz, (1, n_max), (0.08 * imgsz, 0.4 * imgsz), nc)
+        objs = objs[:slots]
+        out["img"][i] = img[..., ::-1]
+        out["segments_list"].append([pts for _, pts in objs])
+        for j, (c, pts) in enumerate(objs):
+            out["cls"][i, j], out["mask"][i, j] = c, 1.0
+            out["bboxes"][i, j] = [*pts.min(0), *pts.max(0)]
+    return out
 
 def write_dense_dataset(root: Path, n_train: int, n_val: int, size: int, seed: int, nc: int, obj_px) -> tuple[Path, dict]:
     """The dense small-object proxy (`tools/dense_dataset.py:make_dense_image`, numpy only) written by the port's JPEG
@@ -1785,6 +1873,218 @@ def run_segment(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+
+def run_obb(smi: str) -> dict:
+    """Phase 14: oriented boxes on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.cfg import get_val_cfg
+    from drone_yolo_tpu_torch.data.build import build_yolo_dataset
+    from drone_yolo_tpu_torch.data.utils import check_det_dataset
+    from drone_yolo_tpu_torch.models.yolo.obb import OBBTrainer
+    from drone_yolo_tpu_torch.nn.model import OBBModel
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+    from drone_yolo_tpu_torch.ops.conv_s2 import s2_bwd_reference
+
+    c = OBB_CELL
+    k3, k1 = cuda_s2bwd.NAMES[3], cuda_s2bwd.NAMES[1]
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+
+    def counts() -> dict:
+        return {"s2_calls": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+                "nms_calls": cuda_nms.greedy_keep_cuda.calls,
+                "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches,
+                             "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                             **{n: cuda_s2bwd.s2_bwd_cuda.launches.get(n, 0) for n in (k3, k1)}}}
+
+    # the two train kernels against their plain versions at yolov8s-obb's shapes (batch 8, 1024 px): the stride-2
+    # backward at its 7 sites (layer 0's dw sums 2,097,152 products), the BN statistics at all 63 BN inputs
+    probe = OBBModel(c["model"], nc=c["nc"])
+    sites = s2_sites(probe, c["batch"], c["imgsz"])
+    if [s["k"] for s in sites] != [3] * 7:
+        raise AssertionError(f"{c['model']} should have 7 dense k=3 stride-2 sites, found {[s['name'] for s in sites]}")
+    s2_checks = []
+    for i, site in enumerate(sites):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, dy = s2_site_inputs(site, dtype, seed=1000 + i)
+            dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+            dx_p, dw_p = s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+            name = str(dtype).split(".")[1]
+            row = {"site": site["name"], "x": site["x"], "dtype": name}
+            for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
+                tol = dict(S2_TOL[name][what])
+                tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"obb {site['name']} {name} {what}: {m}")
+                err = (got - want).abs()
+                row[f"{what}_err"] = float(err.max())
+                row[f"{what}_err_over_tol"] = float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
+            s2_checks.append(row)
+            del x, w, dy, dx, dw, dx_p, dw_p
+    bn = bn_sites(probe, c["batch"], c["imgsz"])
+    if len(bn) != 63 or sum(".cv4." in b["name"] for b in bn) != 6:
+        raise AssertionError(f"{c['model']}: {len(bn)} BN inputs, expected 63 (6 in cv4)")
+    bn_checks = []
+    for i, site in enumerate(bn):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = site_input(site["x"], dtype, seed=1100 + i)
+            s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
+            errs = bn_stats_errors(x, s_k, q_k)
+            if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
+                raise AssertionError(f"obb BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
+            bn_checks.append({"site": site["name"], "x": site["x"], "dtype": str(dtype).split(".")[1], **errs})
+            del x, s_k, q_k
+    del probe
+
+    # their times for one bf16 train step's calls (7 stride-2, 63 BN), the plain versions and the library calls on
+    # the same inputs, and the bound summed over the calls
+    s2_in = [s2_site_inputs(site, torch.bfloat16, seed=1200 + i) for i, site in enumerate(sites)]
+    pairs = list(zip(sites, s2_in))
+    s2_calls = {
+        "": lambda: [cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
+        "plain_": lambda: [s2_bwd_reference(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
+        "library_": lambda: [torch.ops.aten.convolution_backward(dy, x, w, None, [2, 2], [1, 1], [1, 1], False, [0, 0], 1,
+                                                                 [st["need_dx"], True, False]) for st, (x, w, dy) in pairs]}
+    s2_time = {}
+    for prefix, fn in s2_calls.items():
+        s2_time.update(kernel_times(fn, reps=2 if prefix == "plain_" else 5, prefix=prefix))
+    costs = [s2_cost(st) for st in sites]
+    b_ms = [n_bytes / PEAK_BYTES_PER_S * 1e3 for n_bytes, _ in costs]
+    o_ms = [n_ops / PEAK_BF16_PER_S * 1e3 for _, n_ops in costs]
+    s2_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                   calls=len(sites), sites=[{"site": st["name"], "x": st["x"], "bound_ms": max(bm, om)}
+                                             for st, bm, om in zip(sites, b_ms, o_ms)])
+    del s2_in, pairs
+    xs = [site_input(site["x"], torch.bfloat16, seed=1300 + i) for i, site in enumerate(bn)]
+    bn_time = {}
+    for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],
+                       "plain_": lambda: [bn_stats_reference(x) for x in xs],
+                       "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
+        bn_time.update(kernel_times(fn, reps=5, prefix=prefix))
+    b_ms = [(2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3 for x in xs]
+    o_ms = [BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3 for x in xs]
+    bn_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                   calls=len(xs), largest_input=list(max((s["x"] for s in bn), key=lambda t: int(np.prod(t)))))
+    del xs
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_obb_"))
+    try:
+        t0 = time.perf_counter()
+        data = write_obb_dataset(tmp / "obb", c["n_train"], c["n_val"], c["imgsz"], c["seed"], c["nc"], c["objects"],
+                                 c["obj_px"])
+        write_s = time.perf_counter() - t0
+
+        # predict: 1024x1024 frames at batch 1 and 8, weights calibrated so that some anchors score above conf
+        rng = np.random.default_rng(c["seed"] + 1)
+        frames = [rotated_rect_image(rng, c["imgsz"], c["objects"], c["obj_px"], c["nc"])[0] for _ in range(c["frames"])]
+        pred_model = YOLO(c["model"])
+        bias = calibrated_weights(pred_model, frames[0], c["seed"], c["cls_gain"], c["share_above_conf"], c["conf"],
+                                  c["imgsz"])
+        predict = {}
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        for b in (1, 8):
+            pred_model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pred_model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)
+            wall = time.perf_counter() - t0
+            n_obb = [len(r.obb) for r in res]
+            data_ok = all(np.isfinite(r.obb.data).all() and (r.obb.data[:, 2:4] >= 0).all()
+                          and (r.obb.conf > c["conf"]).all() and r.boxes is None for r in res)
+            if not sum(n_obb) or not data_ok or any(r.obb.xyxyxyxy.shape != (len(r.obb), 4, 2) for r in res):
+                raise AssertionError(f"obb predict at batch {b}: {n_obb} oriented boxes, finite and valid {data_ok}")
+            predict[f"batch{b}"] = {"img_per_s": b / wall, "obb_per_image": n_obb, "speed_ms_per_img": res[0].speed}
+        predict_counts = counts()
+        predict["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del pred_model, res
+
+        # one epoch from disk with both kernels, then rect val of last.npz
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = YOLO(c["model"])
+        metrics = model.train(data=str(data), epochs=1, imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"],
+                              optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
+                              workers=c["workers"], project=str(tmp / "runs"), name="train", exist_ok=True)
+        train_wall = time.perf_counter() - t0
+        train_counts = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tr = model.trainer
+        reset()
+        last = YOLO(tr.wdir / "last.npz")
+        t0 = time.perf_counter()
+        val_metrics = last.val(data=str(data))  # rect batches: the facade's default
+        val_wall = time.perf_counter() - t0
+        val_counts = counts()
+        validator = last.validator
+        n_bn, steps = len(bn), tr.nb
+        if train_counts["s2_calls"] != {k3: steps * 7, k1: 0} or train_counts["bn_calls"] != steps * n_bn:
+            raise AssertionError(f"obb training: {train_counts}, expected {steps * 7} stride-2 and "
+                                 f"{steps * n_bn} BN calls for {steps} steps")
+        if any(cnt["nms_calls"] for cnt in (predict_counts, train_counts, val_counts)):
+            raise AssertionError("the obb path suppresses by probiou in plain tensor operations, not the greedy-NMS "
+                                 f"kernel: {predict_counts}, {train_counts}, {val_counts}")
+        losses = np.array([e["loss_items"] for e in tr.epoch_stats])
+        if not (np.isfinite(losses).all() and losses.shape == (1, 3)):
+            raise AssertionError(f"obb loss items {losses}")
+        for name, m in (("train", metrics), ("val", val_metrics)):
+            if len(m) != 5 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for k, v in m.items() if k != "fitness"):
+                raise AssertionError(f"obb {name} metrics: {m}")
+
+        # a fixed batch of the val split (letterboxed, no augmentation), 30 steps at a constant lr
+        info = check_det_dataset(data)
+        ds = build_yolo_dataset(get_val_cfg(overrides=dict(imgsz=c["imgsz"], task="obb")), info["val"], c["batch"],
+                                info, mode="val")
+        batch = ds.collate([ds[i] for i in range(c["batch"])])
+        reset()
+        fixed = OBBTrainer(overrides=dict(model=c["model"], batch=c["batch"], imgsz=c["imgsz"], nbs=c["batch"],
+                                          optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", warmup_epochs=0.0),
+                           train_loader=[batch] * c["fixed_steps"], data={"nc": c["nc"]})
+        run = fixed.run_steps()
+        fixed_counts = counts()
+        box_loss = [r["items"][0] for r in run]
+        if not (np.isfinite([r["loss"] for r in run]).all() and box_loss[-1] < box_loss[0]):
+            raise AssertionError(f"fixed-batch box_loss did not fall: {box_loss}")
+        if (fixed_counts["s2_calls"] != {k3: 7 * c["fixed_steps"], k1: 0}
+                or fixed_counts["bn_calls"] != n_bn * c["fixed_steps"]):
+            raise AssertionError(f"fixed-batch run: {fixed_counts}")
+        step_ms = float(np.median([r["ms"] for r in run[1:]]))
+        hyp = fixed._warmup_hyp(fixed.ni, 0)
+        prof = profile_device(lambda: fixed.train_step(batch, *hyp)[0].item(), steps=3)
+        launches = {k: sum(cnt["launches"][k] for cnt in (predict_counts, train_counts, val_counts, fixed_counts))
+                    for k in train_counts["launches"]}
+        ep = tr.epoch_stats[0]
+        return {"model": c["model"], "cell": c, "nvidia_smi": smi, "dataset_write_s": write_s,
+                "predict": {**predict, "cls_bias": bias}, "s2_sites": [s["name"] for s in sites],
+                "s2_checks": s2_checks, "bn_sites": n_bn, "bn_checks_worst": {
+                    k: max(ch[k] for ch in bn_checks) for k in ("sum_err_over_tol", "sumsq_err_over_tol")},
+                "bn_cv4_checks": [ch for ch in bn_checks if ".cv4." in ch["site"]],
+                "s2_tolerances": S2_TOL, "s2_sum_floor": S2_SUM_FLOOR, "bn_rtol": BN_RTOL, "bn_atol": BN_ATOL,
+                "counts": {"predict": predict_counts, "train": train_counts, "val": val_counts, "fixed": fixed_counts,
+                           "launches": launches},
+                "per_step": {"s2_calls": 7, "bn_calls": n_bn, "nms_calls": 0},
+                "metrics_train": metrics, "metrics_val_rect": val_metrics,
+                "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
+                "epoch": ep, "train_wall_s": train_wall, "data_wait_share": ep["data_wait_s"] / ep["train_s"],
+                "val_img_per_s": validator.seen / val_wall, "val_speed_ms_per_img": validator.speed,
+                "peak_memory_gb": peak_gb,
+                "fixed_batch": {"steps": c["fixed_steps"], "box_loss_first": box_loss[0], "box_loss_last": box_loss[-1],
+                                "box_loss": box_loss, "step_ms_median": step_ms,
+                                "img_per_s": c["batch"] / step_ms * 1e3, "first_step_ms": run[0]["ms"]},
+                "profile_train_step": prof,
+                "s2_at_obb_sites": {"per": "one bf16 train step's 7 calls at batch 8, 1024 px; ms device time "
+                                           "(torch.profiler), event_ms CUDA events; library: cuDNN convolution_backward",
+                                    **s2_time},
+                "bn_at_obb_inputs": {"per": "one bf16 train step's 63 calls at batch 8, 1024 px; ms device time "
+                                            "(torch.profiler), event_ms CUDA events; library: torch.batch_norm_stats",
+                                     **bn_time}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2269,13 +2569,24 @@ def main() -> None:
     nms_row["calls"] += sum(seg["counts"][k]["nms_calls"] for k in ("predict", "train", "val"))
     emit("segment", t, **seg)
 
-    # 14. imports ---------------------------------------------------------------
+    # 14. obb: prediction, training and validation of yolov8s-obb at 1024 px ---------------
+    t = time.perf_counter()
+    obb = run_obb(smi)
+    for kern in kernels:
+        n = obb["counts"]["launches"][kern["name"]]
+        kern["launches"] += n
+        kern["launches_by_path"]["obb"] = n
+    emit("obb", t, **obb)
+
+    # 15. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401
     import drone_yolo_tpu_torch.models.yolo  # noqa: F401
     import drone_yolo_tpu_torch.models.yolo.pose  # noqa: F401  (the pose trainer and validator)
     import drone_yolo_tpu_torch.models.yolo.segment  # noqa: F401  (the segment predictor, trainer and validator)
+    import drone_yolo_tpu_torch.models.yolo.obb  # noqa: F401  (the obb predictor, trainer and validator)
+    import drone_yolo_tpu_torch.ops.rotated  # noqa: F401  (min_area_rect, OpenCV's without cv2)
     import drone_yolo_tpu_torch.trackers  # noqa: F401
     from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
@@ -2284,6 +2595,8 @@ def main() -> None:
     if [v.__name__ for v in TASK_MAP["segment"].values()] != ["SegmentationTrainer", "SegmentationValidator",
                                                                "SegmentationPredictor"]:
         raise AssertionError(f"TASK_MAP['segment'] = {TASK_MAP['segment']}")
+    if [v.__name__ for v in TASK_MAP["obb"].values()] != ["OBBTrainer", "OBBValidator", "OBBPredictor"]:
+        raise AssertionError(f"TASK_MAP['obb'] = {TASK_MAP['obb']}")
 
     absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn"]
     loaded = sorted(m for m in absent if m in sys.modules)

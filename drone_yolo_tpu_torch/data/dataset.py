@@ -1,7 +1,7 @@
 """YOLO-format detection, segmentation and pose dataset: label cache, image loading with a decode buffer, transforms,
 padded batches.
 
-Counterpart of `drone_yolo_tpu/data/dataset.py` (YOLODataset) for the detect, segment and pose tasks. A
+Counterpart of `drone_yolo_tpu/data/dataset.py` (YOLODataset) for the detect, segment, pose and obb tasks. A
 batch from `collate` is a dict of numpy arrays: `img` (B, H, W, 3) uint8 RGB, `cls` (B, M)
 float32 class ids, `bboxes` (B, M, 4) float32 xyxy pixels and `mask` (B, M) float32 slot
 validity, with M from `round_label_slots`; for the segment task `masks` (B, H / r, W / r) int32, the
@@ -9,8 +9,10 @@ overlap index mask of each image at `mask_ratio` r (`polygons2masks_overlap`: pi
 j-th instance by area, largest first), with each image's instances reordered to match; for the pose task
 `keypoints` (B, M, nk, 3) float32 (x, y in pixels, visibility), nk from the data yaml's `kpt_shape`; and
 per image `im_files`, `ori_shapes` (h, w) and `ratio_pads` ((gain, (pad_w, pad_h)) from the letterbox, or
-None). Polygon labels are read for every task and go through the augmentation (`data/augment.py`); only
-the segment task turns them into masks.
+None); for the obb task `segments_list`, per image its polygons (K, 2) float32 in pixels after the transforms, in
+step with its boxes (all of them, not only the first M). Polygon labels are read for every task and go through the
+augmentation (`data/augment.py`); the segment task turns them into masks, the obb task's trainer and validator into
+rotated boxes.
 
 The label cache is the JAX package's file: `<labels dir>.cache.npz` beside the labels, the
 same version, hash and pickled list of label dicts, so either package reads the other's.
@@ -56,8 +58,8 @@ def round_label_slots(n_max: int, headroom: float) -> int:
 
 
 class YOLODataset:
-    """Detection, segmentation and pose dataset over YOLO-txt labels. `hyp` is the train configuration (augmentation
-    keys, `mask_ratio`)."""
+    """Detection, segmentation, pose and oriented box dataset over YOLO-txt labels. `hyp` is the train configuration
+    (augmentation keys, `mask_ratio`)."""
 
     def __init__(self, img_path, imgsz: int = 640, cache: bool = False, augment: bool = True, hyp=None,
                  prefix: str = "", batch_size: int = 16, stride: int = 32, pad: float = 0.5, single_cls: bool = False,
@@ -70,8 +72,10 @@ class YOLODataset:
         self.prefix = prefix
         self.fraction = fraction
         self.data = data or {}
-        if task not in ("detect", "segment", "pose"):
-            raise NotImplementedError(f"task {task!r}: the port's dataset reads detect, segment and pose labels only")
+        if task not in ("detect", "segment", "pose", "obb"):
+            raise NotImplementedError(f"task {task!r}: the port's dataset reads detect, segment, pose and obb labels "
+                                      "only")
+        self.task = task
         self.use_segments = task == "segment"
         self.use_keypoints = task == "pose"
         self.kpt_shape = self.data.get("kpt_shape", (0, 0))
@@ -331,4 +335,6 @@ class YOLODataset:
             batch["keypoints"] = kpts
         if seg_masks is not None:
             batch["masks"] = seg_masks
+        if self.task == "obb":
+            batch["segments_list"] = [s.get("segments", []) for s in samples]
         return batch

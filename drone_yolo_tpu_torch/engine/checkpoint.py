@@ -9,7 +9,7 @@ HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `weight/bias/running_mean/running_var`, RepVGG `dense/one/idbn` become
 `rbr_dense/rbr_1x1/rbr_identity`, Proto's transposed conv `up` (a (2, 2, out, in) kernel) becomes
 `upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's), and the head's
-sequences drop the JAX `m` level (Detect's `cv2`, `cv3`, Pose's and Segment's `cv4`). Names are the
+sequences drop the JAX `m` level (Detect's `cv2`, `cv3`, Pose's, Segment's and OBB's `cv4`). Names are the
 reference torch names (`model.<i>....`), which
 `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back.
 `from_jax_train_state` maps a whole JAX train state (params, optimizer state,
@@ -37,7 +37,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running
 _BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity", "up": "upsample"}
 _BRANCH_JAX = {v: k for k, v in _BRANCH.items()}
 _LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias"}
-_HEAD_SEQS = ("cv2", "cv3", "cv4")  # Detect's box and class branches, Pose's keypoint and Segment's mask branch
+_HEAD_SEQS = ("cv2", "cv3", "cv4")  # Detect's box and class branches; Pose's keypoint, Segment's mask, OBB's angle
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:

@@ -1,7 +1,7 @@
 """`YOLO` facade: build from a model yaml or load a `drone_yolo_tpu.v1` npz, then predict, track, train or validate.
 
-Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect, segment and pose models: predict,
-track, train and val (the predictor, trainer and validator chosen by the task), `save`, `load` (a
+Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect, segment, pose and obb models: predict,
+track (not of an obb model), train and val (the predictor, trainer and validator chosen by the task), `save`, `load` (a
 transfer of the weights whose name and shape match), `info`, `embed`, `reset_weights`,
 `names`, `stride`, and user callbacks forwarded to every trainer, validator and predictor
 the facade makes. The model lives on `device`, which is the CUDA card unless the caller
@@ -176,9 +176,9 @@ class YOLO:
 
     # -- modes -------------------------------------------------------------------------------------
     def predict(self, source=None, stream: bool = False, **kwargs):
-        """Detect (with masks for a segment model, keypoints for a pose model) on a source (`data/loaders.py`: files,
-        directories, globs, .txt lists, MJPEG AVI, numpy frames); returns a list of Results (a generator with
-        stream=True). The predictor, chosen by the task, is made at the first call, and again when the dtype changes;
+        """Detect (with masks for a segment model, keypoints for a pose model, oriented boxes for an obb model) on a
+        source (`data/loaders.py`: files, directories, globs, .txt lists, MJPEG AVI, numpy frames); returns a list of
+        Results (a generator with stream=True). The predictor, chosen by the task, is made at the first call, and again when the dtype changes;
         later calls update its arguments with theirs."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
@@ -204,6 +204,9 @@ class YOLO:
         video can go frame by frame. conf defaults to 0.1; `tracker` names a tracker yaml (bytetrack.yaml)."""
         from drone_yolo_tpu_torch.trackers.track import register_tracker
 
+        if self.task == "obb":
+            raise NotImplementedError("tracking an obb model is not ported yet (ROADMAP.md queue 1 item 5): the JAX "
+                                      "track callback reads only boxes, so it tracks nothing there")
         if not hasattr(self, "_pending_tracker_callbacks"):
             register_tracker(self, persist)
         kwargs["conf"] = kwargs.get("conf") or 0.1
@@ -212,7 +215,7 @@ class YOLO:
 
     def train(self, data=None, **kwargs) -> dict:
         """Train on the dataset yaml `data` with the task's trainer (`engine/trainer.py`, `models/yolo/segment.py`,
-        `models/yolo/pose.py`), then take over the best EMA weights; returns the last epoch's validation metrics."""
+        `models/yolo/pose.py`, `models/yolo/obb.py`), then take over the best EMA weights; returns the last epoch's validation metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         overrides = {**self.overrides, "device": str(self.device), **kwargs, "mode": "train"}
@@ -232,8 +235,8 @@ class YOLO:
 
     def val(self, data=None, **kwargs) -> dict:
         """Validate on the val split of the dataset yaml `data` with the task's validator (`engine/validator.py`,
-        `models/yolo/segment.py`, `models/yolo/pose.py`) in rectangular batches (rect=True unless the call says
-        otherwise, as the JAX facade); returns the metrics."""
+        `models/yolo/segment.py`, `models/yolo/pose.py`, `models/yolo/obb.py`) in rectangular batches (rect=True
+        unless the call says otherwise, as the JAX facade); returns the metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         args = {**self.overrides, "rect": True, "mode": "val", "device": str(self.device), **kwargs}

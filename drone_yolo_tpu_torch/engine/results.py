@@ -1,16 +1,23 @@
-"""Inference results: `Results` per image with its `Boxes`, `Masks` and `Keypoints`, numpy-backed.
+"""Inference results: `Results` per image with its `Boxes`, `Masks`, `Keypoints` and `OBB`, numpy-backed.
 
-Counterpart of `drone_yolo_tpu/engine/results.py` (Boxes, Masks, Keypoints, Results) for
-detection, tracking, segmentation and pose: boxes of 6 columns (xyxy, conf, cls) or, from a
+Counterpart of `drone_yolo_tpu/engine/results.py` (Boxes, Masks, Keypoints, OBB, Results) for
+detection, tracking, segmentation, pose and oriented boxes: boxes of 6 columns (xyxy, conf, cls) or, from a
 tracker, 7 (xyxy, track id, conf, cls); masks (N, H, W) bool at the original image's size,
 whose `xy` outlines come from `ops/polygon.py:find_contours` (`cv2.findContours`); keypoints
-(N, K, 2 or 3). A `Results` indexes, slices and updates all of them together. `save_txt` writes
-YOLO-format label lines (of the boxes, as the JAX package), `save_crop` the boxes' crops as JPEG (the
-port's encoder), `summary`/`to_json` a list of dicts (with each mask's outline as `segments`). Drawing
-(`plot`, and `save` and `show`, which draw) is not ported yet and is refused by name.
+(N, K, 2 or 3); oriented boxes (N, 7) cx, cy, w, h, angle (radians), conf, cls. A `Results` indexes, slices and
+updates all of them together. `save_txt` writes YOLO-format label lines (of the boxes, as the JAX package, and of
+the oriented boxes), `save_crop` the boxes' crops as JPEG (the port's encoder), `summary`/`to_json` a list of dicts
+(with each mask's outline as `segments`). Drawing (`plot`, and `save` and `show`, which draw) is not ported yet and
+is refused by name.
 
 `summary` differs from the JAX package on purpose for masks: there it reads `self.masks[i].xy[0]`, the outline of
 the mask's first row, which fails; here it reads the i-th mask's outline, `masks.xy[i]`, as Ultralytics does.
+
+Oriented boxes differ from the JAX package on purpose, as Ultralytics has them: `save_txt` writes a line
+'cls x1 y1 x2 y2 x3 y3 x4 y4 [conf]' per box, its corners normalised to the original image (the JAX package writes
+nothing for them); `summary` gives the four corners as `box` (x1, y1, ..., x4, y4; the JAX package labels cx, cy, w,
+h as x1, y1, x2, y2 and divides the angle by the height); a frame without detections has an empty `OBB` (the JAX
+package gives None). `save_crop` writes nothing for them, as in both.
 
 `save_crop` differs from the JAX package on purpose: there every crop of one class in
 one image goes to the same `<stem>.jpg`, each overwriting the last; here the second and
@@ -27,6 +34,7 @@ import numpy as np
 
 from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
 from drone_yolo_tpu_torch.ops.polygon import contour_area, find_contours
+from drone_yolo_tpu_torch.ops.rotated import xywhr2xyxyxyxy
 
 PLOT_REFUSAL = "drawing results (Results.plot, save, show) is not ported yet (ROADMAP.md queue 1 item 4)"
 
@@ -134,42 +142,105 @@ class Masks:
         return out
 
 
-class Results:
-    """Result of one image: the original frame, its path, the class names, boxes, masks, keypoints and timings."""
+class OBB:
+    """Oriented boxes (N, 7) cx, cy, w, h, angle, conf, cls, or tracks (N, 8) with the track id before conf, in the
+    original image's pixels, the angle in radians."""
 
-    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, speed=None):
+    def __init__(self, boxes, orig_shape):
+        boxes = np.asarray(boxes)
+        if boxes.ndim == 1:
+            boxes = boxes[None, :]
+        if boxes.shape[-1] not in (7, 8):
+            raise ValueError(f"expected 7 or 8 columns, got shape {boxes.shape}")
+        self.data = boxes
+        self.orig_shape = orig_shape
+        self.is_track = boxes.shape[-1] == 8
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        return OBB(self.data[idx], self.orig_shape)
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, -2]
+
+    @property
+    def cls(self):
+        return self.data[:, -1]
+
+    @property
+    def id(self):
+        """Track ids, or None for detections."""
+        return self.data[:, -3] if self.is_track else None
+
+    @property
+    def xyxyxyxy(self):
+        """The four corners (N, 4, 2): centre + w/2 (cos, sin) + h/2 (-sin, cos), then +-, --, -+."""
+        return xywhr2xyxyxyxy(self.data[:, :5]).reshape(-1, 4, 2)
+
+    @property
+    def xyxyxyxyn(self):
+        """The corners over the original image's width and height."""
+        pts = self.xyxyxyxy.copy()
+        pts[..., 0] /= self.orig_shape[1]
+        pts[..., 1] /= self.orig_shape[0]
+        return pts
+
+    @property
+    def xyxy(self):
+        """The axis-aligned extent of each rotated box (N, 4)."""
+        pts = self.xyxyxyxy
+        return np.concatenate([pts.min(axis=1), pts.max(axis=1)], axis=-1)
+
+
+class Results:
+    """Result of one image: the original frame, its path, the class names, boxes, masks, keypoints, oriented boxes and
+    timings."""
+
+    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, obb=None, speed=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
+        self.obb = OBB(obb, self.orig_shape) if obb is not None else None
         self.names = names
         self.path = path
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
-        for v in (self.boxes, self.masks, self.keypoints):
+        for v in (self.boxes, self.masks, self.keypoints, self.obb):
             if v is not None:
                 return len(v)
         return 0
 
     def __getitem__(self, idx) -> Results:
-        """The result of the instances `idx` (an index, a slice or an index array) of boxes, masks and keypoints."""
+        """The result of the instances `idx` (an index, a slice or an index array) of boxes, masks, keypoints and
+        oriented boxes."""
         r = Results(self.orig_img, self.path, self.names, speed=self.speed)
-        for k in ("boxes", "masks", "keypoints"):
+        for k in ("boxes", "masks", "keypoints", "obb"):
             v = getattr(self, k)
             if v is not None:
                 setattr(r, k, v[idx])
         return r
 
-    def update(self, boxes=None, masks=None, keypoints=None) -> None:
-        """Replace the boxes (6 or 7 columns), the masks and/or the keypoints; what is None stays."""
+    def update(self, boxes=None, masks=None, keypoints=None, obb=None) -> None:
+        """Replace the boxes (6 or 7 columns), the masks, the keypoints and/or the oriented boxes; what is None
+        stays."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
         if masks is not None:
             self.masks = Masks(masks, self.orig_shape)
         if keypoints is not None:
             self.keypoints = Keypoints(keypoints, self.orig_shape)
+        if obb is not None:
+            self.obb = OBB(obb, self.orig_shape)
 
     def plot(self, *args, **kwargs):
         raise NotImplementedError(PLOT_REFUSAL)
@@ -184,12 +255,15 @@ class Results:
         return self.names.get(c, str(c)) if isinstance(self.names, dict) else self.names[c]
 
     def save_txt(self, txt_file, save_conf: bool = False) -> None:
-        """Append the boxes as YOLO-format lines 'cls cx cy w h [conf]', normalised to the original image."""
-        if self.boxes is None:
-            return
+        """Append YOLO-format lines normalised to the original image: 'cls cx cy w h [conf]' per box, or 'cls x1 y1 x2
+        y2 x3 y3 x4 y4 [conf]' per oriented box (its corners)."""
         h, w = self.orig_shape
         texts = []
-        for d in self.boxes.data:
+        if self.obb is not None:
+            for d, pts in zip(self.obb.data, self.obb.xyxyxyxyn):
+                line = (int(d[-1]), *pts.reshape(-1).tolist()) + ((float(d[-2]),) if save_conf else ())
+                texts.append(("%g " * len(line)).rstrip() % line)
+        for d in self.boxes.data if self.boxes is not None else ():
             c, conf_v = int(d[-1]), float(d[-2])
             x1, y1, x2, y2 = d[:4]
             box = np.array([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1]) / np.array([w, h, w, h])
@@ -221,13 +295,21 @@ class Results:
         return written
 
     def summary(self, normalize: bool = False, decimals: int = 5) -> list[dict]:
-        """One dict per box: name, class, confidence, box (x1, y1, x2, y2; over the image size with normalize), the
-        mask's outline x, y as `segments` when there are masks, and the keypoints' x, y (and visible) when there are
-        keypoints."""
+        """One dict per box: name, class, confidence, box (x1, y1, x2, y2, or an oriented box's four corners x1, y1,
+        ..., x4, y4; over the image size with normalize), the mask's outline x, y as `segments` when there are masks,
+        and the keypoints' x, y (and visible) when there are keypoints."""
         out = []
+        h, w = self.orig_shape if normalize else (1, 1)
+        if self.obb is not None:
+            for d, pts in zip(self.obb.data, self.obb.xyxyxyxy):
+                c = int(d[-1])
+                box = {}
+                for j, (x, y) in enumerate(pts, 1):
+                    box[f"x{j}"], box[f"y{j}"] = round(float(x) / w, decimals), round(float(y) / h, decimals)
+                out.append({"name": self._name(c), "class": c, "confidence": round(float(d[-2]), decimals), "box": box})
+            return out
         if self.boxes is None:
             return out
-        h, w = self.orig_shape if normalize else (1, 1)
         outlines = self.masks.xy if self.masks is not None else None
         for i, d in enumerate(self.boxes.data):
             c, conf_v = int(d[-1]), float(d[-2])
@@ -249,10 +331,11 @@ class Results:
         return json.dumps(self.summary(normalize, decimals), indent=2)
 
     def verbose(self) -> str:
-        """'2 cars, 1 bus, ' style summary, classes in index order."""
-        if self.boxes is None or not len(self.boxes):
+        """'2 cars, 1 bus, ' style summary of the boxes or oriented boxes, classes in index order."""
+        data = self.obb if self.obb is not None else self.boxes
+        if data is None or not len(data):
             return "(no detections), "
         counts = {}
-        for c in self.boxes.cls.astype(int):
+        for c in data.cls.astype(int):
             counts[c] = counts.get(c, 0) + 1
         return "".join(f"{n} {self._name(c)}{'s' * (n > 1)}, " for c, n in sorted(counts.items()))

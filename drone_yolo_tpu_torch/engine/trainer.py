@@ -27,10 +27,13 @@ Built with `train_loader` (any sized iterable of batches in the collate format,
 `val_loader` (collate-format batches with `ori_shapes` and `ratio_pads`) `validate` runs
 `engine/validator.py` on the EMA weights over it. Device augmentation is not ported.
 
-A task trainer (`models/yolo/segment.py:SegmentationTrainer`, `models/yolo/pose.py:PoseTrainer`) sets `task`,
+A task trainer (`models/yolo/segment.py:SegmentationTrainer`, `models/yolo/pose.py:PoseTrainer`,
+`models/yolo/obb.py:OBBTrainer`) sets `task`,
 `loss_names` and `validator_class` and overrides `build_model`, `fits_data` and `get_criterion`; the loss items, the
 metrics and the columns of `results.csv` follow from them. A segment batch's `masks` go to the device with the rest
-of it; a multi-scale resize leaves them at their size, as in the JAX step (the loss resamples them).
+of it; a multi-scale resize leaves them at their size, as in the JAX step (the loss resamples them). An OBB batch's
+`rboxes` are scaled with the boxes and keypoints (cx, cy, w, h; the angle stays), which the JAX step forgets
+(ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -178,8 +181,8 @@ class BaseTrainer(CallbackMixin):
         return lr, lr, self.momentum
 
     def train_step(self, batch: dict, lr_w: float, lr_b: float, momentum: float, size: int | None = None):
-        """One micro-step on a collate-format batch, resized on the device to `size` (with its boxes and keypoints)
-        when given; returns (loss, items (len(loss_names),)) on the device, detached."""
+        """One micro-step on a collate-format batch, resized on the device to `size` (with its boxes, keypoints and
+        rotated boxes) when given; returns (loss, items (len(loss_names),)) on the device, detached."""
         batch = self.preprocess_batch(batch)
         if size and size != batch["img"].shape[2]:
             scale = size / batch["img"].shape[2]
@@ -189,6 +192,9 @@ class BaseTrainer(CallbackMixin):
             if "keypoints" in batch:  # x, y move with the image, visibility stays
                 kp = batch["keypoints"]
                 batch["keypoints"] = torch.cat([kp[..., :2] * scale, kp[..., 2:]], -1)
+            if "rboxes" in batch:  # cx, cy, w, h move with the image, the angle stays
+                rb = batch["rboxes"]
+                batch["rboxes"] = torch.cat([rb[..., :4] * scale, rb[..., 4:]], -1)
         with collect_bn_stats() as bn_stats:
             with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.args.amp):
                 out = self.model(batch["img"])  # the head's train output: maps (and a pose head's raw keypoints)

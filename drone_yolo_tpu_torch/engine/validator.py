@@ -1,8 +1,9 @@
 """Detection validator: the forward and multi-label NMS on the device, TP matching and mAP on the host.
 
 Counterpart of `drone_yolo_tpu/engine/validator.py` (BaseValidator, DetectionValidator)
-for the detect task, and the base of the pose and segment tasks' (`models/yolo/pose.py:PoseValidator`,
-`models/yolo/segment.py:SegmentationValidator`).
+for the detect task, and the base of the pose, segment and obb tasks' (`models/yolo/pose.py:PoseValidator`,
+`models/yolo/segment.py:SegmentationValidator`, `models/yolo/obb.py:OBBValidator`, which also overrides
+`postprocess`: rotated NMS).
 A batch goes to the device as uint8 and is normalised there; the model, an eval-mode fused
 copy in `args.dtype`, gives (B, A, 4 + nc [+ extra]) predictions; `ops/nms.py` keeps up to
 `max_det` per image from the top `pre_nms_topk` (anchor, class) candidates (K = 4096 by

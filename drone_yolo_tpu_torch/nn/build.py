@@ -27,8 +27,9 @@ REGISTRY = {
     "Detect": M.Detect,
     "Pose": M.Pose,
     "Segment": M.Segment,
+    "OBB": M.OBB,
 }
-HEAD_MODULES = {M.Detect, M.Pose, M.Segment}  # take the input widths of their levels as their last argument
+HEAD_MODULES = {M.Detect, M.Pose, M.Segment, M.OBB}  # take the input widths of their levels as their last argument
 BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.SPPF, M.RepVGGBlock}  # take (c1, c2, ...)
 REPEAT_MODULES = {M.C2f}  # take the repeat count as their third argument
 

@@ -1,7 +1,7 @@
-"""Detection, segmentation and pose models: the built layer list as one `nn.Module`, with stride probe, seeded init
+"""Detection, segmentation, pose and oriented box models: the built layer list as one `nn.Module`, with stride probe, seeded init
 and fuse.
 
-Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel / SegmentationModel / PoseModel,
+Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel / SegmentationModel / PoseModel / OBBModel,
 `guess_model_task`). Layers
 live in `self.model` (an `nn.ModuleList`), so parameter names are the reference
 torch names `model.<i>....`.
@@ -91,7 +91,8 @@ class DetectionModel(nn.Module):
     def forward(self, x: torch.Tensor, raw: bool = False):
         """(B, 3, H, W) -> ((B, A, 4 + nc) decoded predictions, per-level maps); `raw=True` gives the per-level
         (B, 4 * reg_max + nc, H, W) maps only; train mode gives the head's train output (`Detect.train_out`: the
-        maps, for a pose head the raw keypoints with them, for a segment head the mask coefficients and prototypes),
+        maps, for a pose head the raw keypoints with them, for a segment head the mask coefficients and prototypes, for
+        an OBB head the angles),
         undecoded.
 
         The input is cast to the parameters' dtype, the compute dtype. Train mode runs under
@@ -152,7 +153,14 @@ class SegmentationModel(DetectionModel):
     task = "segment"
 
 
-TASK2MODELCLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel}
+class OBBModel(DetectionModel):
+    """Oriented box model: a DetectionModel whose head is `OBB` (a rotated box per detection, its angle last).
+    Counterpart of `drone_yolo_tpu/nn/model.py` `OBBModel`."""
+
+    task = "obb"
+
+
+TASK2MODELCLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel}
 
 
 def guess_model_task(cfg) -> str:

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from drone_yolo_tpu_torch.ops.anchors import dist2bbox, make_anchors
+from drone_yolo_tpu_torch.ops.anchors import dist2bbox, dist2rbox, make_anchors
 from drone_yolo_tpu_torch.ops.bn_stats import BNSTATS_MODES, bn_stats, bn_stats_reference
 from drone_yolo_tpu_torch.ops.conv_s2 import conv2d_s2, covers
 
@@ -364,6 +364,41 @@ class Pose(Detect):
         pkpt = self.kpts_decode(kpt, [m.shape[2:] for m in maps])
         return torch.cat((self.decode(maps), pkpt), -1), (maps, kpt)
 
+
+
+class OBB(Detect):
+    """Oriented box head: Detect plus an angle branch `cv4` -> ne = 1 value per anchor, the angle
+    (sigmoid - 0.25) * pi in float32, in [-pi/4, 3pi/4).
+
+    Counterpart of `drone_yolo_tpu/nn/modules.py` `OBB`. `forward` gives (B, A, 4 + nc + 1): the rotated boxes
+    decoded by `dist2rbox` (centre and size in pixels), the sigmoid class scores, then the angle; and (maps, angle
+    (B, A, 1)). In train mode (`train_out`) it gives (maps, angle), so that `cv4` takes part in the loss. `cv4`'s last
+    conv keeps its init (no prior), as in the JAX package.
+    """
+
+    def __init__(self, nc=80, ne=1, ch=(), reg_max=16):
+        super().__init__(nc, ch, reg_max)
+        self.ne = ne
+        c4 = max(ch[0] // 4, ne)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, ne, 1)) for x in ch)
+
+    def angles(self, xs) -> torch.Tensor:
+        """(B, A, ne) angles in radians, float32, anchors level by level and row-major."""
+        raw = torch.cat([cv(x).flatten(2) for cv, x in zip(self.cv4, xs)], 2).transpose(1, 2)
+        return (wide(raw).sigmoid() - 0.25) * math.pi
+
+    def train_out(self, xs):
+        angle = self.angles(xs)
+        return self.raw_maps(xs), angle
+
+    def forward(self, xs):
+        angle = self.angles(xs)
+        maps = self.raw_maps(xs)
+        anchors, strides = make_anchors([m.shape[2:] for m in maps], self.stride, device=maps[0].device)
+        flat = torch.cat([m.flatten(2) for m in maps], 2).transpose(1, 2)  # (B, A, no)
+        dist = dfl_expectation(flat[..., : 4 * self.reg_max], self.reg_max)
+        rbox = dist2rbox(dist, angle, anchors[None]) * strides[None]
+        return torch.cat((rbox, flat[..., 4 * self.reg_max :].float().sigmoid(), angle), -1), (maps, angle)
 
 class Proto(nn.Module):
     """Mask prototypes: Conv k3 -> 2x2 stride-2 transposed conv (with bias) -> Conv k3 -> Conv k1 to `c2` maps.

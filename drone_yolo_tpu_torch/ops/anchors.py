@@ -1,4 +1,4 @@
-"""Grid anchors and the distance -> box transform of the anchor-free head."""
+"""Grid anchors and the distance -> box transforms of the anchor-free head, axis-aligned and rotated."""
 
 from __future__ import annotations
 
@@ -35,3 +35,14 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: int) -> 
     """xyxy boxes -> (l, t, r, b) distances from anchor points, clamped to [0, reg_max - 0.01] (the DFL targets)."""
     x1y1, x2y2 = bbox.chunk(2, -1)
     return torch.cat((anchor_points - x1y1, x2y2 - anchor_points), -1).clamp(0, reg_max - 0.01)
+
+
+def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tensor:
+    """(l, t, r, b) distances and an angle (..., 1) around anchor points -> (cx, cy, w, h): the centre offset
+    ((r - l) / 2, (b - t) / 2) rotated by the angle, w = l + r, h = t + b
+    (`drone_yolo_tpu/ops/anchors.py:dist2rbox`)."""
+    lt, rb = pred_dist.chunk(2, -1)
+    cos, sin = pred_angle.cos(), pred_angle.sin()
+    xf, yf = ((rb - lt) * 0.5).chunk(2, -1)
+    xy = torch.cat((xf * cos - yf * sin, xf * sin + yf * cos), -1) + anchor_points
+    return torch.cat((xy, lt + rb), -1)

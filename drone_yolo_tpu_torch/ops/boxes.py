@@ -1,4 +1,5 @@
-"""Box format conversion, clipping, rescaling and the CIoU of the box loss, on (..., 4) tensors."""
+"""Box format conversion, clipping, rescaling and the CIoU of the box loss, on (..., 4) tensors; the probabilistic IoU
+of rotated (..., 5) boxes."""
 
 from __future__ import annotations
 
@@ -60,3 +61,40 @@ def bbox_ciou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torc
     with torch.no_grad():
         alpha = v / (v - iou + (1 + eps))
     return iou - (rho2 / c2 + v * alpha)
+
+
+def _covariance(boxes: torch.Tensor):
+    """Covariance terms (a, b, c) of rotated (cx, cy, w, h, angle) boxes as Gaussians: diag(w^2, h^2) / 12 rotated by
+    the angle (`drone_yolo_tpu/ops/boxes.py:_get_covariance_matrix`)."""
+    a, b = boxes[..., 2] ** 2 / 12, boxes[..., 3] ** 2 / 12
+    cos, sin = boxes[..., 4].cos(), boxes[..., 4].sin()
+    cos2, sin2 = cos**2, sin**2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, CIoU: bool = False, eps: float = 1e-7) -> torch.Tensor:
+    """Probabilistic IoU of broadcastable rotated boxes (..., 5) (cx, cy, w, h, angle in radians) -> (...): one minus
+    the Hellinger distance of the boxes' Gaussians, the Bhattacharyya distance clamped to [eps, 100].
+
+    Counterpart of `drone_yolo_tpu/ops/boxes.py:probiou`, operation for operation; with `CIoU` the aspect term is
+    subtracted, its alpha a constant for the gradient.
+    """
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _covariance(obb1)
+    a2, b2, c2 = _covariance(obb2)
+    den = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / (den + eps) * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / (den + eps) * 0.5
+    t3 = torch.log(den / (4 * torch.sqrt((a1 * b1 - c1**2).clamp(min=0) * (a2 * b2 - c2**2).clamp(min=0)) + eps)
+                   + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    iou = 1 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    if CIoU:
+        w1, h1 = obb1[..., 2], obb1[..., 3]
+        w2, h2 = obb2[..., 2], obb2[..., 3]
+        v = (4 / math.pi**2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+        with torch.no_grad():
+            alpha = v / (v - iou + (1 + eps))
+        return iou - v * alpha
+    return iou

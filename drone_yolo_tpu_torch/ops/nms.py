@@ -14,6 +14,9 @@ Counterpart of `drone_yolo_tpu/ops/nms.py:non_max_suppression`:
    the two kernels, one each; composed they give `greedy_keep_reference`'s mask;
 3. compact the kept candidates, with their extra columns, into `max_det` slots,
    zero-padded, with a count.
+
+`nms_rotated` is the oriented boxes' NMS (`drone_yolo_tpu/ops/nms.py:nms_rotated`): fast (matrix) suppression by
+probiou, in plain tensor operations on the device, as the JAX package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from drone_yolo_tpu_torch.ops import cuda_nms
-from drone_yolo_tpu_torch.ops.boxes import xywh2xyxy
+from drone_yolo_tpu_torch.ops.boxes import probiou, xywh2xyxy
 
 MAX_WH = 7680  # class offset: boxes of different classes never overlap
 
@@ -160,3 +163,73 @@ def non_max_suppression(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres
         preds, conf_thres, pre_topk, classes, agnostic, multi_label, nc)
     keep = greedy_keep(off_boxes, valid, iou_thres)
     return compact(keep, cand_boxes, top_scores, cls_idx, max_det, cand_extra)
+
+
+def _fast_suppress(scores: torch.Tensor, over: torch.Tensor, conf_thres: float, same_cls=None) -> torch.Tensor:
+    """Fast-NMS survivors of K candidates with `scores` (K,): valid (score > conf_thres) and not overlapped (`over`
+    (K, K) bool, probiou >= iou) by any valid, higher-scored candidate (of the same class, where `same_cls` (K, K)
+    says so), whether or not that one survives; equal scores rank by index, the lower first."""
+    k = scores.shape[0]
+    valid = scores > conf_thres
+    idx = torch.arange(k, device=scores.device)
+    si, sj = scores[:, None], scores[None, :]
+    higher = (si > sj) | ((si == sj) & (idx[:, None] < idx[None, :]))
+    sup = higher & over & valid[:, None]
+    if same_cls is not None:
+        sup &= same_cls
+    return valid & ~sup.any(0)
+
+
+def nms_rotated(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45, max_det: int = 300,
+                pre_topk: int = 1024, nc: int = 0, multi_label: bool = False, classes=None):
+    """Batched NMS of oriented boxes by probiou, with the JAX package's fast (matrix) suppression.
+
+    Args:
+        preds: (B, A, 4 + nc + 1) float32: cx, cy, w, h in pixels, the nc sigmoid class scores, the angle in radians.
+        multi_label: every (anchor, class) score of the top K anchors is a candidate, each class suppressed on its
+            own (the validator's NMS); otherwise each anchor's best class (the predictor's), suppressed within it.
+        classes: optional list of class indices to keep: the other classes' scores are zeroed first, as in
+            `non_max_suppression` (the JAX `nms_rotated` has no such filter).
+
+    Per image the top K = min(pre_topk, A) anchors by best class score (ties to the lower index), their (K, K)
+    probiou once, then fast suppression: a candidate goes if a valid, higher-scored candidate of its class overlaps
+    it with probiou >= iou_thres. The kept ones are compacted by score (ties to the lower index).
+
+    Returns:
+        dets: (B, min(max_det, K [* nc]), 7) [cx, cy, w, h, angle, conf, cls], zero-padded.
+        n_valid: (B,) int32 count of real detections per image.
+    """
+    b, a, _ = preds.shape
+    nc = nc or preds.shape[2] - 5
+    k = min(pre_topk, a)
+    keep_cls = None
+    if classes is not None:
+        keep_cls = torch.zeros(nc, dtype=preds.dtype, device=preds.device)
+        keep_cls[torch.as_tensor(classes, dtype=torch.long).reshape(-1)] = 1.0
+    dets, counts = [], []
+    for i in range(b):
+        boxes, scores, angle = preds[i, :, :4], preds[i, :, 4:4 + nc], preds[i, :, 4 + nc:5 + nc]
+        if keep_cls is not None:
+            scores = scores * keep_cls
+        _, idx = scores.amax(-1).sort(descending=True, stable=True)
+        idx = idx[:k]
+        sc = scores[idx]  # (K, nc)
+        rb = torch.cat((boxes[idx], angle[idx]), -1)  # (K, 5)
+        over = probiou(rb[:, None, :], rb[None, :, :]) >= iou_thres
+        if multi_label and nc > 1:
+            keep = torch.stack([_fast_suppress(sc[:, c], over, conf_thres) for c in range(nc)], 1)  # (K, nc)
+            flat = torch.where(keep, sc, 0.0).reshape(-1)
+            top_s, flat_idx = flat.sort(descending=True, stable=True)
+            top_s, flat_idx = top_s[:max_det], flat_idx[:max_det]
+            ai, ci = flat_idx // nc, (flat_idx % nc).to(preds.dtype)
+        else:
+            s, cls = sc.amax(-1), sc.argmax(-1).to(preds.dtype)  # argmax: the first maximum, as jnp.argmax
+            keep = _fast_suppress(s, over, conf_thres, cls[:, None] == cls[None, :])
+            top_s, ai = torch.where(keep, s, 0.0).sort(descending=True, stable=True)
+            top_s, ai = top_s[:max_det], ai[:max_det]
+            ci = cls[ai]
+        sel = top_s > conf_thres
+        det = torch.cat((rb[ai], top_s[:, None], ci[:, None]), -1)
+        dets.append(det * sel[:, None].to(det.dtype))
+        counts.append(sel.sum(dtype=torch.int32))
+    return torch.stack(dets), torch.stack(counts)

@@ -1,10 +1,9 @@
-"""v8 detection, segmentation and pose losses: BCE on class logits, CIoU and DFL on task-aligned targets, mask BCE,
-keypoint OKS and visibility.
+"""v8 detection, segmentation, pose and oriented box losses: BCE on class logits, CIoU (probiou for rotated boxes) and
+DFL on task-aligned targets, mask BCE, keypoint OKS and visibility.
 
-Counterpart of `drone_yolo_tpu/utils/loss.py` (`bce_with_logits`, `df_loss`,
-`v8DetectionLoss`, `v8SegmentationLoss`, `v8PoseLoss`). Targets arrive padded to M slots per image with a validity
-mask, in the collate format (`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels,
-`mask` (B, M)); padded slots are zeroed so that they catch no anchor.
+Counterpart of `drone_yolo_tpu/utils/loss.py` (`bce_with_logits`, `df_loss`, `v8DetectionLoss`, `v8SegmentationLoss`,
+`v8PoseLoss`, `v8OBBLoss`). Targets arrive padded to M slots per image with a validity mask, in the collate format
+(`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels, `mask` (B, M)); padded slots are zeroed so that they catch no anchor.
 """
 
 from __future__ import annotations
@@ -13,11 +12,11 @@ import torch
 import torch.nn.functional as F
 
 from drone_yolo_tpu_torch.nn.modules import dfl_expectation, wide
-from drone_yolo_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
-from drone_yolo_tpu_torch.ops.boxes import bbox_ciou
+from drone_yolo_tpu_torch.ops.anchors import bbox2dist, dist2bbox, dist2rbox, make_anchors
+from drone_yolo_tpu_torch.ops.boxes import bbox_ciou, probiou, xywh2xyxy
 from drone_yolo_tpu_torch.ops.masks import crop_mask
 from drone_yolo_tpu_torch.utils.metrics import kpt_sigmas
-from drone_yolo_tpu_torch.utils.tal import TaskAlignedAssigner
+from drone_yolo_tpu_torch.utils.tal import RotatedTaskAlignedAssigner, TaskAlignedAssigner
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -197,4 +196,53 @@ class v8PoseLoss(v8DetectionLoss):
 
         items = torch.stack([p["loss_box"] * self.gains[0], loss_kpt * self.pose_gain, loss_kobj * self.kobj_gain,
                              p["loss_cls"] * self.gains[1], p["loss_dfl"] * self.gains[2]])
+        return items.sum() * b, items.detach()
+
+
+class v8OBBLoss(v8DetectionLoss):
+    """Oriented box criterion over the OBB head's train output (maps, angles (B, A, 1) in radians), in float32: the
+    class BCE, 1 - probiou of the predicted and assigned rotated boxes, and DFL on the assigned box's unrotated extent
+    (`bbox2dist` of its xywh -> xyxy, in grid units), each weighted by the summed target scores, on the rotated
+    task-aligned assignment (centres inside the rotated GT, probiou overlaps). Targets add `rboxes` (B, M, 5): cx, cy,
+    w, h in pixels and the angle in radians.
+
+    Counterpart of `drone_yolo_tpu/utils/loss.py:v8OBBLoss`, except that the predicted rotated box carries the
+    predicted angle, as the reference's `bbox_decode` gives it: the JAX loss decodes 4 columns (`dist2rbox`'s
+    centre and size), and its probiou then reads h^2 / 12 as the angle (JAX clamps the out-of-range index), so the
+    assignment and the box loss never see the predicted orientation (ROADMAP queue 3).
+
+    Returns (sum of the gained items * B, items (3,) detached: box, cls, dfl).
+    """
+
+    def __init__(self, model, **kw):
+        super().__init__(model, **kw)
+        self.assigner = RotatedTaskAlignedAssigner(topk=10, num_classes=self.nc, alpha=0.5, beta=6.0)
+
+    def __call__(self, outs, targets: dict):
+        feats, pred_angle = outs
+        b = feats[0].shape[0]
+        anchor_points, stride_tensor = make_anchors([f.shape[2:] for f in feats], self.strides, device=feats[0].device)
+        flat = torch.cat([f.flatten(2) for f in feats], 2).transpose(1, 2)
+        pred_distri, pred_scores = flat[..., : 4 * self.reg_max], wide(flat[..., 4 * self.reg_max :])
+        angle = wide(pred_angle)
+        pred_rboxes = torch.cat((dist2rbox(dfl_expectation(pred_distri, self.reg_max), angle, anchor_points), angle),
+                                -1)  # grid units, the angle in radians
+
+        mask_gt = targets["mask"].to(pred_scores.dtype)
+        gt_rboxes = targets["rboxes"].to(pred_scores.dtype) * mask_gt[..., None]
+        pred_px = torch.cat((pred_rboxes[..., :4] * stride_tensor, pred_rboxes[..., 4:]), -1)
+        _, t_rboxes, target_scores, fg_mask, _ = self.assigner(
+            pred_scores.detach().sigmoid(), pred_px.detach(), anchor_points * stride_tensor, targets["cls"].long(),
+            gt_rboxes, mask_gt)
+        target_scores_sum = target_scores.sum().clamp(min=1.0)
+        loss_cls = bce_with_logits(pred_scores, target_scores).sum() / target_scores_sum
+
+        t_grid = torch.cat((t_rboxes[..., :4] / stride_tensor, t_rboxes[..., 4:]), -1)
+        weight = target_scores.sum(-1) * fg_mask
+        loss_box = ((1.0 - probiou(pred_rboxes, t_grid)) * weight).sum() / target_scores_sum
+        target_ltrb = bbox2dist(anchor_points, xywh2xyxy(t_grid[..., :4]), self.reg_max - 1)
+        dfl = df_loss(wide(pred_distri).unflatten(-1, (4, self.reg_max)), target_ltrb, self.reg_max)[..., 0]
+        loss_dfl = (dfl * weight).sum() / target_scores_sum
+
+        items = torch.stack([loss_box * self.gains[0], loss_cls * self.gains[1], loss_dfl * self.gains[2]])
         return items.sum() * b, items.detach()

@@ -1,8 +1,9 @@
-"""Detection, segmentation and pose metrics on the host, in numpy: box IoU, keypoint OKS, TP matching, 101-point AP,
-per-class P/R/AP.
+"""Detection, segmentation, pose and oriented box metrics on the host, in numpy: box IoU, keypoint OKS, TP matching,
+101-point AP, per-class P/R/AP.
 
 A copy of `drone_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions`,
-`compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`, `SegmentMetrics`, `kpt_iou`, `PoseMetrics`) and of
+`compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`, `SegmentMetrics`, `kpt_iou`, `PoseMetrics`,
+`OBBMetrics`) and of
 the COCO keypoint sigmas of `drone_yolo_tpu/models/yolo/pose.py:OKS_SIGMA_NP`, which follow the
 reference ultralytics `utils/metrics.py`. The card produces the detections; matching
 and accumulation are host work, as in the JAX package.
@@ -294,3 +295,11 @@ class SegmentMetrics(DetMetrics):
     @property
     def fitness(self):
         return self.box.fitness() + self.seg.fitness()
+
+
+class OBBMetrics(DetMetrics):
+    """Rotated-box AP: `DetMetrics` over TP matched by probiou, by the box metrics' keys."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.task = "obb"

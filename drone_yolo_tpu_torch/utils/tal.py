@@ -1,6 +1,8 @@
-"""Task-aligned assigner: anchors to padded GT boxes by score^alpha * CIoU^beta.
+"""Task-aligned assigner: anchors to padded GT boxes by score^alpha * IoU^beta, with CIoU for axis-aligned boxes and
+probiou for rotated ones.
 
-Counterpart of `drone_yolo_tpu/utils/tal.py` (`assign`, `TaskAlignedAssigner`), with
+Counterpart of `drone_yolo_tpu/utils/tal.py` (`assign`, `TaskAlignedAssigner`, `select_candidates_in_rotated_gts`,
+`assign_rotated`, `RotatedTaskAlignedAssigner`), with
 its results and without its TPU workarounds (anchor padding, optimization
 barriers, the blocked top-k, one-hot contractions in place of gathers):
 
@@ -8,7 +10,7 @@ barriers, the blocked top-k, one-hot contractions in place of gathers):
   (`topk(...).values[..., -1:]`, duplicates counted), so anchors tied at the k-th
   place are all admitted, as `kth_largest` admits them; `topk`'s indices are
   never used;
-* an anchor claimed by several GTs goes to the one of largest CIoU, the first on
+* an anchor claimed by several GTs goes to the one of largest IoU, the first on
   ties (`argmax`, as `jnp.argmax`);
 * class scores and targets are exact gathers.
 """
@@ -18,6 +20,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from drone_yolo_tpu_torch.ops.boxes import probiou
 
 
 def _fpow(x: torch.Tensor, p: float) -> torch.Tensor:
@@ -76,13 +80,39 @@ def assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk
         target_labels (B, A) long, target_bboxes (B, A, 4), target_scores (B, A, nc),
         fg_mask (B, A) bool, target_gt_idx (B, A) long.
     """
+    return _assign(pd_scores, select_candidates_in_gts(anc_points, gt_bboxes), _ciou_gt_pd(gt_bboxes, pd_bboxes),
+                   gt_labels, gt_bboxes, mask_gt, topk, num_classes, alpha, beta, eps)
+
+
+def select_candidates_in_rotated_gts(xy_centers: torch.Tensor, gt_rboxes: torch.Tensor, eps: float = 1e-9):
+    """(A, 2) anchor centres strictly inside (B, M, 5) rotated GT boxes -> (B, M, A) bool: the offset from each box's
+    centre, rotated into the box's frame, within half its width and height less eps."""
+    cx, cy, w, h, r = (gt_rboxes[..., i, None] for i in range(5))
+    cos, sin = r.cos(), r.sin()
+    dx, dy = xy_centers[:, 0] - cx, xy_centers[:, 1] - cy  # (B, M, A)
+    u, v = dx * cos + dy * sin, -dx * sin + dy * cos
+    return (u.abs() < w / 2 - eps) & (v.abs() < h / 2 - eps)
+
+
+@torch.no_grad()
+def assign_rotated(pd_scores, pd_rboxes, anc_points, gt_labels, gt_rboxes, mask_gt, topk: int = 10,
+                   num_classes: int = 80, alpha: float = 0.5, beta: float = 6.0, eps: float = 1e-9):
+    """Task-aligned assignment of rotated boxes: `assign` with (B, A, 5) and (B, M, 5) xywhr boxes (angles in
+    radians), centres inside the rotated GT and probiou overlaps. Returns target_rboxes (B, A, 5) in place of the
+    target boxes."""
+    overlaps = probiou(gt_rboxes[:, :, None, :], pd_rboxes[:, None, :, :])
+    return _assign(pd_scores, select_candidates_in_rotated_gts(anc_points, gt_rboxes), overlaps, gt_labels, gt_rboxes,
+                   mask_gt, topk, num_classes, alpha, beta, eps)
+
+
+def _assign(pd_scores, mask_in_gts, overlaps, gt_labels, gt_boxes, mask_gt, topk, num_classes, alpha, beta, eps):
+    """The assignment given each anchor's candidacy (B, M, A) and its IoU with each GT (B, M, A)."""
     b, a, nc = pd_scores.shape
-    m = gt_bboxes.shape[1]
+    m = gt_boxes.shape[1]
     mask_gt = mask_gt.bool().reshape(b, m)
-    mask_in_gts = select_candidates_in_gts(anc_points, gt_bboxes)  # (B, M, A)
     gl = gt_labels.long().clamp(0, nc - 1)  # (B, M)
     bov = pd_scores.transpose(1, 2).gather(1, gl[..., None].expand(b, m, a))  # score of each anchor at each GT's class
-    overlaps = _ciou_gt_pd(gt_bboxes, pd_bboxes).clamp(min=0)
+    overlaps = overlaps.clamp(min=0)
     valid = mask_in_gts & mask_gt[..., None]
     align = torch.where(valid, _fpow(bov, alpha) * _fpow(overlaps, beta), 0.0)
 
@@ -94,7 +124,7 @@ def assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk
     claimed = torch.zeros_like(mask_pos).scatter_(1, target_gt_idx[:, None], True)
     mask_pos = claimed & fg_mask[:, None] & mask_pos
 
-    target_bboxes = gt_bboxes.gather(1, target_gt_idx[..., None].expand(b, a, 4))
+    target_bboxes = gt_boxes.gather(1, target_gt_idx[..., None].expand(b, a, gt_boxes.shape[-1]))
     target_labels = gl.gather(1, target_gt_idx)
 
     align_pos = torch.where(mask_pos, align, 0.0)
@@ -116,3 +146,11 @@ class TaskAlignedAssigner:
     def __call__(self, pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt):
         return assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk=self.topk,
                       num_classes=self.num_classes, alpha=self.alpha, beta=self.beta, eps=self.eps)
+
+
+class RotatedTaskAlignedAssigner(TaskAlignedAssigner):
+    """`assign_rotated` with its hyperparameters bound."""
+
+    def __call__(self, pd_scores, pd_rboxes, anc_points, gt_labels, gt_rboxes, mask_gt):
+        return assign_rotated(pd_scores, pd_rboxes, anc_points, gt_labels, gt_rboxes, mask_gt, topk=self.topk,
+                              num_classes=self.num_classes, alpha=self.alpha, beta=self.beta, eps=self.eps)

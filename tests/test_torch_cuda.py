@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, a train step through them, and the segment masks, on the card.
+"""The port's CUDA kernels against their plain versions, a train step through them, the segment masks and the rotated
+NMS, on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device. The module
 imports neither JAX nor the JAX package, so it runs on a machine that has only
@@ -12,18 +13,20 @@ import pytest
 import torch
 
 from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_sites, bn_stats_errors, clustered_boxes, s2_site_inputs, s2_sites,
-                        synthetic_batch, synthetic_pose_batch, synthetic_seg_batch)
+                        synthetic_batch, synthetic_obb_batch, synthetic_pose_batch, synthetic_seg_batch)
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+from drone_yolo_tpu_torch.models.yolo.obb import OBBTrainer
 from drone_yolo_tpu_torch.models.yolo.pose import PoseTrainer
 from drone_yolo_tpu_torch.models.yolo.segment import SegmentationTrainer
 from drone_yolo_tpu_torch.nn import modules as M
-from drone_yolo_tpu_torch.nn.model import PoseModel, SegmentationModel
+from drone_yolo_tpu_torch.nn.model import OBBModel, PoseModel, SegmentationModel
 from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
 from drone_yolo_tpu_torch.ops.masks import process_mask, scale_masks
 from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
+from drone_yolo_tpu_torch.ops.boxes import probiou
 from drone_yolo_tpu_torch.ops.nms import (
-    compact, greedy_keep, greedy_keep_reference, non_max_suppression, select_candidates, suppression_words_reference,
-    sweep_reference)
+    compact, greedy_keep, greedy_keep_reference, nms_rotated, non_max_suppression, select_candidates,
+    suppression_words_reference, sweep_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -405,3 +408,97 @@ def test_segment_train_step_with_both_kernels_matches_stock(cuda_device):
     np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
     for name, want in st_s["params"].items():
         torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s2_kernel_at_the_obb_sites(cuda_device, dtype):
+    """yolov8s-obb's 7 dense k=3 stride-2 sites at DOTA's training size (batch 8, 1024 px; layer 0's dw sums
+    2,097,152 products) against the plain version, as chip_smoke's obb phase holds them."""
+    sites = s2_sites(OBBModel("yolov8s-obb.yaml", nc=15), 8, 1024)
+    assert [s["name"].split(".")[1] for s in sites] == ["0", "1", "3", "5", "7", "16", "19"]
+    assert sites[0]["dy"] == (8, 32, 512, 512) and sites[4]["x"] == (8, 256, 64, 64)
+    dt = getattr(torch, dtype)
+    for i, site in enumerate(sites):
+        x, w, dy = s2_site_inputs(site, dt, seed=200 + i)
+        dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+        torch.cuda.synchronize()
+        dx_p, dw_p = conv_s2.s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+        pairs = [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else [])
+        for what, got, want in pairs:
+            tol = dict(S2_TOL[dtype][what])
+            tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{site['name']} {what}: {m}")
+        del x, w, dy, dx, dw, dx_p, dw_p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_stats_kernel_at_the_obb_inputs(cuda_device, dtype):
+    """All 63 BN inputs of yolov8s-obb at batch 8, 1024 px (the largest (8, 32, 512, 512), 67.1 M values; the angle
+    branch cv4's 6 of 32 channels at 128, 64 and 32) against `bn_stats_reference` at chip_smoke's tolerance."""
+    sites = bn_sites(OBBModel("yolov8s-obb.yaml", nc=15), 8, 1024)
+    assert len(sites) == 63 and sites[0]["x"] == (8, 32, 512, 512)
+    assert sorted({b["x"] for b in sites if ".cv4." in b["name"]}) == [(8, 32, 32, 32), (8, 32, 64, 64),
+                                                                       (8, 32, 128, 128)]
+    for i, site in enumerate(sites):
+        g = torch.Generator(device=cuda_device).manual_seed(i)
+        x = (torch.randn(site["x"], generator=g, device=cuda_device) * 2 + 0.5).to(getattr(torch, dtype))
+        s, q = bn_stats(x)
+        errs = bn_stats_errors(x, s, q)
+        assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, (site, errs)
+        del x, s, q
+
+
+def test_obb_train_step_with_both_kernels_matches_stock(cuda_device):
+    """yolov8n-obb (nc 3), imgsz 64, batch 2, float32 (TF32 off): 2 steps with s2grad="cuda" and bnstats="cuda"
+    against 2 stock steps from the same init: 7 stride-2 calls and 63 BN-statistics calls a step."""
+    loader = [synthetic_obb_batch(np.random.default_rng(i), 2, 64, 3) for i in range(2)]
+    runs = {}
+    for mode in ("cuda", None):
+        trainer = OBBTrainer(overrides=dict(model="yolov8n-obb.yaml", batch=2, imgsz=64, nbs=2, optimizer="SGD",
+                                            amp=False, s2grad=mode, bnstats=mode), train_loader=loader, data={"nc": 3})
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        steps = trainer.run_steps()
+        assert cuda_s2bwd.s2_bwd_cuda.calls == {"s2_bwd_k3": 14 if mode else 0, "s2_bwd_k1": 0}
+        assert cuda_bnstats.bn_stats_cuda.calls == (2 * 63 if mode else 0)
+        runs[mode] = (steps, trainer.train_state())
+    (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
+    assert all(len(r["items"]) == 3 and r["items"][0] > 0 for r in steps_k)
+    np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
+    for name, want in st_s["params"].items():
+        torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("multi_label,k,nc", [(False, 1024, 15), (True, 4096, 15), (True, 256, 3)])
+def test_nms_rotated_on_the_card_matches_the_cpu(cuda_device, multi_label, k, nc):
+    """`nms_rotated` on the card against the same call on the CPU: the same detections (gathered, so equal bit for bit)
+    and counts, at the predictor's K = 1024 and the validator's K = 4096 with 15 classes (the (K, K)
+    probiou of each image once). The threshold is the one of 0.3-0.7 whose nearest pair of the CPU's probiou is
+    farthest from it (at least 2e-5, some 300 float32 steps at 0.7), so that float rounding on either side cannot
+    flip a suppression."""
+    rng = np.random.default_rng(k + nc)
+    b, a = 2, max(k, 2000)
+    preds = np.zeros((b, a, 4 + nc + 1), np.float32)
+    centres = rng.uniform(50, 950, (k // 8, 2))
+    preds[..., :2] = centres[rng.integers(0, len(centres), (b, a))] + rng.normal(0, 6, (b, a, 2))
+    preds[..., 2:4] = rng.uniform(10, 60, (b, a, 2))
+    preds[..., 4:4 + nc] = rng.choice([0.2, 0.4, 0.6, 0.8], (b, a, nc)) * rng.uniform(0.8, 1.0, (b, a, nc))
+    preds[..., -1] = rng.uniform(-np.pi / 4, 3 * np.pi / 4, (b, a))
+    cpu = torch.from_numpy(preds)
+    pairs = []
+    for i in range(b):  # the candidates nms_rotated takes: the top K anchors by best class score
+        idx = cpu[i, :, 4:4 + nc].amax(-1).sort(descending=True, stable=True).indices[:k]
+        rb = torch.cat((cpu[i, idx, :4], cpu[i, idx, -1:]), -1)
+        pairs.append(probiou(rb[:, None], rb[None]).flatten())
+    pairs = torch.cat(pairs).sort().values
+    grid = torch.linspace(0.3, 0.7, 401)
+    at = torch.searchsorted(pairs, grid).clamp(1, len(pairs) - 1)
+    gaps = torch.minimum((pairs[at] - grid).abs(), (pairs[at - 1] - grid).abs())
+    thr, margin = float(grid[gaps.argmax()]), float(gaps.max())
+    assert margin >= 2e-5, margin
+    kw = dict(conf_thres=0.25, iou_thres=thr, max_det=300, pre_topk=k, nc=nc, multi_label=multi_label)
+    want, want_n = nms_rotated(cpu, **kw)
+    got, got_n = nms_rotated(cpu.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_n.cpu(), want_n) and 0 < int(want_n.min())
+    assert torch.equal(got.cpu(), want)

@@ -16,8 +16,8 @@
   largest update: the port against a float64 run of itself within `REF_NOISE` (the bar of
   tests/test_torch_train.py), the JAX package against that float64 run within `JAX_LOOP_NOISE`,
   and the port against the JAX package within the sum of the two;
-- the loop, a pose model's epoch and val, and a segment model's epoch, val and predict, with jax, drone_yolo_tpu,
-  cv2, PIL, yaml and sklearn blocked.
+- the loop, a pose model's epoch and val, and a segment and an obb model's epoch, val and predict, with jax,
+  drone_yolo_tpu, cv2, PIL, yaml and sklearn blocked.
 """
 
 import json
@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from make_dataset import make_dataset, make_pose_dataset, make_seg_dataset
+from make_dataset import make_dataset, make_obb_dataset, make_pose_dataset, make_seg_dataset
 from test_torch_predict import BLOCKER
 from drone_yolo_tpu.engine.checkpoint import load_checkpoint as jax_load_checkpoint
 from drone_yolo_tpu.engine.checkpoint import save_checkpoint as jax_save_checkpoint
@@ -249,11 +249,18 @@ seg_metrics = seg.train(data=sys.argv[4], project=sys.argv[2], name="seg", epoch
 seg_last = YOLO(seg.trainer.wdir / "last.npz", device="cpu")
 seg_again = seg_last.val(data=sys.argv[4], imgsz=64, batch=2, dtype="float32")
 seg_pred = seg_last.predict(np.zeros((72, 96, 3), np.uint8), imgsz=64, conf=0.0, max_det=3, dtype="float32")[0]
+obb = YOLO("yolov8n-obb.yaml", device="cpu")
+obb_metrics = obb.train(data=sys.argv[5], project=sys.argv[2], name="obb", epochs=1, imgsz=64, batch=2, nbs=2,
+                        workers=1, amp=False, degrees=20.0, s2grad="cuda", bnstats="cuda")
+obb_last = YOLO(obb.trainer.wdir / "last.npz", device="cpu")
+obb_again = obb_last.val(data=sys.argv[5], imgsz=64, batch=2, dtype="float32")
+obb_pred = obb_last.predict(np.zeros((72, 96, 3), np.uint8), imgsz=64, conf=0.0, max_det=3, dtype="float32")[0]
 print(json.dumps({"metrics": metrics, "again": again, "epochs": len(model.trainer.epoch_stats),
                   "pose_metrics": pose_metrics, "pose_again": pose_again, "seg_metrics": seg_metrics,
                   "seg_again": seg_again, "seg_masks": list(seg_pred.masks.data.shape),
-                  "seg_outline": len(seg_pred.masks.xy), "loaded": sorted(m for m in BLOCKED if m in sys.modules),
-                  "sklearn": sys.modules["sklearn"] is None}))
+                  "seg_outline": len(seg_pred.masks.xy), "obb_metrics": obb_metrics, "obb_again": obb_again,
+                  "obb_corners": list(obb_pred.obb.xyxyxyxy.shape),
+                  "loaded": sorted(m for m in BLOCKED if m in sys.modules), "sklearn": sys.modules["sklearn"] is None}))
 """
 
 
@@ -261,12 +268,14 @@ def test_loop_runs_without_jax_cv2_pil_yaml(data_yaml, tmp_path):
     """Two epochs (mosaic, then closed), validation, checkpoints and a val of last.npz with the imports blocked (and
     sklearn); then a pose model's epoch over a pose dataset (`make_pose_dataset`) and a val of its last.npz; then a
     segment model's epoch over a polygon dataset (`make_seg_dataset`, copy-paste on), a val and a predict of its
-    last.npz with the masks' outlines."""
+    last.npz with the masks' outlines; then an obb model's epoch over a rotated-rectangle dataset (`make_obb_dataset`,
+    rotations on), a val and a predict of its last.npz with the oriented boxes' corners."""
     pose_yaml = str(make_pose_dataset(tmp_path / "pose", n_val=2, nc=2, seed=0, size=96, nkpt=4, n_train=4))
     seg_yaml = str(make_seg_dataset(tmp_path / "seg", n_val=2, nc=2, seed=0, size=96, n_train=4))
+    obb_yaml = str(make_obb_dataset(tmp_path / "obb", n_val=2, nc=2, seed=0, size=96, n_train=4))
     env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run([sys.executable, "-c", RUN_LOOP, data_yaml, str(tmp_path), pose_yaml, seg_yaml], cwd=REPO,
-                          env=env, capture_output=True, text=True, timeout=240)
+    proc = subprocess.run([sys.executable, "-c", RUN_LOOP, data_yaml, str(tmp_path), pose_yaml, seg_yaml, obb_yaml],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == [] and out["epochs"] == 2
@@ -276,6 +285,7 @@ def test_loop_runs_without_jax_cv2_pil_yaml(data_yaml, tmp_path):
     seg_keys = {*METRIC_KEYS, "metrics/precision(M)", "metrics/recall(M)", "metrics/mAP50(M)", "metrics/mAP50-95(M)"}
     assert set(out["seg_metrics"]) == set(out["seg_again"]) == seg_keys
     assert out["seg_masks"] == [3, 72, 96] and out["seg_outline"] == 3 and out["sklearn"]
+    assert set(out["obb_metrics"]) == set(out["obb_again"]) == set(METRIC_KEYS) and out["obb_corners"] == [3, 4, 2]
 
 
 def test_multi_scale_sizes_and_device_resize():
