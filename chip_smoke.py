@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
 validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, drives the
-command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model, and
-predicts with, trains and validates an instance segmentation model and an oriented box model.
+command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model,
+predicts with, trains and validates an instance segmentation model and an oriented box model, and does the same
+with the YOLO11 and YOLO12 families.
 
     python3 chip_smoke.py
 
@@ -88,12 +89,12 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    track + geo without the pose model; then the device's busy share over 8 steps of the full
    pipeline (torch.profiler), and `BYTETracker.update` alone on detection streams of 50, 200 and
    500 targets (`detection_stream`, 60 frames each);
-11. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 12
+11. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 6
    frames (`moving_frames`, seed 5: JPEG at 1920x1080, 1080x1920 and 1280x720, PNG at 1280x720), one MJPEG
    AVI of 8 1080p frames at 30000/1001 frames/s (`write_mjpeg_avi`, a RIFF writer around `encode_jpeg`), and
-   32 dense-proxy images cropped to 8 aspect ratios (`write_mixed_val`). The flagship's weights are
+   16 dense-proxy images cropped to 8 aspect ratios (`write_mixed_val`). The flagship's weights are
    `calibrated_weights` saved by `YOLO.save` with train_args imgsz 640. Through `cfg.entrypoint` strings, with no
-   imgsz: (a) predict over the directory with save_txt and save_crop (max_det 10), (b) track over clip.avi, then
+   imgsz: (a) predict over the directory with save_txt and save_crop (max_det 4), (b) track over clip.avi, then
    `DroneVideoPipeline.run("clip.avi")`, (c) val over the mixed set (rect, the facade's default) and with
    rect=False. Every NMS keep mask of (a)-(c) is held against `greedy_keep_reference`, counts set to 0 before
    them and read after them. Checks: one label file per image, crops written, track ids, the CSV of
@@ -106,7 +107,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
 12. pose: pose training and validation. `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth: the
    stride-2 backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites and the BN-statistics kernel against
    `bn_stats_reference` at all its 63 train-mode BN inputs (the keypoint branch's 6 of 51 channels among them), in
-   bfloat16 and float32 at batch 8, 640 px; then a seeded dataset of 32 train and 16 val images of 17-keypoint
+   bfloat16 and float32 at batch 8, 640 px; then a seeded dataset of 16 train and 8 val images of 17-keypoint
    figures (`write_pose_dataset`, the port's JPEG encoder, COCO's `flip_idx`), `YOLO("yolov8s-pose.yaml").train(...)`
    2 epochs at batch 8, 640 px, bf16 autocast, SGD, default augmentation, cache="ram", both kernels, with the EMA
    validated each epoch, and `YOLO(last.npz).val(...)` in rect batches. Every NMS keep mask of those validations is
@@ -150,7 +151,21 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    and oriented boxes per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and the
    data-wait share, validation img/s, peak card memory, the kernels' errors against the tolerance and their times,
    each beside the nvidia-smi line;
-15. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
+15. families: the YOLO11 and YOLO12 families (C3k2, C2PSA attention, A2C2f area attention, the depthwise class
+   branch). `yolo11s.yaml` and `yolo12s.yaml` (nc 80) at full width: both train kernels against their plain versions
+   at the 7 dense k=3 stride-2 sites (yolo11s layers 0, 1, 3, 5, 7, 17, 20; yolo12s 0, 1, 3, 5, 7, 15, 18) and at
+   every train-mode BN input (81 and 113), bf16 and float32, batch 8, 640 px, then one bf16 step's calls timed
+   against the plain versions, cuDNN's `convolution_backward` (each of yolo11s's sites alone too) and
+   `torch.batch_norm_stats`; predict with `calibrated_weights` on 720x1280 frames (`moving_frames`) at batch 1 and 8;
+   the float32 forward on the card against the CPU (TF32 off, `spread_weights`); 30 steps on one synthetic batch with
+   both kernels and 30 stock from the same init (batch 8, 640 px, bf16 autocast, SGD at a constant lr): the loss
+   falling in both, the first 3 within `TRAIN_LOSS_RTOL`, step ms, img/s and the device idle share of a profiled
+   step; one epoch from disk over 8 + 8 dense-proxy JPEGs at 640 px (`write_dense_dataset`) with both kernels and
+   rect val of `last.npz`. Then `yolo11s-pose`, `yolo11s-seg`, `yolo11s-obb` (1024 px) and `yolo12s-seg`: predict at
+   batch 8 and 5 fixed-batch steps with both kernels, each loss finite and falling. Every greedy-NMS keep mask is
+   held against `greedy_keep_reference`. Counts are set to 0 before each run and read after it: 7 stride-2 calls and
+   one BN call per BN input a step, one NMS call a predict or val batch (none for obb);
+16. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
    modules of every path (apps, trackers, the pose, segment and obb predictors, trainers and validators, the
    loaders, `ops/rotated.py`) loaded.
 
@@ -249,17 +264,18 @@ TRACK_CELL = dict(frames=64, hw=(1080, 1920), objects=60, obj_px=(24, 120), seed
                   geo=dict(lat=31.2304, lon=121.4737, altitude_m=80.0, yaw_deg=15.0, pitch_deg=90.0))
 TRACKER_TARGETS = (50, 200, 500)  # BYTETracker.update alone on detection streams of this many targets
 # the entry phase: one MJPEG AVI of 8 1080p frames (16 before the pose phase) at 30000/1001 frames/s; a directory of
-# 12 frames: the AVI's first 4 (JPEG 1920x1080), then JPEG 1080x1920 and 1280x720 and PNG 1280x720; a mixed-aspect
-# val set of the dense proxy at 640 px. The predict over the directory keeps 10 detections an image (max_det), whose
-# crops it writes: the port's numpy JPEG encoder writes each crop on the host, and the crops of 1080p frames are large
-ENTRY_CELL = dict(dir_from_avi=4, frames=(("jpg", (1920, 1080), 3), ("jpg", (720, 1280), 3), ("png", (720, 1280), 2)),
+# 6 frames (12 before the families phase): the AVI's first 2 (JPEG 1920x1080), then JPEG 1080x1920 and 1280x720 and
+# PNG 1280x720; a mixed-aspect val set of 16 dense-proxy images (32 before) at 640 px. The predict over the directory
+# keeps 4 detections an image (10 before; max_det), whose crops it writes: the port's numpy JPEG encoder writes each
+# crop on the host, and the crops of 1080p frames are large
+ENTRY_CELL = dict(dir_from_avi=2, frames=(("jpg", (1920, 1080), 2), ("jpg", (720, 1280), 1), ("png", (720, 1280), 1)),
                   avi_frames=8, avi_hw=(1080, 1920), avi_rate=(30000, 1001), objects=40, obj_px=(24, 120), seed=5,
-                  imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.05, crop_max_det=10, val_images=32,
+                  imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.05, crop_max_det=4, val_images=16,
                   val_batch=8, val_nc=6)
 # the pose phase: yolov8s-pose (nc 1, 17 keypoints) trained and validated at full width on a seeded dataset of figures
 # (`write_pose_dataset`), batch 8, 640 px, bf16 autocast, SGD, both kernels, default augmentation; then 30 steps on one
 # fixed batch at a constant lr (warmup_epochs 0), whose pose loss must fall
-POSE_CELL = dict(model="yolov8s-pose.yaml", n_train=32, n_val=16, imgsz=640, batch=8, epochs=2, seed=7, workers=4,
+POSE_CELL = dict(model="yolov8s-pose.yaml", n_train=16, n_val=8, imgsz=640, batch=8, epochs=2, seed=7, workers=4,
                  fixed_steps=30)
 # the segment phase: yolov8s-seg (nc 80, 32 prototypes) at full width on a seeded dataset of polygons
 # (`write_seg_dataset`): predict on 1080p frames at batch 1 and 8 with calibrated weights, one epoch from disk at
@@ -274,6 +290,17 @@ SEG_CELL = dict(model="yolov8s-seg.yaml", nc=80, n_train=8, n_val=8, imgsz=640, 
 OBB_CELL = dict(model="yolov8s-obb.yaml", nc=15, n_train=8, n_val=8, imgsz=1024, batch=8, seed=13, workers=4,
                 fixed_steps=30, objects=(8, 40), obj_px=(12, 160), frames=8, cls_gain=30.0, share_above_conf=0.02,
                 conf=0.25)
+# the families phase: yolo11s and yolo12s (nc 80, 640 px) with calibrated weights: predict on 720x1280 frames at batch
+# 1 and 8, the float32 forward on the card against the CPU, 30 fixed-batch steps with both kernels and 30 stock, one
+# epoch from disk over dense-proxy JPEGs with rect val of last.npz; then yolo11s-pose, -seg, -obb (1024 px) and
+# yolo12s-seg: predict at batch 8 and 5 fixed-batch steps with both kernels, each task's loss falling
+FAMILY_CELL = dict(models=("yolo11s.yaml", "yolo12s.yaml"), nc=80, imgsz=640, batch=8, frames=8, fixed_steps=30,
+                   n_train=8, n_val=8, data_nc=6, obj_px=(6, 24), seed=17, workers=4, cls_gain=30.0,
+                   share_above_conf=0.002, conf=0.25,
+                   tasks=(("yolo11s-pose.yaml", 640), ("yolo11s-seg.yaml", 640), ("yolo11s-obb.yaml", 1024),
+                          ("yolo12s-seg.yaml", 640)), task_steps=5)
+FAMILY_S2_LAYERS = {"yolo11s.yaml": ["0", "1", "3", "5", "7", "17", "20"],
+                    "yolo12s.yaml": ["0", "1", "3", "5", "7", "15", "18"]}
 ENTRY_VAL_ASPECTS = ((1.0, 1.0), (0.5625, 1.0), (1.0, 0.5625), (0.75, 1.0), (1.0, 0.75), (0.6, 1.0), (1.0, 0.8),
                      (0.9, 1.0))
 
@@ -639,10 +666,18 @@ def bn_stats_errors(x: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> dict:
     return out
 
 
+# the BN scale of the last conv of an attention block's residual branches (Attention's and AAttn's `proj`, PSABlock's
+# `ffn.1`, ABlock's `mlp.1`), which `spread_weights` takes down 10x
+RESIDUAL_BRANCH_BN = re.compile(r"\.(attn\.proj|ffn\.1|mlp\.1)\.bn\.weight$")
+
+
 def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
     """A redrawn float32 state dict of an unfused model whose activations stay O(1) through the
     depth: LeCun-normal kernels, BN statistics away from identity; the biases of the head's last
-    convs (the box and class priors) stay. Shared with the tests."""
+    convs (the box and class priors) stay. The attention blocks' residual branches end in a BN scale
+    of 0.05-0.15 (`RESIDUAL_BRANCH_BN`): at 0.5-1.5 each of yolo12s's ABlocks adds an O(1) branch to
+    its input, the activations and attention logits grow through the stack until the softmax picks by
+    rounding, and float32 forwards on two devices no longer agree. Shared with the tests."""
     out = {}
     for name, t in state_dict.items():
         if name.endswith("weight") and t.ndim == 4:
@@ -653,6 +688,8 @@ def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
             v = rng.normal(0.0, 0.1, t.shape)
         else:
             v = t.cpu().numpy()
+        if RESIDUAL_BRANCH_BN.search(name):
+            v = v * 0.1
         out[name] = torch.from_numpy(v.astype(np.float32))
     return out
 
@@ -2085,6 +2122,338 @@ def run_obb(smi: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+def run_families(smi: str) -> dict:
+    """Phase 15: the YOLO11 and YOLO12 families on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.models.yolo import TASK_MAP
+    from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, guess_model_task
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+    from drone_yolo_tpu_torch.ops.conv_s2 import s2_bwd_reference
+
+    c = FAMILY_CELL
+    k3, k1 = cuda_s2bwd.NAMES[3], cuda_s2bwd.NAMES[1]
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+
+    def counts() -> dict:
+        return {"s2_calls": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+                "nms_calls": cuda_nms.greedy_keep_cuda.calls,
+                "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches,
+                             "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                             **{n: cuda_s2bwd.s2_bwd_cuda.launches.get(n, 0) for n in (k3, k1)}}}
+
+    launches = defaultdict(int)
+
+    def add_launches(cnt: dict) -> None:
+        for k, v in cnt["launches"].items():
+            launches[k] += v
+
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        checks.append({"K": int(boxes.shape[1]), "valid": int(valid.sum()), "kept": int(keep.sum()),
+                       "equal": bool(torch.equal(keep, nms_ops.greedy_keep_reference(boxes, valid, iou_thres)))})
+        return keep
+
+    def train_kernels(name: str, seed: int, timed_sites: bool) -> dict:
+        """Both train kernels against their plain versions at the model's stride-2 sites and BN inputs (batch 8,
+        640 px, bf16 and float32), then one bf16 step's calls of each timed against the plain version and the library
+        call; with `timed_sites`, each stride-2 site alone against cuDNN there."""
+        probe = TASK2MODELCLASS[guess_model_task(name)](name, nc=c["nc"])
+        sites = s2_sites(probe, c["batch"], c["imgsz"])
+        if [s["name"].split(".")[1] for s in sites] != FAMILY_S2_LAYERS[name] or any(s["k"] != 3 for s in sites):
+            raise AssertionError(f"{name}: stride-2 sites {[(s['name'], s['k']) for s in sites]}")
+        s2_checks = []
+        for i, site in enumerate(sites):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, w, dy = s2_site_inputs(site, dtype, seed=seed + i)
+                dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+                dx_p, dw_p = s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+                dname = str(dtype).split(".")[1]
+                row = {"site": site["name"], "x": site["x"], "dtype": dname}
+                for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
+                    tol = dict(S2_TOL[dname][what])
+                    tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+                    torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} {site['name']} {dname} {what}: {m}")
+                    err = (got - want).abs()
+                    row[f"{what}_err"] = float(err.max())
+                    row[f"{what}_err_over_tol"] = float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
+                s2_checks.append(row)
+                del x, w, dy, dx, dw, dx_p, dw_p
+        bn = bn_sites(probe, c["batch"], c["imgsz"])
+        bn_worst = {"sum_err_over_tol": 0.0, "sumsq_err_over_tol": 0.0}
+        for i, site in enumerate(bn):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = site_input(site["x"], dtype, seed=seed + 100 + i)
+                s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
+                errs = bn_stats_errors(x, s_k, q_k)
+                if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
+                    raise AssertionError(f"{name} BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
+                bn_worst = {k: max(v, errs[k]) for k, v in bn_worst.items()}
+                del x, s_k, q_k
+        del probe
+
+        s2_in = [s2_site_inputs(site, torch.bfloat16, seed=seed + 300 + i) for i, site in enumerate(sites)]
+        pairs = list(zip(sites, s2_in))
+        s2_time = {}
+        for prefix, fn in {
+                "": lambda: [cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
+                "plain_": lambda: [s2_bwd_reference(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
+                "library_": lambda: [torch.ops.aten.convolution_backward(dy, x, w, None, [2, 2], [1, 1], [1, 1], False,
+                                                                         [0, 0], 1, [st["need_dx"], True, False])
+                                     for st, (x, w, dy) in pairs]}.items():
+            s2_time.update(kernel_times(fn, reps=2 if prefix == "plain_" else 5, prefix=prefix))
+        costs = [s2_cost(st) for st in sites]
+        b_ms = [n_bytes / PEAK_BYTES_PER_S * 1e3 for n_bytes, _ in costs]
+        o_ms = [n_ops / PEAK_BF16_PER_S * 1e3 for _, n_ops in costs]
+        s2_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                       calls=len(sites))
+        if timed_sites:  # each site alone: the kernel against cuDNN there
+            s2_time["sites"] = []
+            for st, (x, w, dy), bm, om in zip(sites, s2_in, b_ms, o_ms):
+                row = {"site": st["name"], "x": st["x"], "w": st["w"], "need_dx": st["need_dx"], "bound_ms": max(bm, om)}
+                row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=st["need_dx"]: cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, nd),
+                                        reps=10, site=True))
+                row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=st["need_dx"]: torch.ops.aten.convolution_backward(
+                    dy, x, w, None, [2, 2], [1, 1], [1, 1], False, [0, 0], 1, [nd, True, False]), reps=10,
+                    prefix="library_", site=True))
+                row.update(vs_library=row["ms"] / row["library_ms"], bound_share=row["bound_ms"] / row["ms"])
+                s2_time["sites"].append(row)
+        del s2_in, pairs
+        xs = [site_input(site["x"], torch.bfloat16, seed=seed + 400 + i) for i, site in enumerate(bn)]
+        bn_time = {}
+        for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],
+                           "plain_": lambda: [bn_stats_reference(x) for x in xs],
+                           "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
+            bn_time.update(kernel_times(fn, reps=5, prefix=prefix))
+        b_ms = [(2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3 for x in xs]
+        o_ms = [BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3 for x in xs]
+        bn_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                       calls=len(xs))
+        del xs
+        return {"s2_sites": [s["name"] for s in sites], "s2_checks": s2_checks, "bn_inputs": len(bn),
+                "bn_checks_worst": bn_worst, "s2_time": s2_time, "bn_time": bn_time}
+
+    def fixed_run(trainer_cls, name: str, batch: dict, data: dict, steps: int, s2grad, bnstats, imgsz: int) -> tuple:
+        trainer = trainer_cls(overrides=dict(model=name, batch=c["batch"], imgsz=imgsz, nbs=c["batch"], optimizer="SGD",
+                                             amp=True, s2grad=s2grad, bnstats=bnstats, warmup_epochs=0.0),
+                              train_loader=[batch] * steps, data=data)
+        reset()
+        run = trainer.run_steps()
+        cnt = counts()
+        add_launches(cnt)
+        return trainer, run, cnt
+
+    out = {"cell": {k: v for k, v in c.items()}, "nvidia_smi": smi, "models": {}, "tasks": {}, "stage_s": {}}
+    t_stage = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the last lap, kept under `name` in `stage_s`."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["stage_s"][name] = now - t_stage[0]
+        t_stage[0] = now
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_families_"))
+    try:
+        t0 = time.perf_counter()
+        data, round_trip = write_dense_dataset(tmp / "dense", c["n_train"], c["n_val"], c["imgsz"], seed=c["seed"],
+                                               nc=c["data_nc"], obj_px=c["obj_px"])
+        out["dataset_write_s"] = time.perf_counter() - t0
+        out["jpeg_round_trip"] = round_trip
+        rng = np.random.default_rng(c["seed"])
+        frames = moving_frames(rng, c["frames"], FRAME_HW, 60)
+        lap("inputs")
+        nms_ops.greedy_keep = checked_keep
+        try:
+            for mi, name in enumerate(c["models"]):
+                stem = Path(name).stem
+                row = train_kernels(name, seed=5000 + 1000 * mi, timed_sites=mi == 0)
+                n_bn = row["bn_inputs"]
+                lap(f"{stem}.kernels")
+
+                # predict at batch 1 and 8 with calibrated weights, every keep mask held against the plain keep
+                model = YOLO(name)
+                bias = calibrated_weights(model, frames[0], c["seed"], c["cls_gain"], c["share_above_conf"], c["conf"],
+                                          c["imgsz"])
+                n_checks = len(checks)
+                reset()
+                predict = {"cls_bias": bias}
+                for b in (1, 8):
+                    model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)  # warm-up
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)
+                    wall = time.perf_counter() - t0
+                    n_det = [len(r.boxes) for r in res]
+                    if not sum(n_det) or not all(np.isfinite(r.boxes.data).all() for r in res):
+                        raise AssertionError(f"{name} predict at batch {b}: {n_det} detections, or not finite")
+                    predict[f"batch{b}"] = {"img_per_s": b / wall, "n_det": n_det, "speed_ms_per_img": res[0].speed}
+                predict_counts = counts()
+                add_launches(predict_counts)
+                if predict_counts["nms_calls"] != 4 or len(checks) - n_checks != 4:
+                    raise AssertionError(f"{name} predict: {predict_counts['nms_calls']} NMS kernel calls, "
+                                         f"{len(checks) - n_checks} checked, expected 4 (2 calls at batch 1 and 8)")
+
+                # the float32 forward on the card against the CPU, weights spread so that activations stay O(1)
+                f32 = copy.deepcopy(model.model)
+                f32.load_state_dict(spread_weights(f32.state_dict(), np.random.default_rng(1)))
+                with torch.inference_mode():
+                    f32 = f32.fuse().float()
+                    x1 = model.predictor.preprocess(frames[:1]).float()
+                    preds_card = f32(x1)[0].cpu()
+                    preds_cpu = f32.cpu()(x1.cpu())[0]
+                del f32
+                box_err = float((preds_card[..., :4] - preds_cpu[..., :4]).abs().max())
+                score_rel_err = float(((preds_card[..., 4:] - preds_cpu[..., 4:]).abs() / preds_cpu[..., 4:]).max())
+                if not (box_err <= BOX_ATOL_PX and score_rel_err <= SCORE_RTOL):
+                    raise AssertionError(f"{name} float32 card vs CPU: box err {box_err} px, score rel err {score_rel_err}")
+                del model, res
+                lap(f"{stem}.predict_and_fp32")
+
+                # 30 fixed-batch steps with both kernels and 30 stock from the same init
+                batch = synthetic_batch(np.random.default_rng(c["seed"] + mi), c["batch"], c["imgsz"], c["nc"])
+                runs = {}
+                for mode, (s2grad, bnstats) in (("both", ("cuda", "cuda")), ("stock", (None, None))):
+                    torch.cuda.reset_peak_memory_stats()
+                    trainer, run, cnt = fixed_run(TASK_MAP["detect"]["trainer"], name, batch, {"nc": c["nc"]},
+                                                  c["fixed_steps"], s2grad, bnstats, c["imgsz"])
+                    want = ({k3: 7 * c["fixed_steps"], k1: 0}, n_bn * c["fixed_steps"]) if s2grad else ({k3: 0, k1: 0}, 0)
+                    if (cnt["s2_calls"], cnt["bn_calls"]) != want:
+                        raise AssertionError(f"{name} {mode} run: {cnt}, expected stride-2 and BN calls {want}")
+                    loss = [r["loss"] for r in run]
+                    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+                        raise AssertionError(f"{name} {mode} run: the fixed-batch loss did not fall: {loss}")
+                    ms = float(np.median([r["ms"] for r in run[1:]]))
+                    runs[mode] = {"loss": loss, "step_ms_median": ms, "img_per_s": c["batch"] / ms * 1e3,
+                                  "first_step_ms": run[0]["ms"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                  "counts": cnt}
+                    if mode == "both":
+                        hyp = trainer._warmup_hyp(trainer.ni, 0)
+                        runs[mode]["profile"] = profile_device(lambda: trainer.train_step(batch, *hyp)[0].item(), steps=3)
+                    del trainer
+                early = min(3, c["fixed_steps"])  # bf16 runs part at a constant lr: yolo12s's 5th losses differed 4%
+                if not np.allclose(runs["both"]["loss"][:early], runs["stock"]["loss"][:early], rtol=TRAIN_LOSS_RTOL):
+                    raise AssertionError(f"{name}: the first {early} losses with both kernels {runs['both']['loss'][:early]}"
+                                         f" against stock {runs['stock']['loss'][:early]}")
+                lap(f"{stem}.fixed_batch")
+
+                # one epoch from disk with both kernels, then rect val of last.npz
+                n_checks = len(checks)
+                reset()
+                t0 = time.perf_counter()
+                model = YOLO(name)
+                metrics = model.train(data=str(data), epochs=1, imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"],
+                                      optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
+                                      workers=c["workers"], project=str(tmp / "runs"), name=stem, exist_ok=True)
+                train_wall = time.perf_counter() - t0
+                train_counts = counts()
+                add_launches(train_counts)
+                tr = model.trainer
+                reset()
+                last = YOLO(tr.wdir / "last.npz")
+                t0 = time.perf_counter()
+                val_metrics = last.val(data=str(data))  # rect batches: the facade's default
+                val_wall = time.perf_counter() - t0
+                val_counts = counts()
+                add_launches(val_counts)
+                validator = last.validator
+                steps = tr.nb
+                if train_counts["s2_calls"] != {k3: 7 * steps, k1: 0} or train_counts["bn_calls"] != n_bn * steps:
+                    raise AssertionError(f"{name} epoch: {train_counts}, expected {7 * steps} stride-2 and "
+                                         f"{n_bn * steps} BN calls for {steps} steps")
+                val_batches = math.ceil(c["n_val"] / c["batch"]) + len(validator.dataloader)
+                epoch_checks = checks[n_checks:]
+                if len(epoch_checks) != val_batches or train_counts["nms_calls"] + val_counts["nms_calls"] != val_batches:
+                    raise AssertionError(f"{name}: {len(epoch_checks)} NMS calls checked, kernel calls "
+                                         f"{train_counts['nms_calls']} + {val_counts['nms_calls']}, for {val_batches} "
+                                         "val batches")
+                for what, m in (("train", metrics), ("val", val_metrics)):
+                    if len(m) != 5 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+                        raise AssertionError(f"{name} {what} metrics: {m}")
+                ep = tr.epoch_stats[0]
+                if not np.isfinite(ep["loss_items"]).all():
+                    raise AssertionError(f"{name} epoch loss items {ep['loss_items']}")
+                out["models"][name] = {
+                    **row, "predict": predict, "fp32_card_vs_cpu": {"box_err_px": box_err, "score_rel_err": score_rel_err,
+                                                                    "box_atol_px": BOX_ATOL_PX, "score_rtol": SCORE_RTOL},
+                    "fixed_batch": runs, "epoch": ep, "epoch_s": ep["train_s"], "train_wall_s": train_wall,
+                    "data_wait_share": ep["data_wait_s"] / ep["train_s"], "metrics_train": metrics,
+                    "metrics_val_rect": val_metrics, "val_img_per_s": validator.seen / val_wall,
+                    "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
+                    "counts": {"predict": predict_counts, "train": train_counts, "val": val_counts},
+                    "per_step": {"s2_calls": 7, "bn_calls": n_bn}}
+                del model, last, tr, validator
+                lap(f"{stem}.epoch_and_val")
+
+            # the task heads: predict at batch 8, 5 fixed-batch steps with both kernels, the loss falling
+            for ti, (name, imgsz) in enumerate(c["tasks"]):
+                task = guess_model_task(name)
+                trng = np.random.default_rng(c["seed"] + 10 + ti)
+                if task == "obb":
+                    tframes = [rotated_rect_image(trng, imgsz, (8, 40), (12, 160), 15)[0] for _ in range(c["batch"])]
+                    tbatch, tdata = synthetic_obb_batch(trng, c["batch"], imgsz, 15), {"nc": 15}
+                elif task == "pose":
+                    tframes = frames
+                    tbatch, tdata = synthetic_pose_batch(trng, c["batch"], imgsz, 1, 17), {"nc": 1, "kpt_shape": [17, 3]}
+                else:
+                    tframes = frames
+                    tbatch, tdata = synthetic_seg_batch(trng, c["batch"], imgsz, c["nc"]), {"nc": c["nc"]}
+                model = YOLO(name)
+                bias = calibrated_weights(model, tframes[0], c["seed"], c["cls_gain"], 0.02, c["conf"], imgsz)
+                n_checks = len(checks)
+                reset()
+                model.predict(tframes, imgsz=imgsz, conf=c["conf"], batch=c["batch"], verbose=False)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = model.predict(tframes, imgsz=imgsz, conf=c["conf"], batch=c["batch"], verbose=False)
+                wall = time.perf_counter() - t0
+                pcnt = counts()
+                add_launches(pcnt)
+                if task == "obb":
+                    n_det = [len(r.obb) for r in res]
+                    ok = all(np.isfinite(r.obb.data).all() for r in res) and pcnt["nms_calls"] == 0
+                else:
+                    n_det = [len(r.boxes) for r in res]
+                    ok = all(np.isfinite(r.boxes.data).all() for r in res) and pcnt["nms_calls"] == 2
+                    ok &= len(checks) - n_checks == 2
+                    if task == "pose":
+                        ok &= all(r.keypoints.data.shape == (len(r.boxes), 17, 3) for r in res)
+                    else:
+                        ok &= all(r.masks is None or r.masks.data.shape[0] == len(r.boxes) for r in res)
+                if not (sum(n_det) and ok):
+                    raise AssertionError(f"{name} predict at batch 8: {n_det} detections, checks {ok}, counts {pcnt}")
+                del model, res
+                n_bn = len(bn_sites(TASK2MODELCLASS[task](name, **({"nc": 15} if task == "obb" else {})), c["batch"], imgsz))
+                _, run, cnt = fixed_run(TASK_MAP[task]["trainer"], name, tbatch, tdata, c["task_steps"], "cuda", "cuda",
+                                        imgsz)
+                loss = [r["loss"] for r in run]
+                if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+                    raise AssertionError(f"{name}: the loss did not fall over {c['task_steps']} steps: {loss}")
+                if cnt["s2_calls"] != {k3: 7 * c["task_steps"], k1: 0} or cnt["bn_calls"] != n_bn * c["task_steps"]:
+                    raise AssertionError(f"{name} steps: {cnt}, expected 7 stride-2 and {n_bn} BN calls a step")
+                out["tasks"][name] = {"imgsz": imgsz, "predict_batch8_img_per_s": c["batch"] / wall, "n_det": n_det,
+                                      "cls_bias": bias, "loss": loss, "items": [r["items"] for r in run],
+                                      "step_ms_median": float(np.median([r["ms"] for r in run[1:]])),
+                                      "bn_inputs": n_bn, "counts": {"predict": pcnt, "steps": cnt}}
+                lap(Path(name).stem)
+        finally:
+            nms_ops.greedy_keep = kernel_keep
+        if not all(ch["equal"] for ch in checks):
+            raise AssertionError(f"families: keep masks unequal to the plain keep: {[ch for ch in checks if not ch['equal']]}")
+        out["nms_keep_checks"] = {"calls": len(checks), "all_equal_plain": True, "K": sorted({ch["K"] for ch in checks})}
+        out["launches"] = dict(launches)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2578,7 +2947,16 @@ def main() -> None:
         kern["launches_by_path"]["obb"] = n
     emit("obb", t, **obb)
 
-    # 15. imports ---------------------------------------------------------------
+    # 15. families: YOLO11 and YOLO12 on every ported task ------------------------------
+    t = time.perf_counter()
+    families = run_families(smi)
+    for kern in kernels:
+        n = families["launches"][kern["name"]]
+        kern["launches"] += n
+        kern["launches_by_path"]["families"] = n
+    emit("families", t, **families)
+
+    # 16. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401

@@ -8,9 +8,11 @@ YAML parsing (format: `drone_yolo_tpu/engine/checkpoint.py`).
 HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `weight/bias/running_mean/running_var`, RepVGG `dense/one/idbn` become
 `rbr_dense/rbr_1x1/rbr_identity`, Proto's transposed conv `up` (a (2, 2, out, in) kernel) becomes
-`upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's), and the head's
-sequences drop the JAX `m` level (Detect's `cv2`, `cv3`, Pose's, Segment's and OBB's `cv4`). Names are the
-reference torch names (`model.<i>....`), which
+`upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's), A2C2f's `gamma` keeps its
+name, and the sequences drop the JAX `m` level under which a JAX `_Seq` keeps its children (`_seq_m`):
+the head's branches (Detect's `cv2`, `cv3`, Pose's, Segment's and OBB's `cv4`), the sequences nested in
+them (the YOLO11/12 `cv3.<i>.<j>.<k>`), PSABlock's `ffn`, ABlock's `mlp` and A2C2f's pairs of ABlocks
+(`m.<i>.<j>`). Names are the reference torch names (`model.<i>....`), which
 `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back.
 `from_jax_train_state` maps a whole JAX train state (params, optimizer state,
 EMA, accumulated gradients) the same way.
@@ -33,11 +35,30 @@ import numpy as np
 import torch
 
 FORMAT = "drone_yolo_tpu.v1"
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var",
+         "gamma": "gamma"}
 _BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity", "up": "upsample"}
 _BRANCH_JAX = {v: k for k, v in _BRANCH.items()}
-_LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias"}
+_LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias", "gamma": "gamma"}
 _HEAD_SEQS = ("cv2", "cv3", "cv4")  # Detect's box and class branches; Pose's keypoint, Segment's mask, OBB's angle
+_NAMED_SEQS = ("ffn", "mlp")  # PSABlock's and ABlock's feed-forward sequences
+_ABLOCK = ("attn", "mlp")  # an ABlock's children: an A2C2f block `m.<i>` whose children have them is a sequence
+
+
+def _seq_m(path: list[str], j: int, dropped: set[int]) -> bool:
+    """Whether the "m" at `path[j]` of a JAX variable path is the level under which a `_Seq` keeps its children.
+
+    `dropped` holds the earlier positions of such levels in the path."""
+    if path[j] != "m" or j < 2:
+        return False
+    parent = path[j - 1]
+    if parent in _NAMED_SEQS:
+        return True
+    if not parent.isdigit():
+        return False
+    if path[j - 2] in _HEAD_SEQS or j - 2 in dropped:  # a head branch, or a sequence inside a sequence
+        return True
+    return path[j - 2] == "m" and j + 2 < len(path) and path[j + 2] in _ABLOCK  # A2C2f's pair of ABlocks
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -67,10 +88,11 @@ def unflatten_tree(flat: dict) -> dict:
 def _torch_name(parts: list[str]) -> str:
     """JAX variable path (layer index first) -> reference torch parameter name."""
     *path, leaf = parts
-    names = []
+    names, dropped = [], set()
     for j, p in enumerate(path):
-        if p == "m" and j >= 2 and path[j - 1].isdigit() and path[j - 2] in _HEAD_SEQS:
-            continue  # the head's branch sequences keep their children under "m" in JAX
+        if _seq_m(path, j, dropped):
+            dropped.add(j)
+            continue
         names.append(_BRANCH.get(p, p))
     if len(path) == 1 and leaf in ("kernel", "bias"):
         names.append("rbr_reparam")  # a layer-level kernel is a fused RepVGGBlock
@@ -99,8 +121,8 @@ def _jax_path(name: str, ndim: int) -> list[str]:
     for j, p in enumerate(path):
         if p == "rbr_reparam" and j == len(path) - 1:
             continue  # a fused RepVGGBlock's kernel lives at the layer level
-        if j >= 2 and p.isdigit() and path[j - 1].isdigit() and path[j - 2] in _HEAD_SEQS:
-            out.append("m")  # the head's branch sequences keep their children under "m" in JAX
+        if j >= 2 and p.isdigit() and (path[j - 1].isdigit() or path[j - 1] in _NAMED_SEQS):
+            out.append("m")  # a child of a sequence (a digit after a digit, or after ffn/mlp): JAX keeps it under "m"
         out.append(_BRANCH_JAX.get(p, p))
     if leaf == "weight":
         return out + ["kernel" if ndim == 4 else "scale"]

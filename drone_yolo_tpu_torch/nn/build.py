@@ -1,9 +1,12 @@
-"""Model YAML -> list of layers: the `[from, repeats, module, args]` row grammar of the v8 family.
+"""Model YAML -> list of layers: the `[from, repeats, module, args]` row grammar of the v8, YOLO11 and YOLO12 families.
 
 Counterpart of `drone_yolo_tpu/nn/build.py`: the same depth gain
 `max(round(n * depth), 1)`, width gain `make_divisible(min(c2, max_channels) * width, 8)`
-and n/s/m/l/x scale resolution. The model files are read by `load_yaml`, a
-reader for the subset of YAML they use, so the port needs no YAML package.
+and n/s/m/l/x scale resolution. A `C3k2` or `A2C2f` row builds the head with
+`legacy=False` (the depthwise class branch); at scales m, l and x `C3k2` takes
+C3k blocks, and at l and x `A2C2f` takes `residual` (its gamma) and mlp_ratio 1.2.
+The model files are read by `load_yaml`, a reader for the subset of YAML they use,
+so the port needs no YAML package.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ REGISTRY = {
     "Conv": M.Conv,
     "DWConv": M.DWConv,
     "C2f": M.C2f,
+    "C3k2": M.C3k2,
+    "C2PSA": M.C2PSA,
+    "A2C2f": M.A2C2f,
     "SPPF": M.SPPF,
     "RepVGGBlock": M.RepVGGBlock,
     "Concat": M.Concat,
@@ -30,8 +36,8 @@ REGISTRY = {
     "OBB": M.OBB,
 }
 HEAD_MODULES = {M.Detect, M.Pose, M.Segment, M.OBB}  # take the input widths of their levels as their last argument
-BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.SPPF, M.RepVGGBlock}  # take (c1, c2, ...)
-REPEAT_MODULES = {M.C2f}  # take the repeat count as their third argument
+BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.C3k2, M.C2PSA, M.A2C2f, M.SPPF, M.RepVGGBlock}  # take (c1, c2, ...)
+REPEAT_MODULES = {M.C2f, M.C3k2, M.C2PSA, M.A2C2f}  # take the repeat count as their third argument
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +202,7 @@ def parse_model(d: dict, ch: int = 3):
 
     ch_list = [ch]
     modules, froms, save = [], [], []
+    legacy = True  # the v8 head's class branch; a C3k2 or A2C2f row switches to the depthwise one
     for i, (f, n, mname, args) in enumerate(d["backbone"] + d["head"]):
         cls = REGISTRY.get(mname)
         if cls is None:
@@ -222,6 +229,17 @@ def parse_model(d: dict, ch: int = 3):
             if cls in REPEAT_MODULES:
                 args.insert(2, n_scaled)
                 n_scaled = 1
+            if cls is M.C3k2:
+                legacy = False
+                if scale in ("m", "l", "x"):  # c3k
+                    if len(args) > 3:
+                        args[3] = True
+                    else:
+                        args.append(True)
+            if cls is M.A2C2f:
+                legacy = False
+                if scale in ("l", "x"):  # residual, mlp_ratio
+                    args.extend((True, 1.2))
         elif cls is M.Concat:
             c2 = sum(ch_list[x] for x in f)
         elif cls in HEAD_MODULES:
@@ -234,7 +252,7 @@ def parse_model(d: dict, ch: int = 3):
         if n_scaled != 1:
             raise ValueError(f"layer {i}: repeats of {mname} outside a repeat-aware module are not ported yet")
 
-        modules.append(cls(*args))
+        modules.append(cls(*args, legacy=legacy) if cls in HEAD_MODULES else cls(*args))
         froms.append(f)
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:

@@ -57,7 +57,7 @@ class DetectionModel(nn.Module):
     @torch.no_grad()
     def init(self, seed: int = 0, imgsz: int = 640) -> None:
         """Random init from a seed: conv weights and biases U(+-1/sqrt(fan_in)) as torch's Conv2d and
-        ConvTranspose2d defaults, BN at identity, then the head's bias priors for `imgsz`."""
+        ConvTranspose2d defaults, BN at identity, A2C2f's gamma at 0.01, then the head's bias priors for `imgsz`."""
         g = torch.Generator().manual_seed(seed)
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -68,6 +68,8 @@ class DetectionModel(nn.Module):
                         p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
             elif isinstance(mod, M.BatchNorm2d):
                 mod.reset_parameters()
+            elif isinstance(mod, M.A2C2f) and mod.gamma is not None:
+                mod.gamma.fill_(0.01)
         self.head.bias_init(imgsz)
 
     def set_s2grad(self, mode: str | None) -> DetectionModel:

@@ -1,4 +1,4 @@
-"""The v8 module set of the Drone-YOLO flagship as PyTorch modules (NCHW, OIHW).
+"""The module sets of the v8, YOLO11 and YOLO12 families as PyTorch modules (NCHW, OIHW).
 
 Counterpart of `drone_yolo_tpu/nn/modules.py`. Parameter names follow the
 reference torch `state_dict` (`conv.weight`, `bn.running_mean`, `rbr_dense`, ...),
@@ -9,7 +9,8 @@ package's `Conv2dRaw` (the head's output layers) is `nn.Conv2d` here, and its
 Precision follows the JAX package: activations flow in the parameters' dtype
 (bfloat16 on the card after `fuse()` and a cast, or under bf16 autocast in
 training), BatchNorm runs in float32 and the detection decode (DFL expectation,
-anchors, sigmoid) in float32.
+anchors, sigmoid) in float32. The attention blocks take their logits and softmax in
+float32 with autocast off (`attention_softmax`), as the JAX package does.
 
 Train mode: BatchNorm normalizes with batch statistics and hands them to the
 collector of `collect_bn_stats` (the JAX package's `Ctx.updates`); the running
@@ -231,6 +232,182 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat(y, 1))
 
 
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: cv3(cat(m(cv1(x)), cv2(x)))."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=(1, 3), e=1.0) for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat((self.m(self.cv1(x)), self.cv2(x)), 1))
+
+
+class C3k(C3):
+    """C3 whose bottlenecks are k x k on both convs."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, k=3):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=(k, k), e=1.0) for _ in range(n)))
+
+
+class C3k2(C2f):
+    """The YOLO11 workhorse: a C2f whose blocks are C3k(c, c, 2) with `c3k`, else Bottleneck(e=0.5)."""
+
+    def __init__(self, c1, c2, n=1, c3k=False, e=0.5, g=1, shortcut=True):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c = self.c
+        self.m = nn.ModuleList(C3k(c, c, 2, shortcut, g) if c3k else Bottleneck(c, c, shortcut, g, e=0.5) for _ in range(n))
+
+
+def attention_softmax(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q^T k * scale) over the keys, in float32 (or wider) with autocast off: (..., d, N) x 2 -> (..., N, N).
+
+    As the JAX package's attention: the logits and the softmax are float32 whatever the compute dtype; the
+    caller casts the weights to it before the product with v. Autocast would otherwise take the matmul to bfloat16.
+    """
+    dev = q.device.type
+    usable = torch.amp.autocast_mode.is_autocast_available(dev)  # not on the meta device of the model's stride probe
+    with torch.autocast(dev, enabled=False) if usable else contextlib.nullcontext():
+        return ((wide(q).transpose(-2, -1) @ wide(k)) * scale).softmax(-1)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over the H*W positions, plus a depthwise 3x3 positional conv `pe` on v.
+
+    The qkv channels are grouped per head as [q (key_dim), k (key_dim), v (head_dim)].
+    """
+
+    def __init__(self, dim, num_heads=8, attn_ratio=0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim**-0.5
+        self.qkv = Conv(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        qkv = self.qkv(x).reshape(b, self.num_heads, 2 * self.key_dim + self.head_dim, h * w)
+        q, k, v = qkv.split([self.key_dim, self.key_dim, self.head_dim], dim=2)
+        attn = attention_softmax(q, k, self.scale).to(v.dtype)
+        out = (v @ attn.transpose(-2, -1)).reshape(b, c, h, w)
+        return self.proj(out + self.pe(v.reshape(b, c, h, w)))
+
+
+class PSABlock(nn.Module):
+    """Attention, then the feed-forward `ffn` (Conv 1x1 SiLU -> Conv 1x1), each with a residual when `shortcut`."""
+
+    def __init__(self, c, attn_ratio=0.5, num_heads=4, shortcut=True):
+        super().__init__()
+        self.attn = Attention(c, num_heads=num_heads, attn_ratio=attn_ratio)
+        self.ffn = nn.Sequential(Conv(c, c * 2, 1), Conv(c * 2, c, 1, act=False))
+        self.add = shortcut
+
+    def forward(self, x):
+        y = self.attn(x)
+        x = x + y if self.add else y
+        y = self.ffn(x)
+        return x + y if self.add else y
+
+
+class C2PSA(nn.Module):
+    """CSP block around n PSABlocks on half the channels (YOLO11's last backbone layer)."""
+
+    def __init__(self, c1, c2, n=1, e=0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"C2PSA keeps its width, got c1={c1} c2={c2}")
+        self.c = int(c1 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c1, 1)
+        self.m = nn.ModuleList(PSABlock(self.c, attn_ratio=0.5, num_heads=max(self.c // 64, 1)) for _ in range(n))
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, 1)
+        for m in self.m:
+            b = m(b)
+        return self.cv2(torch.cat((a, b), 1))
+
+
+class AAttn(nn.Module):
+    """Area attention: full attention within `area` horizontal stripes of the map, plus a depthwise 7x7 `pe` on v.
+
+    The stripes split the row-major H*W positions into `area` equal runs. As in the JAX package, a map whose
+    H*W does not divide by `area` is attended whole (area 1).
+    """
+
+    def __init__(self, dim, num_heads, area=1):
+        super().__init__()
+        self.nh, self.area = num_heads, area
+        self.hd = dim // num_heads
+        self.qkv = Conv(dim, dim * 3, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 7, 1, 3, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        n = h * w
+        area = self.area if self.area > 1 and n % self.area == 0 else 1
+        qkv = self.qkv(x).flatten(2).transpose(1, 2).reshape(b * area, n // area, self.nh, 3 * self.hd)
+        q, k, v = qkv.permute(0, 2, 3, 1).split([self.hd] * 3, dim=2)  # each (B * area, nh, hd, N / area)
+        attn = attention_softmax(q, k, self.hd**-0.5).to(v.dtype)
+        out = v @ attn.transpose(-2, -1)
+
+        def to_map(t):  # (B * area, nh, hd, N / area) -> (B, C, H, W)
+            return t.permute(0, 3, 1, 2).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+        return self.proj(to_map(out) + self.pe(to_map(v)))
+
+
+class ABlock(nn.Module):
+    """Area attention, then the MLP `mlp` (Conv 1x1 SiLU to dim * mlp_ratio -> Conv 1x1), both residual."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=1.2, area=1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads=num_heads, area=area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(Conv(dim, hidden, 1), Conv(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """The YOLO12 workhorse (R-ELAN): cv1, then n blocks each fed the last output, all concatenated into cv2.
+
+    With `a2` each block is a sequence of two ABlocks (heads = width / 32), else a C3k. With `a2` and `residual`
+    the output is x + gamma * cv2(...), `gamma` a learned per-channel scale that starts at 0.01.
+    """
+
+    def __init__(self, c1, c2, n=1, a2=True, area=1, residual=False, mlp_ratio=2.0, e=0.5, g=1, shortcut=True):
+        super().__init__()
+        c_ = int(c2 * e)
+        if c_ % 32:
+            raise ValueError(f"A2C2f's ABlock width must be a multiple of 32, got {c_}")
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv((1 + n) * c_, c2, 1)
+        self.gamma = nn.Parameter(torch.full((c2,), 0.01)) if a2 and residual else None
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area) for _ in range(2))) if a2
+            else C3k(c_, c_, 2, shortcut, g) for _ in range(n))
+
+    def forward(self, x):
+        y = [self.cv1(x)]
+        for m in self.m:
+            y.append(m(y[-1]))
+        out = self.cv2(torch.cat(y, 1))
+        return out if self.gamma is None else x + self.gamma.to(out.dtype)[:, None, None] * out
+
+
 class RepVGGBlock(nn.Module):
     """3x3 + 1x1 (+ identity BN) branches, summed, then SiLU; `fuse()` collapses them into one 3x3 conv."""
 
@@ -281,11 +458,13 @@ class Detect(nn.Module):
     """Anchor-free decoupled detection head.
 
     Per level: box branch `cv2` -> 4*reg_max DFL logits, class branch `cv3` -> nc
-    logits. `raw_maps` gives the per-level (B, 4*reg_max + nc, H, W) maps;
+    logits. `legacy=False` (the YOLO11 and YOLO12 heads) makes `cv3` two depthwise-separable
+    stages, DWConv 3x3 then Conv 1x1, each a nested sequence. `raw_maps` gives the per-level
+    (B, 4*reg_max + nc, H, W) maps;
     `decode` gives (B, A, 4 + nc): xywh pixel boxes and sigmoid scores.
     """
 
-    def __init__(self, nc=80, ch=(), reg_max=16):
+    def __init__(self, nc=80, ch=(), reg_max=16, legacy=True):
         super().__init__()
         self.nc = nc
         self.reg_max = reg_max
@@ -293,7 +472,12 @@ class Detect(nn.Module):
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for x in ch)
-        self.cv3 = nn.ModuleList(nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch)
+        if legacy:
+            self.cv3 = nn.ModuleList(nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch)
+        else:
+            self.cv3 = nn.ModuleList(nn.Sequential(nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
+                                                   nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)),
+                                                   nn.Conv2d(c3, nc, 1)) for x in ch)
 
     @torch.no_grad()
     def bias_init(self, imgsz: int = 640) -> None:
@@ -333,8 +517,8 @@ class Pose(Detect):
     the JAX package.
     """
 
-    def __init__(self, nc=80, kpt_shape=(17, 3), ch=(), reg_max=16):
-        super().__init__(nc, ch, reg_max)
+    def __init__(self, nc=80, kpt_shape=(17, 3), ch=(), reg_max=16, legacy=True):
+        super().__init__(nc, ch, reg_max, legacy)
         self.kpt_shape = tuple(kpt_shape)
         self.nk = self.kpt_shape[0] * self.kpt_shape[1]
         c4 = max(ch[0] // 4, self.nk)
@@ -376,8 +560,8 @@ class OBB(Detect):
     conv keeps its init (no prior), as in the JAX package.
     """
 
-    def __init__(self, nc=80, ne=1, ch=(), reg_max=16):
-        super().__init__(nc, ch, reg_max)
+    def __init__(self, nc=80, ne=1, ch=(), reg_max=16, legacy=True):
+        super().__init__(nc, ch, reg_max, legacy)
         self.ne = ne
         c4 = max(ch[0] // 4, ne)
         self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, ne, 1)) for x in ch)
@@ -428,8 +612,8 @@ class Segment(Detect):
     train mode (`train_out`) it gives (maps, coefficients, protos), so that `cv4` and `proto` take part in the loss.
     """
 
-    def __init__(self, nc=80, nm=32, npr=256, ch=(), reg_max=16):
-        super().__init__(nc, ch, reg_max)
+    def __init__(self, nc=80, nm=32, npr=256, ch=(), reg_max=16, legacy=True):
+        super().__init__(nc, ch, reg_max, legacy)
         self.nm, self.npr = nm, npr
         self.proto = Proto(ch[0], npr, nm)
         c4 = max(ch[0] // 4, nm)

@@ -136,7 +136,13 @@ def _cyclic_shift(hull: list[int]) -> list[int]:
 
 def _rotating_calipers(hx, hy):
     """OpenCV's `rotatingCalipers(CALIPERS_MINAREARECT)` over n > 2 hull points (float32 lists) -> the rectangle's
-    corner (x, y), width vector and height vector, float32."""
+    corner (x, y), width vector and height vector, float32. A repeated hull point (a zero-length edge) divides by
+    zero as OpenCV's float arithmetic does, to inf or nan, and raises nothing."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return _calipers(hx, hy)
+
+
+def _calipers(hx, hy):
     n = len(hx)
     vx, vy, inv, length = [], [], [], []
     left = bottom = right = top = 0
@@ -155,8 +161,8 @@ def _rotating_calipers(hx, hy):
         dx, dy = float(hx[j] - hx[i]), float(hy[j] - hy[i])  # float32 differences
         vx.append(_F(dx))
         vy.append(_F(dy))
-        inv.append(_F(1.0 / math.sqrt(dx * dx + dy * dy)))
-        length.append(math.hypot(dx, dy))
+        inv.append(_F(np.float64(1.0) / math.sqrt(dx * dx + dy * dy)))
+        length.append(np.float64(math.hypot(dx, dy)))
     orientation = 0.0
     ax, ay = float(vx[-1]), float(vy[-1])
     for i in range(n):

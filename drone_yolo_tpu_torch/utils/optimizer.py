@@ -3,8 +3,8 @@
 Counterpart of `drone_yolo_tpu/utils/optimizer.py` (`label_tree`, `sgd_step`,
 `adamw_step`, `clip_global_norm`, `build_lr_fn`, `auto_optimizer`):
 
-* groups: conv and linear weights with weight decay ("decay"), BN weights
-  without ("scale"), all biases without and with the bias learning rate
+* groups: conv and linear weights, and A2C2f's gamma, with weight decay ("decay"),
+  BN weights without ("scale"), all biases without and with the bias learning rate
   ("bias"). BN running statistics are buffers, outside the optimizer (the JAX
   package's "frozen" group);
 * SGD is torch's with Nesterov momentum, AdamW torch's with beta1 = momentum;
@@ -24,15 +24,16 @@ GROUPS = ("decay", "scale", "bias")
 
 
 def label_params(model: nn.Module) -> dict[str, list[str]]:
-    """Parameter names by group: 4-D weights "decay", other weights (BN) "scale", biases "bias"."""
+    """Parameter names by group: biases "bias", BN weights (the 1-D weights) "scale", the rest (conv weights, gamma)
+    "decay", as the JAX package's `label_tree`."""
     groups = {g: [] for g in GROUPS}
     for name, p in model.named_parameters():
         if name.endswith(".bias"):
             groups["bias"].append(name)
-        elif p.ndim > 1:
-            groups["decay"].append(name)
-        else:
+        elif name.endswith(".weight") and p.ndim == 1:
             groups["scale"].append(name)
+        else:
+            groups["decay"].append(name)
     return groups
 
 

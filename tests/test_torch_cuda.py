@@ -13,13 +13,13 @@ import pytest
 import torch
 
 from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_sites, bn_stats_errors, clustered_boxes, s2_site_inputs, s2_sites,
-                        synthetic_batch, synthetic_obb_batch, synthetic_pose_batch, synthetic_seg_batch)
+                        spread_weights, synthetic_batch, synthetic_obb_batch, synthetic_pose_batch, synthetic_seg_batch)
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
 from drone_yolo_tpu_torch.models.yolo.obb import OBBTrainer
 from drone_yolo_tpu_torch.models.yolo.pose import PoseTrainer
 from drone_yolo_tpu_torch.models.yolo.segment import SegmentationTrainer
 from drone_yolo_tpu_torch.nn import modules as M
-from drone_yolo_tpu_torch.nn.model import OBBModel, PoseModel, SegmentationModel
+from drone_yolo_tpu_torch.nn.model import DetectionModel, OBBModel, PoseModel, SegmentationModel
 from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
 from drone_yolo_tpu_torch.ops.masks import process_mask, scale_masks
 from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
@@ -502,3 +502,90 @@ def test_nms_rotated_on_the_card_matches_the_cpu(cuda_device, multi_label, k, nc
     torch.cuda.synchronize()
     assert torch.equal(got_n.cpu(), want_n) and 0 < int(want_n.min())
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s2_kernel_at_the_yolo11s_sites(cuda_device, dtype):
+    """yolo11s's 7 dense k=3 stride-2 sites (layers 0, 1, 3, 5, 7 and head layers 17, 20; Ci -> Co 3 -> 32, 32 -> 64,
+    128 -> 128, 256 -> 256, 256 -> 512, 128 -> 128, 256 -> 256; batch 8, 640 px) against the plain version, as
+    chip_smoke's families phase holds them."""
+    sites = s2_sites(DetectionModel("yolo11s.yaml"), 8, 640)
+    assert [s["name"].split(".")[1] for s in sites] == ["0", "1", "3", "5", "7", "17", "20"]
+    assert [(s["x"][1], s["w"][0]) for s in sites] == [(3, 32), (32, 64), (128, 128), (256, 256), (256, 512),
+                                                       (128, 128), (256, 256)]
+    dt = getattr(torch, dtype)
+    for i, site in enumerate(sites):
+        x, w, dy = s2_site_inputs(site, dt, seed=300 + i)
+        dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+        torch.cuda.synchronize()
+        dx_p, dw_p = conv_s2.s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+        pairs = [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else [])
+        for what, got, want in pairs:
+            tol = dict(S2_TOL[dtype][what])
+            tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{site['name']} {what}: {m}")
+        del x, w, dy, dx, dw, dx_p, dw_p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_stats_kernel_at_the_yolo11s_inputs(cuda_device, dtype):
+    """All 81 train-mode BN inputs of yolo11s at batch 8, 640 px (C2PSA's attention convs and the depthwise class
+    branch among them) against `bn_stats_reference` at chip_smoke's tolerance."""
+    sites = bn_sites(DetectionModel("yolo11s.yaml"), 8, 640)
+    assert len(sites) == 81 and sum(".attn." in b["name"] for b in sites) == 3
+    for i, site in enumerate(sites):
+        g = torch.Generator(device=cuda_device).manual_seed(i)
+        x = (torch.randn(site["x"], generator=g, device=cuda_device) * 2 + 0.5).to(getattr(torch, dtype))
+        s, q = bn_stats(x)
+        errs = bn_stats_errors(x, s, q)
+        assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, (site, errs)
+        del x, s, q
+
+
+@pytest.mark.parametrize("model", ["yolo11s.yaml", "yolo12s.yaml"])
+def test_family_train_step_with_both_kernels_matches_stock(cuda_device, model):
+    """yolo11s and yolo12s (nc 2), imgsz 64, batch 2, float32 (TF32 off): 2 steps with s2grad="cuda" and
+    bnstats="cuda" against 2 stock steps from the same init: 7 stride-2 calls and one BN-statistics call at every
+    train-mode BN (the attention blocks' included) a step."""
+    loader = [synthetic_batch(np.random.default_rng(i), 2, 64, 2) for i in range(2)]
+    n_bn = sum(isinstance(m, M.BatchNorm2d) for m in DetectionModel(model, nc=2).modules())
+    runs = {}
+    for mode in ("cuda", None):
+        trainer = BaseTrainer(overrides=dict(model=model, batch=2, imgsz=64, nbs=2, optimizer="SGD", amp=False,
+                                             s2grad=mode, bnstats=mode), train_loader=loader, data={"nc": 2})
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        steps = trainer.run_steps()
+        assert cuda_s2bwd.s2_bwd_cuda.calls == {"s2_bwd_k3": 14 if mode else 0, "s2_bwd_k1": 0}
+        assert cuda_bnstats.bn_stats_cuda.calls == (2 * n_bn if mode else 0)
+        runs[mode] = (steps, trainer.train_state())
+    (steps_k, st_k), (steps_s, st_s) = runs["cuda"], runs[None]
+    np.testing.assert_allclose([r["loss"] for r in steps_k], [r["loss"] for r in steps_s], rtol=1e-4)
+    for name, want in st_s["params"].items():
+        torch.testing.assert_close(st_k["params"][name], want, rtol=1e-4, atol=1e-5, msg=name)
+
+
+ATTENTION_BLOCKS = {  # yolo11s's C2PSA (layer 10), yolo12s's A2C2f at P4 (layer 6, area 4) and P5 (layer 8), and an AAttn
+    "c2psa": (lambda: M.C2PSA(256, 256, 1), (8, 256, 20, 20)),  # on a map whose 735 positions do not split into 4
+    "a2c2f_area4": (lambda: M.A2C2f(256, 256, 2, True, 4), (8, 256, 40, 40)),
+    "a2c2f_p5": (lambda: M.A2C2f(512, 512, 2, True, 1), (8, 512, 20, 20)),
+    "aattn_fallback": (lambda: M.AAttn(128, 4, 4), (8, 128, 21, 35)),
+}
+
+
+@pytest.mark.parametrize("name", list(ATTENTION_BLOCKS))
+def test_attention_block_bf16_on_the_card_matches_float32_on_the_cpu(cuda_device, name):
+    """Each attention block in bf16 on the card (its logits and softmax in float32) against float32 on the CPU, weights
+    by `spread_weights`: the largest error within 3% of the output's largest entry and the mean within 1.5% of its mean
+    (bf16 on the CPU reads at most 1.1% and 0.7%)."""
+    make, shape = ATTENTION_BLOCKS[name]
+    block = make().eval()
+    block.load_state_dict(spread_weights(block.state_dict(), np.random.default_rng(0)))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32))
+    with torch.no_grad():
+        want = block(x)
+        got = block.to(cuda_device, torch.bfloat16)(x.to(cuda_device, torch.bfloat16)).float().cpu()
+    err = (got - want).abs()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float(err.max()) <= 0.03 * float(want.abs().max()) and float(err.mean()) <= 0.015 * float(want.abs().mean())
+

@@ -165,7 +165,8 @@ def _point_sets(n: int = 2400):
 
 def test_min_area_rect_matches_cv2():
     """2,400 point sets: the rectangle and its (w, h, angle) branch equal cv2's within 1e-4 px and 1e-5 rad, the
-    hull equal to `cv2.convexHull`'s point for point, and at least 95% of the rectangles bit for bit."""
+    hull equal to `cv2.convexHull`'s point for point, and at least 95% of the rectangles bit for bit. Then 300
+    nearly collinear sets, of which 47 hulls still differ from OpenCV 5.0's (counted below)."""
     exact, n = 0, 0
     for kind, pts in _point_sets():
         want = cv2.minAreaRect(pts)
@@ -180,6 +181,27 @@ def test_min_area_rect_matches_cv2():
         n += 1
     print(f"bit for bit: {exact} of {n}")
     assert n == 2400 and exact >= 0.95 * n
+
+    # 300 nearly collinear sets (3 to 8 points of a random line, rounded to float32): the open fault of ROADMAP
+    # queue 3. 253 hulls equal OpenCV 5.0's point for point, and their rectangles agree in centre and long side;
+    # 47 differ (OpenCV 5.0 keeps other points of such sets than Sklansky's scan does, by a rule not yet found),
+    # and the port's hull of one of those repeats a point, which gives a nan rectangle. Held exactly, so that a
+    # change either way shows.
+    rng = np.random.default_rng(0)
+    differ = 0
+    for _ in range(300):
+        k = int(rng.integers(3, 9))
+        p0, ang = rng.uniform(0, 256, 2), rng.uniform(0, np.pi)
+        pts = (p0 + rng.uniform(-80, 80, k)[:, None] * np.array([np.cos(ang), np.sin(ang)])).astype(np.float32)
+        got, want = R.min_area_rect(pts), cv2.minAreaRect(pts)
+        hull, cv_hull = R.convex_hull(pts), cv2.convexHull(pts, clockwise=False, returnPoints=True).reshape(-1, 2)
+        if hull.shape != cv_hull.shape or not np.array_equal(hull, cv_hull):
+            differ += 1
+            continue
+        msg = f"{pts.tolist()}: got {got}, cv2 {want}"
+        assert max(abs(got[0][0] - want[0][0]), abs(got[0][1] - want[0][1])) <= RECT_PX, msg
+        assert abs(max(got[1]) - max(want[1])) <= RECT_PX, msg
+    assert differ == 47
     for pts, want in (([[0, 0], [10, 0], [10, 5], [0, 5]], ((5, 2.5), (5, 10), -90.0)),
                       ([[5, 0], [10, 5], [5, 10], [0, 5]], ((5, 5.000000476837158), (7.071068286895752,) * 2, -45.0))):
         assert R.min_area_rect(np.array(pts, np.float32)) == want

@@ -260,7 +260,7 @@ print(json.dumps({"metrics": metrics, "again": again, "epochs": len(model.traine
                   "seg_again": seg_again, "seg_masks": list(seg_pred.masks.data.shape),
                   "seg_outline": len(seg_pred.masks.xy), "obb_metrics": obb_metrics, "obb_again": obb_again,
                   "obb_corners": list(obb_pred.obb.xyxyxyxy.shape),
-                  "loaded": sorted(m for m in BLOCKED if m in sys.modules), "sklearn": sys.modules["sklearn"] is None}))
+                  "loaded": sorted(m for m in BLOCKED if sys.modules.get(m) is not None), "sklearn": sys.modules["sklearn"] is None}))
 """
 
 
