@@ -73,7 +73,8 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    with params, SGD momentum and EMA bitwise equal to A's final state, and running one epoch;
    the JPEG round trip of the dataset within `JPEG_MEAN_ERR`. Printed: seconds per epoch, train
    img/s, the share of the epoch spent waiting on the loader, decode ms per 320 and 640 px
-   image, augmentation ms per sample, validation seconds, peak card memory, checkpoint bytes;
+   image, augmentation ms per sample, validation seconds, peak card memory, checkpoint bytes, and
+   the cost of the train-batch plots (`plot_cost`; every training phase prints it);
 10. track: the drone-video analytics path. `DroneVideoPipeline` with the flagship (tracking) and
    `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth, fused, bfloat16, and a
    `GeoConverter`, over 64 synthetic 1080x1920 frames of 60 textured rectangles that move, enter and
@@ -91,7 +92,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    500 targets (`detection_stream`, 60 frames each);
 11. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 6
    frames (`moving_frames`, seed 5: JPEG at 1920x1080, 1080x1920 and 1280x720, PNG at 1280x720), one MJPEG
-   AVI of 8 1080p frames at 30000/1001 frames/s (`write_mjpeg_avi`, a RIFF writer around `encode_jpeg`), and
+   AVI of 8 1080p frames at 30000/1001 frames/s (`data/avi.py:AviWriter`, quality 95), and
    16 dense-proxy images cropped to 8 aspect ratios (`write_mixed_val`). The flagship's weights are
    `calibrated_weights` saved by `YOLO.save` with train_args imgsz 640. Through `cfg.entrypoint` strings, with no
    imgsz: (a) predict over the directory with save_txt and save_crop (max_det 4), (b) track over clip.avi, then
@@ -104,7 +105,17 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    rect against square, predict img/s from the directory at batch 1 and 8, the host seconds of (a) by part
    (loading and decoding, the predictor's stages, save_txt, save_crop) and each stage's seconds, each beside the
    nvidia-smi line;
-12. pose: pose training and validation. `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth: the
+12. draw: `save=True`. The flagship at 640 px, bf16, `calibrated_weights` (0.4% of the clip's first frame's
+   anchors above conf 0.25), predicts with save=True over the entry phase's directory and its AVI, then without save
+   over the AVI; yolov8s-seg, -pose (on the AVI's first 2 frames; 1% above conf) and -obb (2 frames of rotated
+   rectangles at 1024 px) predict one batch of 2 each with save=True and without. Every greedy-NMS keep mask is
+   held against `greedy_keep_reference`, counts set to 0 before the phase and read after it. Checks: one image per source image
+   under its name, each read back by the port's decoders at its source's shape, the PNG byte-equal to the port's
+   encoding of `Results.plot()`, clip.avi read back by `AviReader` with the source's frame count and rate, each
+   task's masks, keypoints or oriented boxes drawn. Printed per model: plot ms and encode ms per frame (host seconds
+   inside `Results.plot` and the encoders), predict frames/s with save=True against save=False, each beside the
+   nvidia-smi line;
+13. pose: pose training and validation. `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth: the
    stride-2 backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites and the BN-statistics kernel against
    `bn_stats_reference` at all its 63 train-mode BN inputs (the keypoint branch's 6 of 51 channels among them), in
    bfloat16 and float32 at batch 8, 640 px; then a seeded dataset of 16 train and 8 val images of 17-keypoint
@@ -117,7 +128,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    batch (the val split's first 8 images, letterboxed) at a constant lr, whose `pose_loss` must end below its first
    value. Printed: step ms and img/s of the fixed batch, its device idle share (torch.profiler), epoch seconds and
    the data-wait share, validation img/s, peak card memory, each beside the nvidia-smi line;
-13. segment: instance segmentation. `yolov8s-seg.yaml` (nc 80, 32 prototypes) at full width and depth: the stride-2
+14. segment: instance segmentation. `yolov8s-seg.yaml` (nc 80, 32 prototypes) at full width and depth: the stride-2
    backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites and the BN-statistics kernel against
    `bn_stats_reference` at the 9 BN inputs the detect part lacks (Proto's 3 at 80x80 and 160x160, cv4's 6), in
    bfloat16 and float32 at batch 8, 640 px, and timed there against the plain version and `torch.batch_norm_stats`;
@@ -133,7 +144,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    split's 8 images, letterboxed) at a constant lr, whose `seg_loss` must end below its first value. Printed:
    predict img/s and masks per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and
    the data-wait share, validation img/s, box and mask mAP, peak card memory, each beside the nvidia-smi line;
-14. obb: oriented boxes. `yolov8s-obb.yaml` (nc 15, DOTA-v1's class count) at full width and depth and DOTA's
+15. obb: oriented boxes. `yolov8s-obb.yaml` (nc 15, DOTA-v1's class count) at full width and depth and DOTA's
    training size, 1024 px: the stride-2 backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites (layer
    0's dw a sum of 2,097,152 products) and the BN-statistics kernel against `bn_stats_reference` at all its 63
    train-mode BN inputs (the angle branch cv4's 6 among them), in bfloat16 and float32 at batch 8, and one step's
@@ -151,7 +162,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    and oriented boxes per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and the
    data-wait share, validation img/s, peak card memory, the kernels' errors against the tolerance and their times,
    each beside the nvidia-smi line;
-15. families: the YOLO11 and YOLO12 families (C3k2, C2PSA attention, A2C2f area attention, the depthwise class
+16. families: the YOLO11 and YOLO12 families (C3k2, C2PSA attention, A2C2f area attention, the depthwise class
    branch). `yolo11s.yaml` and `yolo12s.yaml` (nc 80) at full width: both train kernels against their plain versions
    at the 7 dense k=3 stride-2 sites (yolo11s layers 0, 1, 3, 5, 7, 17, 20; yolo12s 0, 1, 3, 5, 7, 15, 18) and at
    every train-mode BN input (81 and 113), bf16 and float32, batch 8, 640 px, then one bf16 step's calls timed
@@ -165,7 +176,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    batch 8 and 5 fixed-batch steps with both kernels, each loss finite and falling. Every greedy-NMS keep mask is
    held against `greedy_keep_reference`. Counts are set to 0 before each run and read after it: 7 stride-2 calls and
    one BN call per BN input a step, one NMS call a predict or val batch (none for obb);
-16. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml or sklearn was imported, with the
+17. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
    modules of every path (apps, trackers, the pose, segment and obb predictors, trainers and validators, the
    loaders, `ops/rotated.py`) loaded.
 
@@ -301,6 +312,15 @@ FAMILY_CELL = dict(models=("yolo11s.yaml", "yolo12s.yaml"), nc=80, imgsz=640, ba
                           ("yolo12s-seg.yaml", 640)), task_steps=5)
 FAMILY_S2_LAYERS = {"yolo11s.yaml": ["0", "1", "3", "5", "7", "17", "20"],
                     "yolo12s.yaml": ["0", "1", "3", "5", "7", "15", "18"]}
+# the draw phase: the flagship (640 px, bf16, weights calibrated so that a share of 0.004 of the anchors of the clip's
+# first frame pass conf 0.25) predicts with save=True over the entry phase's directory (JPEG 1920x1080 x2, 1080x1920,
+# 1280x720, PNG 1280x720) and its 8-frame 1080p MJPEG AVI, and again without save over the AVI; then yolov8s-seg,
+# -pose (on the AVI's first 2 frames) and -obb (2 frames of rotated rectangles at 1024 px) one batch of 2 each with
+# save=True and without. The pose model's one class spreads its logits little: at a share of 0.004 its best scores
+# sit within bf16 rounding of conf and none passes, so it takes 0.01
+DRAW_CELL = dict(imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.004, seed=19, task_frames=2,
+                 tasks=(("yolov8s-seg.yaml", 640, 0.004), ("yolov8s-pose.yaml", 640, 0.01),
+                        ("yolov8s-obb.yaml", 1024, 0.004)))
 ENTRY_VAL_ASPECTS = ((1.0, 1.0), (0.5625, 1.0), (1.0, 0.5625), (0.75, 1.0), (1.0, 0.75), (0.6, 1.0), (1.0, 0.8),
                      (0.9, 1.0))
 
@@ -914,6 +934,19 @@ def check_loop_counts(c: dict, steps: int, val_batches: int, run: str, n_bn: int
                              f"{val_batches} val batches")
 
 
+def plot_cost(tr) -> dict:
+    """The host work that `plots=True` (the default) adds to a training run: the seconds `train` waited at its end for
+    the threads that drew and encoded its first three batches (`join_s`), and the seconds one such plot takes with
+    nothing else running (`one_plot_s`: `plot_training_samples` of a synthetic batch of the run's size, to
+    train_batch99.jpg). The three plots run beside the epoch's first steps and hold the GIL while they draw, so the
+    epoch's seconds hold up to about 3 x `one_plot_s` of them."""
+    batch = synthetic_batch(np.random.default_rng(99), tr.batch_size, tr.args.imgsz, len(tr.model.names))
+    t0 = time.perf_counter()
+    tr.plot_training_samples(batch, 99).join()
+    return {"batches_drawn": len(tr.plot_threads), "join_s": tr.plot_join_s,
+            "one_plot_s": time.perf_counter() - t0}
+
+
 def run_loop(n_bn: int, n_sites: dict) -> dict:
     """Phase 9: runs A and B of the epoch loop (see the module docstring), their checks and their numbers."""
     from drone_yolo_tpu_torch import YOLO
@@ -1031,7 +1064,7 @@ def run_loop(n_bn: int, n_sites: dict) -> dict:
                 "val_s": [e["val_s"] for e in epochs], "decode_ms_per_image": decode_ms,
                 "augment_ms_per_sample": aug_ms, "peak_memory_gb": peak_gb, "checkpoint_bytes": files,
                 "run_a_wall_s": wall_a, "resume": {"start_epoch": b.start_epoch, "bitwise_equal": True},
-                "predict_last_npz_n_det": len(res[0].boxes),
+                "predict_last_npz_n_det": len(res[0].boxes), "plots": {"a": plot_cost(a), "b": plot_cost(b)},
                 "counts": {"a": counts_a, "b": counts_b, "launches": launches}}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1057,7 +1090,7 @@ def calibrated_weights(facade, frame: np.ndarray, seed: int, gain: float, share:
 
 
 def run_track() -> dict:
-    """Phase 11: the drone-video pipeline on the card (see the module docstring), its checks and its numbers."""
+    """Phase 10: the drone-video pipeline on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.apps import DroneVideoPipeline, GeoConverter
     from drone_yolo_tpu_torch.ops import cuda_nms
@@ -1196,32 +1229,6 @@ def run_track() -> dict:
             "bytetrack_update_alone": tracker_alone}
 
 
-def write_mjpeg_avi(path: Path, payloads: list, size: tuple[int, int], rate: int, scale: int) -> None:
-    """A minimal MJPEG AVI 1.0 file around JPEG payloads: RIFF 'AVI ' with hdrl (avih, one strl with strh and a
-    BITMAPINFOHEADER strf), movi with one 00dc chunk per frame (padded to even sizes), and idx1. size is (w, h)."""
-    w, h = size
-    n, big = len(payloads), max(len(p) for p in payloads)
-
-    def chunk(cid: bytes, data: bytes) -> bytes:
-        return cid + len(data).to_bytes(4, "little") + data + b"\0" * (len(data) & 1)
-
-    def lst(kind: bytes, body: bytes, cid: bytes = b"LIST") -> bytes:
-        return cid + (len(body) + 4).to_bytes(4, "little") + kind + body
-
-    u32 = lambda *v: b"".join(int(x).to_bytes(4, "little") for x in v)  # noqa: E731
-    avih = u32(round(1e6 * scale / rate), big * rate // scale, 0, 0x10, n, 0, 1, big, w, h, 0, 0, 0, 0)
-    strh = b"vidsMJPG" + u32(0, 0, 0, scale, rate, 0, n, big, 0xFFFFFFFF, 0) + bytes(8)
-    strf = u32(40, w, h) + (1).to_bytes(2, "little") + (24).to_bytes(2, "little") + b"MJPG" + u32(w * h * 3, 0, 0, 0, 0)
-    hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
-    frames, index, off = [], [], 4
-    for p in payloads:
-        frames.append(chunk(b"00dc", p))
-        index.append(b"00dc" + u32(0x10, off, len(p)))
-        off += len(frames[-1])
-    body = hdrl + lst(b"movi", b"".join(frames)) + chunk(b"idx1", b"".join(index))
-    path.write_bytes(lst(b"AVI ", body, cid=b"RIFF"))
-
-
 def write_mixed_val(root: Path, n: int, size: int, nc: int, seed: int) -> Path:
     """A val set of the dense proxy in mixed aspect ratios: `make_dense_image` at `size`, cropped from the top left to
     each of ENTRY_VAL_ASPECTS (h, w fractions) in turn, the labels of the objects whose centre stays inside clipped to
@@ -1278,12 +1285,13 @@ def host_seconds(targets: dict):
             setattr(owner, attr, fn)
 
 
-def run_entry(smi: str) -> dict:
-    """Phase 11: the normal entry points on the card (see the module docstring), their checks and their numbers."""
+def run_entry(smi: str, keep: Path) -> dict:
+    """Phase 11: the normal entry points on the card (see the module docstring), their checks and their numbers. Its
+    inputs clip.avi and frames/ are copied to `keep` for the draw phase."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.apps import DroneVideoPipeline, GeoConverter
     from drone_yolo_tpu_torch.cfg import entrypoint, get_val_cfg
-    from drone_yolo_tpu_torch.data.avi import AviReader, read_avi
+    from drone_yolo_tpu_torch.data.avi import AviReader, AviWriter, read_avi
     from drone_yolo_tpu_torch.data.build import build_yolo_dataset
     from drone_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
     from drone_yolo_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
@@ -1314,9 +1322,12 @@ def run_entry(smi: str) -> dict:
         # landscape 1080p JPEGs), the other frames of the directory, the mixed-aspect val set
         rng = np.random.default_rng(c["seed"])
         clip_frames = moving_frames(rng, c["avi_frames"], c["avi_hw"], c["objects"], c["obj_px"])
-        payloads = [encode_jpeg(np.ascontiguousarray(f[..., ::-1]), 95) for f in clip_frames]
         clip = tmp / "clip.avi"
-        write_mjpeg_avi(clip, payloads, c["avi_hw"][::-1], *c["avi_rate"])
+        with AviWriter(clip, fps=c["avi_rate"][0] / c["avi_rate"][1]) as writer:
+            for f in clip_frames:
+                writer.write(f)
+        with AviReader(clip) as reader:
+            payloads = [reader.payload(i) for i in range(len(reader))]
         fps = read_avi(clip).fps
         src = tmp / "frames"
         src.mkdir()
@@ -1328,6 +1339,8 @@ def run_entry(smi: str) -> dict:
         for i, blob in enumerate(blobs):
             (src / f"{i:02d}.{'png' if blob.startswith(PNG_SIGNATURE) else 'jpg'}").write_bytes(blob)
         val_yaml = write_mixed_val(tmp / "val", c["val_images"], c["imgsz"], c["val_nc"], c["seed"])
+        shutil.copy(clip, keep / "clip.avi")
+        shutil.copytree(src, keep / "frames")
         lap("inputs")
 
         # the weights: calibrated to detect, saved by YOLO.save with train_args imgsz 640 (no imgsz on the command line)
@@ -1500,8 +1513,116 @@ def run_entry(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def run_draw(smi: str, media: Path) -> dict:
+    """Phase 12: save=True on the card: annotated images and MJPEG AVI written by the port's drawing and encoders,
+    read back by the port's decoders; every greedy-NMS keep mask against the plain keep; plot, encode and predict
+    frames/s with and without save."""
+    import drone_yolo_tpu_torch.data.avi as avi_mod
+    import drone_yolo_tpu_torch.engine.results as results_mod
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.data.avi import AviReader, read_avi
+    from drone_yolo_tpu_torch.data.jpeg import decode_jpeg
+    from drone_yolo_tpu_torch.data.png import encode_png
+    from drone_yolo_tpu_torch.data.utils import imread
+    from drone_yolo_tpu_torch.engine.results import Results
+    from drone_yolo_tpu_torch.ops import cuda_nms
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+
+    c = DRAW_CELL
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_draw_"))
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        checks.append(bool(torch.equal(keep, nms_ops.greedy_keep_reference(boxes, valid, iou_thres))))
+        return keep
+
+    def timed_predict(model, source, **kw):
+        """(results, seconds, {name: host seconds}) of one predict, the host seconds spent in `Results.plot` and in
+        each encoder."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with host_seconds({"plot": (Results, "plot"), "encode": (results_mod, "encode_jpeg"),
+                           "encode_png": (results_mod, "encode_png"), "encode_avi": (avi_mod, "encode_jpeg")}) as spent:
+            out = model.predict(source, verbose=False, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(spent)
+
+    def per_frame_ms(spent: dict, n: int) -> dict:
+        enc = spent.get("encode", 0.0) + spent.get("encode_png", 0.0) + spent.get("encode_avi", 0.0)
+        return {"plot_ms_per_frame": spent.get("plot", 0.0) / n * 1e3, "encode_ms_per_frame": enc / n * 1e3}
+
+    def read_back(folder: Path, names: list, shapes: list) -> None:
+        """Every written image by its source's name, decoded by the port to its source's shape."""
+        if sorted(p.name for p in folder.iterdir()) != sorted(names):
+            raise AssertionError(f"draw: {folder.name} holds {sorted(p.name for p in folder.iterdir())}, not {names}")
+        for n, shape in zip(names, shapes):
+            if imread(str(folder / n)).shape != tuple(shape):
+                raise AssertionError(f"draw: {folder / n} does not read back at {shape}")
+
+    nms_ops.greedy_keep = checked_keep
+    cuda_nms.reset_counts()
+    try:
+        runs = tmp / "runs"
+        src = sorted((media / "frames").iterdir())
+        clip = media / "clip.avi"
+        info = read_avi(clip)
+        with AviReader(clip) as reader:
+            clip_frames = [reader.frame(i) for i in range(c["task_frames"])]
+        det = YOLO(FLAGSHIP)
+        bias = calibrated_weights(det, clip_frames[0], c["seed"], c["cls_gain"], c["share_above_conf"], c["conf"],
+                                  c["imgsz"])
+        args = dict(imgsz=c["imgsz"], conf=c["conf"], project=str(runs), exist_ok=True)
+        dir_res, dir_s, dir_spent = timed_predict(det, str(media / "frames"), save=True, name="dir", **args)
+        read_back(runs / "dir", [p.name for p in src], [r.orig_shape + (3,) for r in dir_res])
+        png = next(i for i, p in enumerate(src) if p.suffix == ".png")
+        if (runs / "dir" / src[png].name).read_bytes() != encode_png(np.ascontiguousarray(dir_res[png].plot()[..., ::-1])):
+            raise AssertionError("draw: the written PNG is not the encoding of Results.plot()")
+        avi_res, avi_s, avi_spent = timed_predict(det, str(clip), save=True, name="avi", **args)
+        _, plain_s, _ = timed_predict(det, str(clip), save=False, name="avi_plain", **args)
+        with AviReader(runs / "avi" / "clip.avi") as written:
+            if len(written) != len(info.frames) or written.fps != info.fps or \
+                    decode_jpeg(written.payload(0)).shape != (info.height, info.width, 3):
+                raise AssertionError(f"draw: clip.avi written with {len(written)} frames at {written.fps} fps, source "
+                                     f"{len(info.frames)} at {info.fps}")
+        flagship = {"model": FLAGSHIP, "class_bias": bias, "images": len(src), "avi_frames": len(avi_res),
+                    "boxes_per_frame": sum(len(r) for r in avi_res) / len(avi_res),
+                    "dir": per_frame_ms(dir_spent, len(src)), "avi": per_frame_ms(avi_spent, len(avi_res)),
+                    "avi_fps_save": len(avi_res) / avi_s, "avi_fps_no_save": len(avi_res) / plain_s,
+                    "dir_img_per_s_save": len(src) / dir_s}
+        tasks = {}
+        for name, imgsz, share in c["tasks"]:
+            if imgsz == 1024:
+                rng = np.random.default_rng(c["seed"])
+                frames = [rotated_rect_image(rng, 1024, (8, 40), (12, 160), 15)[0] for _ in range(c["task_frames"])]
+            else:
+                frames = clip_frames
+            m = YOLO(name)
+            tb = calibrated_weights(m, frames[0], c["seed"], c["cls_gain"], share, c["conf"], imgsz)
+            targs = dict(imgsz=imgsz, conf=c["conf"], batch=len(frames), project=str(runs), exist_ok=True)
+            res, save_s, spent = timed_predict(m, frames, save=True, name=name.split(".")[0], **targs)
+            _, plain_task_s, _ = timed_predict(m, frames, save=False, name=name.split(".")[0] + "_plain", **targs)
+            read_back(runs / name.split(".")[0], [f"image{i}.jpg" for i in range(len(frames))], [f.shape for f in frames])
+            kind = "masks" if "seg" in name else "keypoints" if "pose" in name else "obb"
+            if not any(len(r) and getattr(r, kind) is not None for r in res):
+                raise AssertionError(f"draw: {name} drew no {kind} ({[len(r) for r in res]} instances, bias {tb})")
+            tasks[name] = {"class_bias": tb, "share_above_conf": share, "imgsz": imgsz, "frames": len(frames),
+                           "frame_hw": list(frames[0].shape[:2]), **per_frame_ms(spent, len(frames)),
+                           "instances_per_frame": sum(len(r) for r in res) / len(res),
+                           "fps_save": len(frames) / save_s, "fps_no_save": len(frames) / plain_task_s}
+    finally:
+        nms_ops.greedy_keep = kernel_keep
+        shutil.rmtree(tmp, ignore_errors=True)
+    nms_calls, nms_launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
+    if not checks or not all(checks) or nms_launches != 2 * nms_calls or nms_calls != len(checks):
+        raise AssertionError(f"draw: {checks.count(False)} of {len(checks)} keep masks differ from the plain keep; "
+                             f"{nms_calls} NMS calls, {nms_launches} launches")
+    return {"nvidia_smi": smi, "cell": c, "nms_keep_checks": {"calls": len(checks), "all_equal_plain": True},
+            "nms_calls": nms_calls, "nms_launches": nms_launches, "flagship": flagship, "tasks": tasks}
+
+
 def run_pose(smi: str) -> dict:
-    """Phase 12: pose training and validation on the card (see the module docstring), its checks and its numbers."""
+    """Phase 13: pose training and validation on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.cfg import get_val_cfg
     from drone_yolo_tpu_torch.data.build import build_yolo_dataset
@@ -1685,7 +1806,7 @@ def run_pose(smi: str) -> dict:
                 "during_training": n_val_checks, "all_equal_plain": True, "K": VAL["pre_nms_topk"]},
                 "metrics_train": metrics, "metrics_val_rect": val_metrics,
                 "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
-                "results_csv_columns": header, "epochs": ep, "train_wall_s": train_wall,
+                "results_csv_columns": header, "epochs": ep, "train_wall_s": train_wall, "plots": plot_cost(tr),
                 "epoch_s": [e["train_s"] for e in ep], "data_wait_share": sum(e["data_wait_s"] for e in ep) / sum(
                     e["train_s"] for e in ep), "train_img_per_s": sum(e["images"] for e in ep) / sum(e["train_s"] for e in ep),
                 "val_s": [e["val_s"] for e in ep], "val_img_per_s": validator.seen / val_wall,
@@ -1703,7 +1824,7 @@ def run_pose(smi: str) -> dict:
 
 
 def run_segment(smi: str) -> dict:
-    """Phase 13: instance segmentation on the card (see the module docstring), its checks and its numbers."""
+    """Phase 14: instance segmentation on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.cfg import get_val_cfg
     from drone_yolo_tpu_torch.data.build import build_yolo_dataset
@@ -1896,7 +2017,8 @@ def run_segment(smi: str) -> dict:
                                     "extra_columns": 32},
                 "metrics_train": metrics, "metrics_val_rect": val_metrics,
                 "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
-                "epoch": ep, "train_wall_s": train_wall, "data_wait_share": ep["data_wait_s"] / ep["train_s"],
+                "epoch": ep, "train_wall_s": train_wall, "plots": plot_cost(tr),
+                "data_wait_share": ep["data_wait_s"] / ep["train_s"],
                 "val_img_per_s": validator.seen / val_wall, "val_speed_ms_per_img": validator.speed,
                 "peak_memory_gb": peak_gb,
                 "fixed_batch": {"steps": c["fixed_steps"], "seg_loss_first": seg_loss[0], "seg_loss_last": seg_loss[-1],
@@ -1912,7 +2034,7 @@ def run_segment(smi: str) -> dict:
 
 
 def run_obb(smi: str) -> dict:
-    """Phase 14: oriented boxes on the card (see the module docstring), its checks and its numbers."""
+    """Phase 15: oriented boxes on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.cfg import get_val_cfg
     from drone_yolo_tpu_torch.data.build import build_yolo_dataset
@@ -2106,7 +2228,8 @@ def run_obb(smi: str) -> dict:
                 "per_step": {"s2_calls": 7, "bn_calls": n_bn, "nms_calls": 0},
                 "metrics_train": metrics, "metrics_val_rect": val_metrics,
                 "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
-                "epoch": ep, "train_wall_s": train_wall, "data_wait_share": ep["data_wait_s"] / ep["train_s"],
+                "epoch": ep, "train_wall_s": train_wall, "plots": plot_cost(tr),
+                "data_wait_share": ep["data_wait_s"] / ep["train_s"],
                 "val_img_per_s": validator.seen / val_wall, "val_speed_ms_per_img": validator.speed,
                 "peak_memory_gb": peak_gb,
                 "fixed_batch": {"steps": c["fixed_steps"], "box_loss_first": box_loss[0], "box_loss_last": box_loss[-1],
@@ -2123,7 +2246,7 @@ def run_obb(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 def run_families(smi: str) -> dict:
-    """Phase 15: the YOLO11 and YOLO12 families on the card (see the module docstring), its checks and its numbers."""
+    """Phase 16: the YOLO11 and YOLO12 families on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.models.yolo import TASK_MAP
     from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, guess_model_task
@@ -2384,6 +2507,7 @@ def run_families(smi: str) -> dict:
                     **row, "predict": predict, "fp32_card_vs_cpu": {"box_err_px": box_err, "score_rel_err": score_rel_err,
                                                                     "box_atol_px": BOX_ATOL_PX, "score_rtol": SCORE_RTOL},
                     "fixed_batch": runs, "epoch": ep, "epoch_s": ep["train_s"], "train_wall_s": train_wall,
+                    "plots": plot_cost(tr),
                     "data_wait_share": ep["data_wait_s"] / ep["train_s"], "metrics_train": metrics,
                     "metrics_val_rect": val_metrics, "val_img_per_s": validator.seen / val_wall,
                     "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
@@ -2912,13 +3036,25 @@ def main() -> None:
 
     # 11. entry: the command line, files, MJPEG AVI, PNG, rect validation ------------------
     t = time.perf_counter()
-    entry = run_entry(smi)
-    nms_row["launches"] += entry["nms_launches"]
-    nms_row["calls"] += entry["nms_calls"]
-    nms_row["launches_by_path"]["entry"] = entry["nms_launches"]
-    emit("entry", t, **entry)
+    media = Path(tempfile.mkdtemp(prefix="chip_smoke_media_"))
+    try:
+        entry = run_entry(smi, media)
+        nms_row["launches"] += entry["nms_launches"]
+        nms_row["calls"] += entry["nms_calls"]
+        nms_row["launches_by_path"]["entry"] = entry["nms_launches"]
+        emit("entry", t, **entry)
 
-    # 12. pose: training and validation of yolov8s-pose ------------------------------
+        # 12. draw: save=True, annotated images and MJPEG AVI ----------------------------------
+        t = time.perf_counter()
+        draw = run_draw(smi, media)
+    finally:
+        shutil.rmtree(media, ignore_errors=True)
+    nms_row["launches"] += draw["nms_launches"]
+    nms_row["calls"] += draw["nms_calls"]
+    nms_row["launches_by_path"]["draw"] = draw["nms_launches"]
+    emit("draw", t, **draw)
+
+    # 13. pose: training and validation of yolov8s-pose ------------------------------
     t = time.perf_counter()
     pose = run_pose(smi)
     for kern in kernels:
@@ -2928,7 +3064,7 @@ def main() -> None:
     nms_row["calls"] += pose["counts"]["train"]["nms_calls"] + pose["counts"]["val"]["nms_calls"]
     emit("pose", t, **pose)
 
-    # 13. segment: prediction, training and validation of yolov8s-seg ---------------------
+    # 14. segment: prediction, training and validation of yolov8s-seg ---------------------
     t = time.perf_counter()
     seg = run_segment(smi)
     for kern in kernels:
@@ -2938,7 +3074,7 @@ def main() -> None:
     nms_row["calls"] += sum(seg["counts"][k]["nms_calls"] for k in ("predict", "train", "val"))
     emit("segment", t, **seg)
 
-    # 14. obb: prediction, training and validation of yolov8s-obb at 1024 px ---------------
+    # 15. obb: prediction, training and validation of yolov8s-obb at 1024 px ---------------
     t = time.perf_counter()
     obb = run_obb(smi)
     for kern in kernels:
@@ -2947,7 +3083,7 @@ def main() -> None:
         kern["launches_by_path"]["obb"] = n
     emit("obb", t, **obb)
 
-    # 15. families: YOLO11 and YOLO12 on every ported task ------------------------------
+    # 16. families: YOLO11 and YOLO12 on every ported task ------------------------------
     t = time.perf_counter()
     families = run_families(smi)
     for kern in kernels:
@@ -2956,7 +3092,7 @@ def main() -> None:
         kern["launches_by_path"]["families"] = n
     emit("families", t, **families)
 
-    # 16. imports ---------------------------------------------------------------
+    # 17. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401
@@ -2976,7 +3112,7 @@ def main() -> None:
     if [v.__name__ for v in TASK_MAP["obb"].values()] != ["OBBTrainer", "OBBValidator", "OBBPredictor"]:
         raise AssertionError(f"TASK_MAP['obb'] = {TASK_MAP['obb']}")
 
-    absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn"]
+    absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib"]
     loaded = sorted(m for m in absent if m in sys.modules)
     if loaded:
         raise AssertionError(f"the port imported {loaded}")

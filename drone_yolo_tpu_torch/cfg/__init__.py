@@ -9,12 +9,14 @@ plus the port's own `s2grad` and `bnstats`. One default differs: `tracker` is
 `get_cfg` merges defaults, a config and overrides and checks types and ranges as the
 JAX package does; a key outside the set is refused. `check_ported(args, mode)` refuses by
 name every key whose feature the port lacks in that mode when it is set to a value other
-than its default (`UNPORTED`): image and video writing, display, feature maps and
-test-time augmentation on predict; COCO JSON on val; device augmentation, the mesh
+than its default (`UNPORTED`): display, feature maps and test-time augmentation on
+predict; COCO JSON on val; device augmentation, the mesh
 options, the perspective warp and `overlap_mask=False` (which the JAX package accepts and
 ignores) on train. Keys the JAX package itself does not read (export options, `time`,
 `freeze`, `profile`, `retina_masks`, ...) are accepted and, as there, have no effect.
-`plots` (default True) draws nothing yet: a warning says so once.
+`plots` (default True) draws the train batches and fills the confusion matrix; the
+training curves (`results.png`) and label statistics (`labels.jpg`) need matplotlib,
+which the port does not use: a warning says so once.
 
 `entrypoint` is the `k=v` command line (`dyt-torch`, `python -m drone_yolo_tpu_torch`).
 """
@@ -97,14 +99,12 @@ CFG_BOOL_KEYS = {
     "zero", "device_aug", "lane_pad",
 }
 
-# mode -> key -> why a value other than the default is refused; on predict also save=True (its predict default is False)
-SAVE_REFUSAL = ("writing annotated images and video needs Results.plot, which is not ported yet (ROADMAP.md queue 1 "
-                "item 4); save_txt and save_crop are ported")
+# mode -> key -> why a value other than the default is refused
 _MESH = "the JAX package's device mesh (data, tensor and spatial parallelism) is not ported yet (ROADMAP.md queue 1 item 8)"
 _TPU = "a TPU layout option of the JAX package; the port computes the same result without it"
 UNPORTED = {
     "predict": {
-        "show": "showing results needs Results.plot, which is not ported yet (ROADMAP.md queue 1 item 4)",
+        "show": "showing results needs a display library (cv2.imshow), which the card's machine does not have",
         "visualize": "feature-map visualisation is not ported yet",
         "augment": "test-time augmentation is not ported yet",
     },
@@ -184,16 +184,15 @@ def get_cfg(cfg=None, overrides: dict | None = None) -> SimpleNamespace:
 
 
 def check_ported(args: SimpleNamespace, mode: str) -> SimpleNamespace:
-    """Refuse, by name, each key of `UNPORTED[mode]` set to a value other than its default; warn once that plots
-    are not drawn. Returns `args`."""
+    """Refuse, by name, each key of `UNPORTED[mode]` set to a value other than its default; warn once that the
+    matplotlib plots are not drawn. Returns `args`."""
     bad = [f"{k}={getattr(args, k)!r} ({why})" for k, why in UNPORTED[mode].items() if getattr(args, k) != DEFAULT_CFG[k]]
-    if mode == "predict" and args.save:
-        bad.insert(0, f"save=True ({SAVE_REFUSAL})")
     if bad:
         raise KeyError(f"unsupported {mode} arguments: " + "; ".join(bad))
     if mode in ("train", "val") and args.plots and "plots" not in _WARNED:
         _WARNED.add("plots")
-        LOGGER.warning("plots=True: the port draws no plots yet (ROADMAP.md queue 1 item 3); metrics and CSVs only")
+        LOGGER.warning("plots=True: results.png and labels.jpg are not drawn (they need matplotlib, which the port "
+                       "does not use; ROADMAP.md queue 1 item 4); train batches and the confusion matrix are")
     return args
 
 

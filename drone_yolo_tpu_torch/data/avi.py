@@ -18,17 +18,25 @@ other containers (MP4, MKV, ...) with one that names the container.
 `AviReader.frame(i)` decodes frame i into (H, W, 3) uint8 BGR with `data/jpeg.py`; a
 payload without Huffman tables decodes with the standard ones of JPEG Annex K.3, as
 FFmpeg's and libjpeg's MJPEG decoders do.
+
+`AviWriter` writes BGR frames as MJPEG AVI 1.0 (`data/jpeg.py:encode_jpeg`, quality 95):
+RIFF 'AVI ' with `hdrl` (`avih`, one `strl` with `strh` 'vids' 'MJPG' at the frame rate
+as dwRate / dwScale, and a BITMAPINFOHEADER `strf`), `LIST movi` with one `00dc` chunk per
+frame, and `idx1`; the frame count and sizes are filled in when it closes. The JAX package
+writes video as MPEG-4 Part 2 in .mp4 through cv2 (`cv2.VideoWriter`, 'mp4v'), for which
+the port has no encoder: it writes this instead, under the same stem with .avi.
 """
 
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
 
-from drone_yolo_tpu_torch.data.jpeg import decode_jpeg
+from drone_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 
 MJPEG_FOURCCS = {b"MJPG", b"mjpg", b"AVRn", b"LJPG", b"JPEG", b"jpeg", b"dmb1"}
 
@@ -135,6 +143,73 @@ class AviReader:
 
     def close(self) -> None:
         self._file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _u32(*values) -> bytes:
+    return struct.pack(f"<{len(values)}I", *(int(v) for v in values))
+
+
+class AviWriter:
+    """MJPEG AVI 1.0 file of BGR frames at `fps` (a float, kept as the nearest fraction of denominator <= 10000, so
+    30000/1001 stays exact): `write(frame)` per frame, `close()` (or `release()`, or the end of a `with` block) to
+    finish the index and the headers. Every frame must have the first one's size."""
+
+    quality = 95  # JPEG quality of every frame, `cv2.imwrite`'s default
+
+    def __init__(self, path, fps: float = 30.0):
+        rate = Fraction(float(fps) if fps and fps > 0 else 30.0).limit_denominator(10000)
+        self.path, self.rate, self.scale = Path(path), rate.numerator, rate.denominator
+        self.size = None
+        self._index, self._big = [], 0
+        self._file = open(self.path, "wb")
+        self._file.write(b"\0" * self._header_bytes())
+
+    @staticmethod
+    def _header_bytes() -> int:
+        return 12 + 8 + 4 + (8 + 56) + 12 + (8 + 56) + (8 + 40) + 12  # RIFF, hdrl(avih, strl(strh, strf)), movi head
+
+    def _headers(self, n: int, movi_bytes: int, riff_bytes: int) -> bytes:
+        w, h = self.size or (0, 0)
+        usec = round(1e6 * self.scale / self.rate)
+        avih = _u32(usec, self._big * self.rate // self.scale, 0, 0x10, n, 0, 1, self._big, w, h, 0, 0, 0, 0)
+        strh = b"vidsMJPG" + _u32(0, 0, 0, self.scale, self.rate, 0, n, self._big, 0xFFFFFFFF, 0) + bytes(8)
+        strf = _u32(40, w, h) + struct.pack("<HH", 1, 24) + b"MJPG" + _u32(w * h * 3, 0, 0, 0, 0)
+        strl = b"strl" + b"strh" + _u32(len(strh)) + strh + b"strf" + _u32(len(strf)) + strf
+        hdrl = b"hdrl" + b"avih" + _u32(len(avih)) + avih + b"LIST" + _u32(len(strl)) + strl
+        return (b"RIFF" + _u32(riff_bytes) + b"AVI " + b"LIST" + _u32(len(hdrl)) + hdrl
+                + b"LIST" + _u32(movi_bytes) + b"movi")
+
+    def write(self, frame: np.ndarray) -> None:
+        """Append one (H, W, 3) uint8 BGR frame, encoded as JPEG."""
+        h, w = frame.shape[:2]
+        if self.size is None:
+            self.size = (w, h)
+        elif self.size != (w, h):
+            raise ValueError(f"{self.path}: frame of {w}x{h} after frames of {self.size[0]}x{self.size[1]}")
+        data = encode_jpeg(np.ascontiguousarray(frame[..., ::-1]), quality=self.quality)
+        offset = self._file.tell() - (self._header_bytes() - 4)  # from the 'movi' fourcc, as idx1 counts
+        self._file.write(b"00dc" + _u32(len(data)) + data + b"\0" * (len(data) & 1))
+        self._index.append(b"00dc" + _u32(0x10, offset, len(data)))
+        self._big = max(self._big, len(data))
+
+    def close(self) -> None:
+        if self._file.closed:
+            return
+        end = self._file.tell()
+        idx1 = b"".join(self._index)
+        self._file.write(b"idx1" + _u32(len(idx1)) + idx1)
+        total = self._file.tell()
+        self._file.seek(0)
+        self._file.write(self._headers(len(self._index), end - (self._header_bytes() - 4), total - 8))
+        self._file.close()
+
+    release = close
 
     def __enter__(self):
         return self

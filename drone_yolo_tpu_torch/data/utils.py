@@ -173,11 +173,22 @@ def polygons2masks_overlap(imgsz, segments, downsample_ratio: int = 1) -> tuple[
     return masks, order
 
 
+def datasets_dir() -> Path:
+    """The datasets directory: $YOLO_DATASETS_DIR, else ./datasets."""
+    return Path(os.environ.get("YOLO_DATASETS_DIR", Path.cwd() / "datasets"))
+
+
 def check_det_dataset(dataset) -> dict:
-    """Resolve a detection dataset yaml: train/val paths made absolute, `names` as a dict, `nc`, `channels`."""
+    """Resolve a detection dataset yaml: train/val/test/minival paths made absolute, `names` as a dict, `nc`,
+    `channels`. A yaml that does not exist is looked for as `datasets_dir() / its name`; a relative `path:` is
+    taken under `datasets_dir()` first, then beside the yaml, then as the yaml's own directory, as in the JAX
+    package."""
     file = Path(dataset)
     if not file.exists():
-        raise FileNotFoundError(f"dataset yaml '{dataset}' not found (nothing is downloaded)")
+        alt = datasets_dir() / file.name
+        if not alt.exists():
+            raise FileNotFoundError(f"dataset yaml '{dataset}' not found at {file} or {alt} (nothing is downloaded)")
+        file = alt
     data = load_yaml(file.read_text(encoding="utf-8"))
     data["yaml_file"] = str(file)
     if "val" not in data and "validation" in data:
@@ -193,14 +204,14 @@ def check_det_dataset(dataset) -> dict:
     data["channels"] = data.get("channels", 3)
     path = Path(data.get("path") or file.parent)
     if not path.is_absolute():
-        for cand in (file.parent / path, file.parent):
+        for cand in (datasets_dir() / path, file.parent / path, file.parent):
             if cand.exists() and any((cand / s).exists() for s in ("images", "train", data.get("train") or "")):
                 path = cand.resolve()
                 break
         else:
             path = (file.parent / path).resolve()
     data["path"] = path
-    for k in ("train", "val", "test"):
+    for k in ("train", "val", "test", "minival"):
         if data.get(k):
             if isinstance(data[k], str):
                 p = (path / data[k]).resolve()

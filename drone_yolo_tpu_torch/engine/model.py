@@ -23,7 +23,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from drone_yolo_tpu_torch.cfg import check_ported, get_cfg
+from drone_yolo_tpu_torch.cfg import check_ported, get_cfg, get_save_dir
 from drone_yolo_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
 from drone_yolo_tpu_torch.nn import modules as M
 from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, DetectionModel, guess_model_task
@@ -193,6 +193,8 @@ class YOLO:
                 self.predictor.add_callback(event, fn)
         else:
             p.args = check_ported(get_cfg(p.args, kwargs), "predict")
+            if "project" in kwargs or "name" in kwargs:  # as Ultralytics; the JAX facade keeps the first call's folder
+                p.save_dir = get_save_dir(p.args)
         return self.predictor(source=source, stream=stream)
 
     def __call__(self, source=None, stream: bool = False, **kwargs):

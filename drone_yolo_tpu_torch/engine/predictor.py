@@ -5,9 +5,13 @@ DetectionPredictor). `setup_source` picks a loader (`data/loaders.py`): image fi
 (JPEG, PNG), MJPEG AVI videos, directories, globs and .txt lists of them, numpy BGR
 frames, lists of frames or NHWC batches; `stream_inference` runs batch by batch over its
 (paths, images, info) batches. `write_results` logs each result's line and writes
-`save_txt` labels (under `<save_dir>/labels`, a video frame's as `<stem>_<frame>.txt`) and
-`save_crop` crops (under `<save_dir>/crops`); `save=True` (annotated images and video) and
-`show` need drawing, which is not ported yet, and are refused by name
+`save_txt` labels (under `<save_dir>/labels`, a video frame's as `<stem>_<frame>.txt`),
+`save_crop` crops (under `<save_dir>/crops`) and, with `save`, the drawn result
+(`Results.plot` with `show_conf`, `show_labels` and `line_width`): an image to
+`<save_dir>/<its name>` (JPEG or PNG by its suffix), the frames of a video to one MJPEG AVI
+per video, `<save_dir>/<its stem>.avi` at the video's frame rate (`data/avi.py:AviWriter`;
+the JAX package writes `<stem>.mp4` with cv2's MPEG-4 encoder, which the port does not
+have), closed when the stream ends. `show` needs a display and is refused by name
 (`cfg.check_ported`).
 
 Per batch only the (B, max_det, 6 [+ extra]) detections and the (B,) counts
@@ -30,8 +34,9 @@ import numpy as np
 import torch
 
 from drone_yolo_tpu_torch.cfg import check_ported, get_cfg, get_save_dir
+from drone_yolo_tpu_torch.data.avi import AviWriter
 from drone_yolo_tpu_torch.data.loaders import load_inference_source
-from drone_yolo_tpu_torch.engine.results import Results
+from drone_yolo_tpu_torch.engine.results import Results, write_image
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
 from drone_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_u8
 from drone_yolo_tpu_torch.ops.nms import non_max_suppression
@@ -75,6 +80,7 @@ class DetectionPredictor(CallbackMixin):
         self.results = None
         self.dataset = None
         self.source_type = None
+        self.vid_writers = {}  # one AviWriter per video written with save, by its output path
         self.callbacks = get_default_callbacks()
 
     def setup_model(self, facade) -> None:
@@ -139,7 +145,7 @@ class DetectionPredictor(CallbackMixin):
         """Generator of Results, batch by batch, with per-image preprocess/inference/postprocess times in `speed`
         (ms)."""
         self.setup_source(source if source is not None else self.args.source)
-        if self.args.save_txt:
+        if self.args.save or self.args.save_txt:
             self.save_dir.mkdir(parents=True, exist_ok=True)
         self.run_callbacks("on_predict_start")
         profilers = (Profile(self.device), Profile(self.device), Profile(self.device))
@@ -158,17 +164,21 @@ class DetectionPredictor(CallbackMixin):
             for i, r in enumerate(self.results):
                 self.seen += 1
                 r.speed = speed
-                if self.args.verbose or self.args.save_txt or self.args.save_crop:
+                if self.args.verbose or self.args.save or self.args.save_txt or self.args.save_crop:
                     self.write_results(i, Path(paths[i]), r, infos)
             self.run_callbacks("on_predict_batch_end")
             yield from self.results
+        for w in self.vid_writers.values():
+            w.close()
+        self.vid_writers = {}
         if self.args.verbose and self.seen:
             t = tuple(p.t / self.seen * 1e3 for p in profilers)
             LOGGER.info(f"Speed: {t[0]:.1f}ms preprocess, {t[1]:.1f}ms inference, {t[2]:.1f}ms postprocess per image")
         self.run_callbacks("on_predict_end")
 
     def write_results(self, i: int, path: Path, result: Results, infos) -> None:
-        """Log one result's line; write its labels (save_txt) and crops (save_crop) under `save_dir`."""
+        """Log one result's line; write its labels (save_txt), crops (save_crop) and drawing (save) under
+        `save_dir`."""
         if self.args.verbose:
             LOGGER.info(f"{infos[i] if i < len(infos) else ''}{result.verbose()}{result.speed['inference']:.1f}ms")
         if self.args.save_txt:
@@ -177,3 +187,13 @@ class DetectionPredictor(CallbackMixin):
             result.save_txt(self.save_dir / "labels" / f"{path.stem}{suffix}.txt", save_conf=self.args.save_conf)
         if self.args.save_crop:
             result.save_crop(self.save_dir / "crops", path.stem)
+        if self.args.save:
+            plotted = result.plot(conf=self.args.show_conf, labels=self.args.show_labels,
+                                  line_width=self.args.line_width)
+            if self.dataset.mode == "image":
+                write_image(self.save_dir / path.name, plotted)
+            else:
+                out = self.save_dir / f"{path.stem}.avi"
+                if out not in self.vid_writers:
+                    self.vid_writers[out] = AviWriter(out, fps=self.dataset.fps)
+                self.vid_writers[out].write(plotted)

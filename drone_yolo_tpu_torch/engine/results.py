@@ -7,8 +7,10 @@ whose `xy` outlines come from `ops/polygon.py:find_contours` (`cv2.findContours`
 (N, K, 2 or 3); oriented boxes (N, 7) cx, cy, w, h, angle (radians), conf, cls. A `Results` indexes, slices and
 updates all of them together. `save_txt` writes YOLO-format label lines (of the boxes, as the JAX package, and of
 the oriented boxes), `save_crop` the boxes' crops as JPEG (the port's encoder), `summary`/`to_json` a list of dicts
-(with each mask's outline as `segments`). Drawing (`plot`, and `save` and `show`, which draw) is not ported yet and
-is refused by name.
+(with each mask's outline as `segments`). `plot` draws the result as the JAX package does (`utils/plotting.py`:
+masks, boxes with their labels, oriented boxes, keypoints, in that order; a track is labelled as a detection, without
+its id); `save` writes the drawing as JPEG (quality 95, `cv2.imwrite`'s default) or PNG by the file's suffix; `show`
+is refused, since the card's machine has no display library.
 
 `summary` differs from the JAX package on purpose for masks: there it reads `self.masks[i].xy[0]`, the outline of
 the mask's first row, which fails; here it reads the i-th mask's outline, `masks.xy[i]`, as Ultralytics does.
@@ -33,10 +35,28 @@ from pathlib import Path
 import numpy as np
 
 from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
+from drone_yolo_tpu_torch.data.png import encode_png
 from drone_yolo_tpu_torch.ops.polygon import contour_area, find_contours
 from drone_yolo_tpu_torch.ops.rotated import xywhr2xyxyxyxy
+from drone_yolo_tpu_torch.utils.plotting import Annotator, colors
 
-PLOT_REFUSAL = "drawing results (Results.plot, save, show) is not ported yet (ROADMAP.md queue 1 item 4)"
+SHOW_REFUSAL = "showing results needs a display library (cv2.imshow), which the card's machine does not have"
+
+
+def write_image(path, bgr: np.ndarray) -> Path:
+    """Write a BGR uint8 image as `cv2.imwrite` would by the file's suffix: .jpg/.jpeg/.jpe as JPEG at quality 95,
+    .png as PNG; another suffix is refused. Returns the path."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    if suffix in (".jpg", ".jpeg", ".jpe"):
+        data = encode_jpeg(rgb, quality=95)
+    elif suffix == ".png":
+        data = encode_png(rgb)
+    else:
+        raise ValueError(f"{path}: the port writes .jpg and .png images only")
+    path.write_bytes(data)
+    return path
 
 
 class Boxes:
@@ -242,14 +262,39 @@ class Results:
         if obb is not None:
             self.obb = OBB(obb, self.orig_shape)
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError(PLOT_REFUSAL)
+    def plot(self, conf: bool = True, line_width=None, labels: bool = True, boxes: bool = True, masks: bool = True,
+             probs: bool = True, color_mode: str = "class", img=None) -> np.ndarray:
+        """The BGR image (the original, or `img`) with the masks, boxes and oriented boxes (labelled 'name conf',
+        'name' without conf, nothing without labels) and keypoints drawn. `probs` and `color_mode` have no effect, as
+        in the JAX package (classification is not ported)."""
+        annotator = Annotator((img if img is not None else self.orig_img).copy(), line_width=line_width,
+                              example=str(self.names))
+        if self.masks is not None and masks:
+            annotator.masks(self.masks.data, [colors(int(c), True) for c in
+                                              (self.boxes.cls if self.boxes else range(len(self.masks)))])
+        if self.boxes is not None and boxes:
+            for d in self.boxes.data:
+                c = int(d[-1])
+                label = (f"{self._name(c)} {d[-2]:.2f}" if conf else self._name(c)) if labels else None
+                annotator.box_label(d[:4], label, color=colors(c, True))
+        if self.obb is not None and boxes:
+            for d, pts in zip(self.obb.data, self.obb.xyxyxyxy):
+                c = int(d[-1])
+                label = (f"{self._name(c)} {d[-2]:.2f}" if conf else self._name(c)) if labels else None
+                annotator.obb_label(pts, label, color=colors(c, True))
+        if self.keypoints is not None:
+            for k in self.keypoints.data:
+                annotator.kpts(k, self.orig_shape)
+        return annotator.result()
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(PLOT_REFUSAL)
+    def save(self, filename=None):
+        """Write `plot()` to `filename` (default results_<image name>), JPEG or PNG by its suffix; returns it."""
+        filename = filename or f"results_{Path(self.path).name}"
+        write_image(filename, self.plot())
+        return filename
 
     def show(self, *args, **kwargs):
-        raise NotImplementedError(PLOT_REFUSAL)
+        raise NotImplementedError(SHOW_REFUSAL)
 
     def _name(self, c: int) -> str:
         return self.names.get(c, str(c)) if isinstance(self.names, dict) else self.names[c]

@@ -20,7 +20,9 @@ by global batch index, the per-batch multi-scale size (drawn from a generator se
 of each epoch, validation of the EMA weights every epoch on the val split, the best
 fitness and its EMA weights, `results.csv`, `weights/last.npz` and `best.npz` in the JAX
 package's `drone_yolo_tpu.v1` format, `weights/resume_state.npz` in the JAX trainer's
-layout, early stopping, and resume from either package's resume state.
+layout, early stopping, and resume from either package's resume state. With `plots` the
+first three batches of the run are drawn to `train_batch{ni}.jpg` (`utils/plotting.py:
+plot_images`, in threads joined before `train` returns).
 
 Built with `train_loader` (any sized iterable of batches in the collate format,
 `data/dataset.py`) instead, the trainer takes steps on them with `run_steps`; with
@@ -61,6 +63,7 @@ from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_call
 from drone_yolo_tpu_torch.utils.ema import EarlyStopping, ModelEMA
 from drone_yolo_tpu_torch.utils.loss import v8DetectionLoss
 from drone_yolo_tpu_torch.utils.optimizer import auto_optimizer, build_lr_fn, build_optimizer, set_hyp
+from drone_yolo_tpu_torch.utils.plotting import plot_images
 
 MAX_GRAD_NORM = 10.0
 
@@ -97,6 +100,8 @@ class BaseTrainer(CallbackMixin):
         self.best_state = self.final_state = None
         self.start_epoch = self.epoch = 0
         self.ni = 0  # batches seen, for the warmup
+        self.plot_threads = []  # plot_images of the first batches (plots), joined at the end of training
+        self.plot_join_s = 0.0  # the seconds that join waited
         self.epoch_stats: list[dict] = []  # per epoch: wall seconds, seconds waiting for the loader, validation
         self.callbacks = get_default_callbacks()
 
@@ -296,6 +301,8 @@ class BaseTrainer(CallbackMixin):
                 self.run_callbacks("on_train_batch_start")
                 lr_w, lr_b, mom = self._warmup_hyp(self.ni, epoch)
                 _, items = self.train_step(batch, lr_w, lr_b, mom, self._multi_scale_size())
+                if self.args.plots and self.ni < 3 and "bboxes" in batch:
+                    self.plot_threads.append(self.plot_training_samples(batch, self.ni))
                 if pending is not None:
                     tloss = self._running_mean(tloss, pending, n_done)
                     n_done += 1
@@ -335,7 +342,20 @@ class BaseTrainer(CallbackMixin):
         self.final_state = {k: v.detach().cpu().clone() for k, v in self.ema.state.items()}
         if self.best_state is None:
             self.best_state = self.final_state
+        t_join = time.perf_counter()
+        for t in self.plot_threads:
+            t.join()
+        self.plot_join_s = time.perf_counter() - t_join
         self.run_callbacks("on_train_end")
+
+    def plot_training_samples(self, batch: dict, ni: int):
+        """Draw the host batch `ni` (its labelled boxes, pixel xyxy) to train_batch{ni}.jpg in a thread, with the
+        arguments the JAX trainer gives `plot_images`; returns the thread."""
+        valid = batch["mask"].reshape(-1).astype(bool)
+        bi = np.repeat(np.arange(batch["cls"].shape[0]), batch["cls"].shape[1])
+        return plot_images(batch["img"].astype(np.float32) / 255.0, bi[valid], batch["cls"].reshape(-1)[valid],
+                           batch["bboxes"].reshape(-1, 4)[valid], fname=self.save_dir / f"train_batch{ni}.jpg",
+                           names=self.model.names)
 
     @staticmethod
     def _running_mean(tloss, items: torch.Tensor, n: int) -> np.ndarray:

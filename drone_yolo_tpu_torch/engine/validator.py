@@ -21,7 +21,9 @@ P, R, mAP50 and mAP50-95 with `utils/metrics.py`. A task validator sets `task`, 
 the validator builds one over the val split of `args.data` (`data/build.py`: letterboxed
 without enlarging, in order, every image; with `rect`, as `YOLO.val` sets it, in
 rectangular batches of at most `rect_max_shapes` shapes, each batch at its own input
-shape). Plots, the confusion matrix and COCO JSON come with a later slice.
+shape). With `plots` the detect validator also fills `confusion_matrix` (`utils/metrics.py:ConfusionMatrix`, conf
+0.25) with each image's detections and GT in the original frame, as the JAX one does; COCO JSON comes with a later
+slice.
 
 Callbacks (`utils/callbacks.py`) run at `on_val_start`, `on_val_batch_start`,
 `on_val_batch_end` and `on_val_end`.
@@ -42,7 +44,7 @@ from drone_yolo_tpu_torch.engine.predictor import LOGGER, Profile
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
 from drone_yolo_tpu_torch.ops.nms import non_max_suppression
 from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_callbacks
-from drone_yolo_tpu_torch.utils.metrics import DetMetrics, box_iou_np, match_predictions
+from drone_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
 
 
 class BaseValidator(CallbackMixin):
@@ -90,6 +92,7 @@ class BaseValidator(CallbackMixin):
                                                drop_last=False)
         self.names = self.data["names"] if self.data else self.model.names
         self.metrics = self.metrics_class(self.names)  # a fresh one per call: a reused validator reports no stale metrics
+        self.confusion_matrix = ConfusionMatrix(nc=self.nc, conf=self.args.conf)
 
     def preprocess(self, batch: dict) -> torch.Tensor:
         """The uint8 NHWC batch to the device, there NCHW float32 in [0, 1]."""
@@ -154,6 +157,8 @@ class BaseValidator(CallbackMixin):
             self.stats["conf"].append(d[:, 4])
             self.stats["pred_cls"].append(d[:, 5])
             self.stats["target_cls"].append(gt_cls)
+            if self.args.plots:
+                self.confusion_matrix.process_batch(d, gt_native, gt_cls)
 
     def get_stats(self) -> dict:
         """The metrics' means (P, R, mAP50 and mAP50-95 of each kind) over everything accumulated, by the JAX

@@ -3,7 +3,7 @@
 
 A copy of `drone_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions`,
 `compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`, `SegmentMetrics`, `kpt_iou`, `PoseMetrics`,
-`OBBMetrics`) and of
+`OBBMetrics`, `ConfusionMatrix`) and of
 the COCO keypoint sigmas of `drone_yolo_tpu/models/yolo/pose.py:OKS_SIGMA_NP`, which follow the
 reference ultralytics `utils/metrics.py`. The card produces the detections; matching
 and accumulation are host work, as in the JAX package.
@@ -183,6 +183,61 @@ class Metric:
     def update(self, results):
         self.p, self.r, self.f1, self.all_ap, self.ap_class_index = (
             results["p"], results["r"], results["f1"], results["ap"], results["unique_classes"])
+
+
+class ConfusionMatrix:
+    """Detection confusion matrix (nc + 1 square for detect, with the background last; nc otherwise), rows the
+    predicted class, columns the true one. Detections at conf <= `conf` (0.25 when given None or 0.001) are left
+    out; GT and detections pair greedily by IoU > `iou_thres`, the largest first."""
+
+    def __init__(self, nc: int, conf: float = 0.25, iou_thres: float = 0.45, task: str = "detect"):
+        self.task = task
+        self.nc = nc
+        self.conf = 0.25 if conf in {None, 0.001} else conf
+        self.iou_thres = iou_thres
+        n = nc + 1 if task == "detect" else nc
+        self.matrix = np.zeros((n, n))
+
+    def process_cls_preds(self, preds, targets):
+        for p, t in zip(np.asarray(preds), np.asarray(targets)):
+            self.matrix[int(p), int(t)] += 1
+
+    def process_batch(self, detections, gt_bboxes, gt_cls):
+        """detections (N, 6+) x1, y1, x2, y2, conf, cls; gt_bboxes (M, 4) xyxy; gt_cls (M,)."""
+        if detections is None or len(detections) == 0:
+            for c in np.asarray(gt_cls).astype(int):
+                self.matrix[self.nc, c] += 1  # background FN
+            return
+        detections = np.asarray(detections)
+        detections = detections[detections[:, 4] > self.conf]
+        gt_cls = np.asarray(gt_cls).astype(int)
+        dc = detections[:, 5].astype(int)
+        if len(gt_cls) == 0:
+            for c in dc:
+                self.matrix[c, self.nc] += 1  # background FP
+            return
+        iou = box_iou_np(np.asarray(gt_bboxes), detections[:, :4])
+        m_gt, m_pred = np.nonzero(iou > self.iou_thres)
+        matched_gt, matched_pred = set(), set()
+        if len(m_gt):
+            for k in iou[m_gt, m_pred].argsort()[::-1]:
+                g, p = int(m_gt[k]), int(m_pred[k])
+                if g in matched_gt or p in matched_pred:
+                    continue
+                matched_gt.add(g)
+                matched_pred.add(p)
+                self.matrix[dc[p], gt_cls[g]] += 1
+        for g in range(len(gt_cls)):
+            if g not in matched_gt:
+                self.matrix[self.nc, gt_cls[g]] += 1
+        for p in range(len(dc)):
+            if p not in matched_pred:
+                self.matrix[dc[p], self.nc] += 1
+
+    def tp_fp(self):
+        tp = self.matrix.diagonal()
+        fp = self.matrix.sum(1) - tp
+        return (tp[:-1], fp[:-1]) if self.task == "detect" else (tp, fp)
 
 
 class DetMetrics:

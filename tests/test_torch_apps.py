@@ -8,9 +8,9 @@ float32 with NMS at IoU 0.3 (set through each facade's `overrides`; see
 tests/test_torch_track.py for why): the same track ids and smoothed centres each step, the
 same pose detections, and the same CSV rows within the CSV's own rounding. `run` over a
 printf-pattern JPEG sequence equals `step` over the decoded frames, and the port runs
-the whole path with jax, the JAX package, cv2, PIL, yaml and sklearn blocked: tracking, pose,
-the pipeline over a JPEG sequence and over an MJPEG AVI, and the command line (predict over a
-directory of JPEG, PNG and AVI, track, val).
+the whole path with jax, the JAX package, cv2, PIL, yaml, sklearn and matplotlib blocked: tracking,
+pose, the pipeline over a JPEG sequence and over an MJPEG AVI, and the command line (predict over a
+directory of JPEG, PNG and AVI, track, both with save=True, which draws; val).
 """
 
 import csv
@@ -219,7 +219,7 @@ def test_run_refuses_video_files_and_missing_sequences(tmp_path):
 # optional-import probes ask for sklearn's spec)
 BLOCKER = """
 import sys
-BLOCKED = {"jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn"}
+BLOCKED = {"jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib"}
 sys.modules.update(dict.fromkeys(BLOCKED))
 """
 
@@ -264,14 +264,17 @@ def cli(*args):
     runpy.run_module("drone_yolo_tpu_torch", run_name="__main__")
 
 common = [f"model={src / 'last.npz'}", "device=cpu", "dtype=float32", f"project={src / 'runs'}", "verbose=False"]
-cli("predict", f"source={src / 'media'}", "save_txt=True", "conf=0.0", "max_det=5", "name=p", *common)
-cli("track", f"source={src / 'media' / 'clip.avi'}", "name=t", *common)
+cli("predict", f"source={src / 'media'}", "save_txt=True", "save=True", "conf=0.0", "max_det=5", "name=p", *common)
+cli("track", f"source={src / 'media' / 'clip.avi'}", "save=True", "name=t", *common)
+from drone_yolo_tpu_torch.data.avi import AviReader
 cli("val", f"data={src / 'ds' / 'data.yaml'}", "batch=2", "workers=1", *common)
 models[0].predictor = None  # a new tracker
 video = DroneVideoPipeline(models[0], imgsz=128).run(str(src / "media" / "clip.avi"), csv_path=src / "v.csv")
 print(json.dumps({"modules": mods, "tracks": tracks, "frames": out["frames"], "n_tracks": out["n_tracks"],
                   "stats": len(stats), "density_finite": bool(np.isfinite(dens).all()),
                   "labels": sorted(p.name for p in (src / "runs" / "p" / "labels").iterdir()),
+                  "saved": [sorted(p.name for p in (src / "runs" / d).iterdir()) for d in ("p", "t")],
+                  "avi_frames": [len(AviReader(src / "runs" / d / "clip.avi")) for d in ("p", "t")],
                   "video": [video["frames"], video["fps"], (src / "v.csv").read_text().splitlines()[0]],
                   "loaded": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)}))
 """
@@ -301,4 +304,6 @@ def test_track_pose_and_pipeline_run_without_jax_cv2_pil_yaml_sklearn(tmp_path):
     assert all(n > 0 for n in out["tracks"]) and out["density_finite"]
     assert math.isfinite(out["n_tracks"])
     assert out["labels"] == ["a.txt", "b.txt", "c.txt", *(f"clip_{i}.txt" for i in range(1, 5))]
+    assert out["saved"] == [["a.jpg", "b.png", "c.jpg", "clip.avi", "labels"], ["clip.avi"]]  # save=True, drawn
+    assert out["avi_frames"] == [4, 4]
     assert out["video"][:2] == [4, 12.5] and out["video"][2].startswith("frame,track_id")

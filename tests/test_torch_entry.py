@@ -152,11 +152,13 @@ def test_entrypoint_words(monkeypatch, tmp_path, caplog):
     assert "torch " in caplog.text and "0.1.0" in caplog.text and "rect_max_shapes: 8" in caplog.text
 
 
-def test_refusals_by_name(ckpt):
+def test_refusals_by_name(ckpt, tmp_path):
     path, imgs, _ = ckpt
+    saved = YOLO(path, device="cpu").predict(str(imgs), save=True, dtype="float32", project=str(tmp_path), name="s",
+                                             verbose=False)
+    assert sorted(p.name for p in (tmp_path / "s").iterdir()) == ["a.jpg", "b.png", "c.jpg"]  # save is ported now
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "s" / "b.png")), saved[1].plot())
     m = YOLO(path, device="cpu")
-    with pytest.raises(KeyError, match="unsupported predict arguments: save=True"):
-        m.predict(str(imgs), save=True)
     for key in ("show", "visualize", "augment"):
         with pytest.raises(KeyError, match=f"{key}=True"):
             m.predict(str(imgs), **{key: True})
@@ -171,9 +173,11 @@ def test_refusals_by_name(ckpt):
             getattr(m, mode)()
     with pytest.raises(ValueError, match="not ported yet"):
         m.track(str(imgs), tracker="botsort.yaml")
-    for method in ("plot", "save", "show"):
-        with pytest.raises(NotImplementedError, match="Results.plot"):
-            getattr(Results(np.zeros((4, 4, 3), np.uint8), "x.jpg", {0: "a"}, boxes=np.zeros((0, 6))), method)()
+    r = Results(np.zeros((4, 4, 3), np.uint8), str(tmp_path / "x.png"), {0: "a"}, boxes=np.zeros((0, 6)))
+    np.testing.assert_array_equal(r.plot(), r.orig_img)
+    assert r.save(tmp_path / "r.png") == tmp_path / "r.png"
+    with pytest.raises(NotImplementedError, match="display library"):
+        r.show()
 
 
 def test_checkpoint_train_args_carry_into_predict(ckpt, predictions):

@@ -123,7 +123,7 @@ def test_default_device_is_cuda(monkeypatch):
     assert engine_model.select_device(None) == torch.device("cuda")
 
 
-def test_predict_sources_and_arguments(pair):
+def test_predict_sources_and_arguments(pair, tmp_path):
     port, ref, frames, _ = pair
     one = port.predict(source=frames[0], **PREDICT)
     assert len(one) == 1 and one[0].boxes.data.shape[1] == 6
@@ -137,8 +137,9 @@ def test_predict_sources_and_arguments(pair):
     assert all(len(r.boxes) <= 7 and set(r.boxes.cls) <= {3.0} for r in top)
     with pytest.raises(FileNotFoundError, match="does not exist"):  # a path is a file source now
         port.predict(source="bus.jpg", **PREDICT)
-    with pytest.raises(KeyError, match="unsupported predict arguments: save=True"):  # drawing is not ported
-        port.predict(source=frames, save=True)
+    saved = port.predict(source=frames, save=True, project=str(tmp_path), name="s", **PREDICT)  # drawing is ported
+    assert sorted(p.name for p in (tmp_path / "s").iterdir()) == ["image0.jpg", "image1.jpg"]
+    assert all(len(r.boxes) for r in saved)
 
 
 @pytest.mark.parametrize("src,dst", [((720, 1280), (360, 640)), ((1080, 1920), (360, 640)), ((720, 1280), (90, 160))])
