@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
 validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, drives the
 command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model,
-predicts with, trains and validates an instance segmentation model and an oriented box model, and does the same
-with the YOLO11 and YOLO12 families.
+predicts with, trains and validates an instance segmentation model and an oriented box model, does the same
+with the YOLO11 and YOLO12 families, and with the classifiers (yolov8s-cls, yolo11s-cls, yolo12s-cls and the
+ResNet-50 and ResNet-18 trunks).
 
     python3 chip_smoke.py
 
@@ -74,7 +75,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    the JPEG round trip of the dataset within `JPEG_MEAN_ERR`. Printed: seconds per epoch, train
    img/s, the share of the epoch spent waiting on the loader, decode ms per 320 and 640 px
    image, augmentation ms per sample, validation seconds, peak card memory, checkpoint bytes, and
-   the cost of the train-batch plots (`plot_cost`; every training phase prints it);
+   the cost of the train-batch plots (`plot_cost`; the later training phases run with plots=False);
 10. track: the drone-video analytics path. `DroneVideoPipeline` with the flagship (tracking) and
    `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth, fused, bfloat16, and a
    `GeoConverter`, over 64 synthetic 1080x1920 frames of 60 textured rectangles that move, enter and
@@ -168,17 +169,33 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    every train-mode BN input (81 and 113), bf16 and float32, batch 8, 640 px, then one bf16 step's calls timed
    against the plain versions, cuDNN's `convolution_backward` (each of yolo11s's sites alone too) and
    `torch.batch_norm_stats`; predict with `calibrated_weights` on 720x1280 frames (`moving_frames`) at batch 1 and 8;
-   the float32 forward on the card against the CPU (TF32 off, `spread_weights`); 30 steps on one synthetic batch with
-   both kernels and 30 stock from the same init (batch 8, 640 px, bf16 autocast, SGD at a constant lr): the loss
+   the float32 forward on the card against the CPU (TF32 off, `spread_weights`); 10 steps on one synthetic batch with
+   both kernels and 10 stock from the same init (batch 8, 640 px, bf16 autocast, SGD at a constant lr): the loss
    falling in both, the first 3 within `TRAIN_LOSS_RTOL`, step ms, img/s and the device idle share of a profiled
    step; one epoch from disk over 8 + 8 dense-proxy JPEGs at 640 px (`write_dense_dataset`) with both kernels and
    rect val of `last.npz`. Then `yolo11s-pose`, `yolo11s-seg`, `yolo11s-obb` (1024 px) and `yolo12s-seg`: predict at
    batch 8 and 5 fixed-batch steps with both kernels, each loss finite and falling. Every greedy-NMS keep mask is
    held against `greedy_keep_reference`. Counts are set to 0 before each run and read after it: 7 stride-2 calls and
    one BN call per BN input a step, one NMS call a predict or val batch (none for obb);
-17. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
-   modules of every path (apps, trackers, the pose, segment and obb predictors, trainers and validators, the
-   loaders, `ops/rotated.py`) loaded.
+17. classify: image classification. `yolov8s-cls.yaml` (nc 1000, ImageNet-1k) at its published width, 224 px: both
+   train kernels against their plain versions at its 5 dense k=3 stride-2 sites (layers 0, 1, 3, 5, 7; 3 -> 32 ...
+   256 -> 512) and its 26 train-mode BN inputs, bf16 and float32 at batch 64, each kind's calls of a step and each site
+   alone timed against the plain version and cuDNN's `convolution_backward` (the BN inputs against
+   `torch.batch_norm_stats`); predict with `classifier_weights` on 64 synthetic 720x1280 frames at batch 1 and 32
+   (img/s, per-stage ms); the float32 probabilities on the card against the CPU's on 4 frames (TF32 off: the inputs
+   equal, top-1 equal, probabilities within `CLS_PROB_RTOL`/`CLS_PROB_ATOL`); 10 steps on one synthetic batch of 64
+   with both kernels and 10 stock (bf16 autocast, SGD at a constant lr): the loss falling in both, the first 3
+   within `TRAIN_LOSS_RTOL`, step ms, img/s and the device idle share of a profiled step; one epoch from disk over
+   a 10-class image folder in imagenet10's layout (`write_cls_folder`: 8 train and 4 val JPEGs a class of mixed
+   aspect) at batch 16 with both kernels, then val of `last.npz`: top-1 and top-5 in [0, 1], peak card memory, the
+   data-wait share. Then yolo11s-cls, yolo12s-cls, yolov8-cls-resnet50 and yolo11-cls-resnet18: both kernels at
+   their sites (5 k=3 for the families; 3 k=3 and 3 k=1 for each ResNet trunk, the 1x1 stride-2 shortcuts up to
+   1024 -> 2048 at 14 px) and BN inputs (ResNet-50's last 2048 channels at 7 px), each site alone against cuDNN;
+   predict at batch 32; 3 fixed-batch steps with both kernels against 3 stock within `TRAIN_LOSS_RTOL`. Counts are
+   set to 0 before each run and read after it: the stride-2 and BN calls of every step exactly, no greedy-NMS call;
+18. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
+   modules of every path (apps, trackers, the pose, segment, obb and classify predictors, trainers and validators,
+   the loaders, `ops/rotated.py`) loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -302,10 +319,11 @@ OBB_CELL = dict(model="yolov8s-obb.yaml", nc=15, n_train=8, n_val=8, imgsz=1024,
                 fixed_steps=30, objects=(8, 40), obj_px=(12, 160), frames=8, cls_gain=30.0, share_above_conf=0.02,
                 conf=0.25)
 # the families phase: yolo11s and yolo12s (nc 80, 640 px) with calibrated weights: predict on 720x1280 frames at batch
-# 1 and 8, the float32 forward on the card against the CPU, 30 fixed-batch steps with both kernels and 30 stock, one
-# epoch from disk over dense-proxy JPEGs with rect val of last.npz; then yolo11s-pose, -seg, -obb (1024 px) and
-# yolo12s-seg: predict at batch 8 and 5 fixed-batch steps with both kernels, each task's loss falling
-FAMILY_CELL = dict(models=("yolo11s.yaml", "yolo12s.yaml"), nc=80, imgsz=640, batch=8, frames=8, fixed_steps=30,
+# 1 and 8, the float32 forward on the card against the CPU, 10 fixed-batch steps with both kernels and 10 stock (30
+# before the classify phase, which took their time), one epoch from disk over dense-proxy JPEGs with rect val of
+# last.npz; then yolo11s-pose, -seg, -obb (1024 px) and yolo12s-seg: predict at batch 8 and 5 fixed-batch steps with
+# both kernels, each task's loss falling
+FAMILY_CELL = dict(models=("yolo11s.yaml", "yolo12s.yaml"), nc=80, imgsz=640, batch=8, frames=8, fixed_steps=10,
                    n_train=8, n_val=8, data_nc=6, obj_px=(6, 24), seed=17, workers=4, cls_gain=30.0,
                    share_above_conf=0.002, conf=0.25,
                    tasks=(("yolo11s-pose.yaml", 640), ("yolo11s-seg.yaml", 640), ("yolo11s-obb.yaml", 1024),
@@ -323,6 +341,27 @@ DRAW_CELL = dict(imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.004, se
                         ("yolov8s-obb.yaml", 1024, 0.004)))
 ENTRY_VAL_ASPECTS = ((1.0, 1.0), (0.5625, 1.0), (1.0, 0.5625), (0.75, 1.0), (1.0, 0.75), (0.6, 1.0), (1.0, 0.8),
                      (0.9, 1.0))
+# the classify phase: yolov8s-cls (nc 1000, ImageNet-1k) at its published width and 224 px: predict on 64 synthetic
+# 720x1280 frames at batch 1 and 32, the float32 probabilities on the card against the CPU's; 10 fixed-batch steps at
+# batch 64 with both kernels and 10 stock; one epoch from disk over a 10-class image folder in imagenet10's layout
+# (train/<wnid>/*.JPEG, val/<wnid>/*.JPEG; 8 train and 4 val images a class of mixed aspect) at batch 16, and val of
+# last.npz. Then yolo11s-cls, yolo12s-cls, the ResNet-50 and the ResNet-18 trunks: predict at batch 32 and 3
+# fixed-batch steps with the kernels against 3 stock. The class logits are spread (the linear's weights x linear_gain
+# after `spread_weights`) so that the top class stands clear of float32 rounding.
+CLASSIFY_CELL = dict(model="yolov8s-cls.yaml", imgsz=224, batch=64, frames=64, predict_batch=32, fixed_steps=10,
+                     n_train=8, n_val=4, epoch_batch=16, workers=4, seed=23, linear_gain=10.0, cpu_frames=4,
+                     others=("yolo11s-cls.yaml", "yolo12s-cls.yaml", "yolov8-cls-resnet50.yaml", "yolo11-cls-resnet18.yaml"),
+                     other_steps=3)
+# (k=3 sites, k=1 sites) of each classifier at 224 px: the five P1-P5 downsampling convs; a ResNet trunk's first block
+# of layers 2-4 (its 3x3 and its 1x1 shortcut, both stride 2); the 7x7 stems are not sites (`ops/conv_s2.py:covers`)
+CLASSIFY_S2 = {"yolov8s-cls.yaml": (5, 0), "yolo11s-cls.yaml": (5, 0), "yolo12s-cls.yaml": (5, 0),
+               "yolov8-cls-resnet50.yaml": (3, 3), "yolo11-cls-resnet18.yaml": (3, 3)}
+# the first ten ImageNet-1k classes' WordNet ids, the folder names of the classify phase's dataset
+IMAGENET_WNIDS = ("n01440764", "n01443537", "n01484850", "n01491361", "n01494475", "n01496331", "n01498041",
+                  "n01514668", "n01514859", "n01518878")
+# float32 probabilities, card (TF32 off) vs CPU: the two sum in different orders (~1e-6 relative a layer); a
+# probability's relative error is about its logit's absolute error, here logits of a few units
+CLS_PROB_RTOL, CLS_PROB_ATOL = 1e-3, 1e-7
 
 T0 = time.perf_counter()
 
@@ -630,6 +669,44 @@ def write_dense_dataset(root: Path, n_train: int, n_val: int, size: int, seed: i
     return yaml_path, {"mean_abs_err": err_sum / n_val_px, "max_abs_err": err_max}
 
 
+def write_cls_folder(root: Path, n_train: int, n_val: int, seed: int) -> Path:
+    """An image folder in imagenet10's layout (`IMAGENET_WNIDS`): per class a hue, stripes at a class angle and noise,
+    in images of mixed size and aspect, written by the port's JPEG encoder at quality 90."""
+    from drone_yolo_tpu_torch.data.jpeg import encode_jpeg
+
+    rng = np.random.default_rng(seed)
+    shapes = ((192, 256), (256, 192), (224, 224), (180, 320), (320, 180), (240, 300))
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c, wnid in enumerate(IMAGENET_WNIDS):
+            d = root / split / wnid
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                h, w = shapes[int(rng.integers(len(shapes)))]
+                yy, xx = np.mgrid[0:h, 0:w]
+                ang = c * np.pi / len(IMAGENET_WNIDS)
+                stripes = 60 * np.sin((xx * np.cos(ang) + yy * np.sin(ang)) / (4 + c))
+                hue = np.array([np.cos(2 * np.pi * c / 10 + k * 2.1) for k in range(3)]) * 70 + 128
+                img = np.clip(hue + stripes[..., None] + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+                (d / f"{wnid}_{i:04d}.JPEG").write_bytes(encode_jpeg(img, quality=90))
+    return root
+
+
+def classifier_weights(state_dict: dict, rng: np.random.Generator, gain: float) -> dict:
+    """`spread_weights`, then `Classify`'s linear weights scaled by `gain`: logits of a few units that follow the image,
+    so that the top class stands clear of rounding."""
+    out = spread_weights(state_dict, rng)
+    for name, t in out.items():
+        if name.endswith("linear.weight"):
+            out[name] = t * gain
+    return out
+
+
+def synthetic_cls_batch(rng: np.random.Generator, batch: int, imgsz: int, nc: int) -> dict:
+    """A classifier's collate-format batch: random uint8 RGB images and random labels."""
+    return {"img": rng.integers(0, 256, (batch, imgsz, imgsz, 3), dtype=np.uint8),
+            "cls": rng.integers(0, nc, batch).astype(np.int32)}
+
+
 def accuracy(seeds: list[int]) -> None:
     """`YOLO.train` at the ablation settings on 192 + 96 dense-proxy images, then `YOLO.val` at conf 0.001: one JSON
     line per init seed (the ablation's seed is 0)."""
@@ -847,16 +924,22 @@ def s2_sites(model, batch: int, imgsz: int) -> list[dict]:
 
     sites = []
 
-    def hook(mod, args, name):
+    def hook(conv, args, name):
         x = args[0]
-        if covers(mod.conv, x):
-            k = mod.conv.kernel_size[0]
-            sites.append({"name": name, "k": k, "x": tuple(x.shape), "w": tuple(mod.conv.weight.shape),
-                          "dy": (x.shape[0], mod.conv.out_channels, x.shape[2] // 2, x.shape[3] // 2),
+        if covers(conv, x):
+            k = conv.kernel_size[0]
+            sites.append({"name": name, "k": k, "x": tuple(x.shape), "w": tuple(conv.weight.shape),
+                          "dy": (x.shape[0], conv.out_channels, x.shape[2] // 2, x.shape[3] // 2),
                           "need_dx": x.requires_grad})
 
-    handles = [m.register_forward_pre_hook(lambda m, a, name=n: hook(m, a, name))
-               for n, m in model.named_modules() if isinstance(m, M.Conv)]
+    handles = []
+    for n, m in model.named_modules():
+        if isinstance(m, M.Conv):  # a Conv's site is named by the Conv
+            handles.append(m.register_forward_pre_hook(lambda m, a, name=n: hook(m.conv, a, name)))
+        elif isinstance(m, M.BasicBlock):  # a TorchVision block's convs by their own names
+            convs = {"conv1": m.conv1, "conv2": m.conv2, **({"downsample.0": m.downsample[0]} if m.downsample else {})}
+            handles += [c.register_forward_pre_hook(lambda c, a, name=f"{n}.{cn}": hook(c, a, name))
+                        for cn, c in convs.items()]
     state = {k: torch.empty_like(v, device="meta").requires_grad_(v.requires_grad)
              for k, v in model.state_dict(keep_vars=True).items()}
     was_training = model.training
@@ -1730,7 +1813,7 @@ def run_pose(smi: str) -> dict:
         write_s = time.perf_counter() - t0
         common = dict(data=str(data), imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"], optimizer="SGD", amp=True,
                       s2grad="cuda", bnstats="cuda", cache="ram", workers=c["workers"], project=str(tmp / "runs"),
-                      exist_ok=True)
+                      exist_ok=True, plots=False)
         nms_ops.greedy_keep = checked_keep
         try:
             reset()
@@ -1806,7 +1889,7 @@ def run_pose(smi: str) -> dict:
                 "during_training": n_val_checks, "all_equal_plain": True, "K": VAL["pre_nms_topk"]},
                 "metrics_train": metrics, "metrics_val_rect": val_metrics,
                 "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
-                "results_csv_columns": header, "epochs": ep, "train_wall_s": train_wall, "plots": plot_cost(tr),
+                "results_csv_columns": header, "epochs": ep, "train_wall_s": train_wall, "plots": False,
                 "epoch_s": [e["train_s"] for e in ep], "data_wait_share": sum(e["data_wait_s"] for e in ep) / sum(
                     e["train_s"] for e in ep), "train_img_per_s": sum(e["images"] for e in ep) / sum(e["train_s"] for e in ep),
                 "val_s": [e["val_s"] for e in ep], "val_img_per_s": validator.seen / val_wall,
@@ -1948,7 +2031,8 @@ def run_segment(smi: str) -> dict:
             model = YOLO(c["model"])
             metrics = model.train(data=str(data), epochs=1, imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"],
                                   optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
-                                  workers=c["workers"], project=str(tmp / "runs"), name="train", exist_ok=True)
+                                  workers=c["workers"], project=str(tmp / "runs"), name="train", exist_ok=True,
+                                  plots=False)
             train_wall = time.perf_counter() - t0
             train_counts = counts()
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2017,7 +2101,7 @@ def run_segment(smi: str) -> dict:
                                     "extra_columns": 32},
                 "metrics_train": metrics, "metrics_val_rect": val_metrics,
                 "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
-                "epoch": ep, "train_wall_s": train_wall, "plots": plot_cost(tr),
+                "epoch": ep, "train_wall_s": train_wall, "plots": False,
                 "data_wait_share": ep["data_wait_s"] / ep["train_s"],
                 "val_img_per_s": validator.seen / val_wall, "val_speed_ms_per_img": validator.speed,
                 "peak_memory_gb": peak_gb,
@@ -2168,7 +2252,8 @@ def run_obb(smi: str) -> dict:
         model = YOLO(c["model"])
         metrics = model.train(data=str(data), epochs=1, imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"],
                               optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
-                              workers=c["workers"], project=str(tmp / "runs"), name="train", exist_ok=True)
+                              workers=c["workers"], project=str(tmp / "runs"), name="train", exist_ok=True,
+                              plots=False)
         train_wall = time.perf_counter() - t0
         train_counts = counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2228,7 +2313,7 @@ def run_obb(smi: str) -> dict:
                 "per_step": {"s2_calls": 7, "bn_calls": n_bn, "nms_calls": 0},
                 "metrics_train": metrics, "metrics_val_rect": val_metrics,
                 "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
-                "epoch": ep, "train_wall_s": train_wall, "plots": plot_cost(tr),
+                "epoch": ep, "train_wall_s": train_wall, "plots": False,
                 "data_wait_share": ep["data_wait_s"] / ep["train_s"],
                 "val_img_per_s": validator.seen / val_wall, "val_speed_ms_per_img": validator.speed,
                 "peak_memory_gb": peak_gb,
@@ -2252,8 +2337,6 @@ def run_families(smi: str) -> dict:
     from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, guess_model_task
     from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
     from drone_yolo_tpu_torch.ops import nms as nms_ops
-    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
-    from drone_yolo_tpu_torch.ops.conv_s2 import s2_bwd_reference
 
     c = FAMILY_CELL
     k3, k1 = cuda_s2bwd.NAMES[3], cuda_s2bwd.NAMES[1]
@@ -2283,85 +2366,6 @@ def run_families(smi: str) -> dict:
         checks.append({"K": int(boxes.shape[1]), "valid": int(valid.sum()), "kept": int(keep.sum()),
                        "equal": bool(torch.equal(keep, nms_ops.greedy_keep_reference(boxes, valid, iou_thres)))})
         return keep
-
-    def train_kernels(name: str, seed: int, timed_sites: bool) -> dict:
-        """Both train kernels against their plain versions at the model's stride-2 sites and BN inputs (batch 8,
-        640 px, bf16 and float32), then one bf16 step's calls of each timed against the plain version and the library
-        call; with `timed_sites`, each stride-2 site alone against cuDNN there."""
-        probe = TASK2MODELCLASS[guess_model_task(name)](name, nc=c["nc"])
-        sites = s2_sites(probe, c["batch"], c["imgsz"])
-        if [s["name"].split(".")[1] for s in sites] != FAMILY_S2_LAYERS[name] or any(s["k"] != 3 for s in sites):
-            raise AssertionError(f"{name}: stride-2 sites {[(s['name'], s['k']) for s in sites]}")
-        s2_checks = []
-        for i, site in enumerate(sites):
-            for dtype in (torch.bfloat16, torch.float32):
-                x, w, dy = s2_site_inputs(site, dtype, seed=seed + i)
-                dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
-                dx_p, dw_p = s2_bwd_reference(x, w, dy, 3, site["need_dx"])
-                dname = str(dtype).split(".")[1]
-                row = {"site": site["name"], "x": site["x"], "dtype": dname}
-                for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
-                    tol = dict(S2_TOL[dname][what])
-                    tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
-                    torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} {site['name']} {dname} {what}: {m}")
-                    err = (got - want).abs()
-                    row[f"{what}_err"] = float(err.max())
-                    row[f"{what}_err_over_tol"] = float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
-                s2_checks.append(row)
-                del x, w, dy, dx, dw, dx_p, dw_p
-        bn = bn_sites(probe, c["batch"], c["imgsz"])
-        bn_worst = {"sum_err_over_tol": 0.0, "sumsq_err_over_tol": 0.0}
-        for i, site in enumerate(bn):
-            for dtype in (torch.bfloat16, torch.float32):
-                x = site_input(site["x"], dtype, seed=seed + 100 + i)
-                s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
-                errs = bn_stats_errors(x, s_k, q_k)
-                if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
-                    raise AssertionError(f"{name} BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
-                bn_worst = {k: max(v, errs[k]) for k, v in bn_worst.items()}
-                del x, s_k, q_k
-        del probe
-
-        s2_in = [s2_site_inputs(site, torch.bfloat16, seed=seed + 300 + i) for i, site in enumerate(sites)]
-        pairs = list(zip(sites, s2_in))
-        s2_time = {}
-        for prefix, fn in {
-                "": lambda: [cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
-                "plain_": lambda: [s2_bwd_reference(x, w, dy, 3, st["need_dx"]) for st, (x, w, dy) in pairs],
-                "library_": lambda: [torch.ops.aten.convolution_backward(dy, x, w, None, [2, 2], [1, 1], [1, 1], False,
-                                                                         [0, 0], 1, [st["need_dx"], True, False])
-                                     for st, (x, w, dy) in pairs]}.items():
-            s2_time.update(kernel_times(fn, reps=2 if prefix == "plain_" else 5, prefix=prefix))
-        costs = [s2_cost(st) for st in sites]
-        b_ms = [n_bytes / PEAK_BYTES_PER_S * 1e3 for n_bytes, _ in costs]
-        o_ms = [n_ops / PEAK_BF16_PER_S * 1e3 for _, n_ops in costs]
-        s2_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
-                       calls=len(sites))
-        if timed_sites:  # each site alone: the kernel against cuDNN there
-            s2_time["sites"] = []
-            for st, (x, w, dy), bm, om in zip(sites, s2_in, b_ms, o_ms):
-                row = {"site": st["name"], "x": st["x"], "w": st["w"], "need_dx": st["need_dx"], "bound_ms": max(bm, om)}
-                row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=st["need_dx"]: cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, nd),
-                                        reps=10, site=True))
-                row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=st["need_dx"]: torch.ops.aten.convolution_backward(
-                    dy, x, w, None, [2, 2], [1, 1], [1, 1], False, [0, 0], 1, [nd, True, False]), reps=10,
-                    prefix="library_", site=True))
-                row.update(vs_library=row["ms"] / row["library_ms"], bound_share=row["bound_ms"] / row["ms"])
-                s2_time["sites"].append(row)
-        del s2_in, pairs
-        xs = [site_input(site["x"], torch.bfloat16, seed=seed + 400 + i) for i, site in enumerate(bn)]
-        bn_time = {}
-        for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],
-                           "plain_": lambda: [bn_stats_reference(x) for x in xs],
-                           "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
-            bn_time.update(kernel_times(fn, reps=5, prefix=prefix))
-        b_ms = [(2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3 for x in xs]
-        o_ms = [BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3 for x in xs]
-        bn_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
-                       calls=len(xs))
-        del xs
-        return {"s2_sites": [s["name"] for s in sites], "s2_checks": s2_checks, "bn_inputs": len(bn),
-                "bn_checks_worst": bn_worst, "s2_time": s2_time, "bn_time": bn_time}
 
     def fixed_run(trainer_cls, name: str, batch: dict, data: dict, steps: int, s2grad, bnstats, imgsz: int) -> tuple:
         trainer = trainer_cls(overrides=dict(model=name, batch=c["batch"], imgsz=imgsz, nbs=c["batch"], optimizer="SGD",
@@ -2397,7 +2401,11 @@ def run_families(smi: str) -> dict:
         try:
             for mi, name in enumerate(c["models"]):
                 stem = Path(name).stem
-                row = train_kernels(name, seed=5000 + 1000 * mi, timed_sites=mi == 0)
+                row = train_kernel_checks(TASK2MODELCLASS[guess_model_task(name)](name, nc=c["nc"]), c["batch"],
+                                          c["imgsz"], seed=5000 + 1000 * mi, timed_sites=mi == 0)
+                if ([st[0].split(".")[1] for st in row["s2_sites"]] != FAMILY_S2_LAYERS[name]
+                        or any(st[1] != 3 for st in row["s2_sites"])):
+                    raise AssertionError(f"{name}: stride-2 sites {row['s2_sites']}")
                 n_bn = row["bn_inputs"]
                 lap(f"{stem}.kernels")
 
@@ -2474,7 +2482,8 @@ def run_families(smi: str) -> dict:
                 model = YOLO(name)
                 metrics = model.train(data=str(data), epochs=1, imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"],
                                       optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
-                                      workers=c["workers"], project=str(tmp / "runs"), name=stem, exist_ok=True)
+                                      workers=c["workers"], project=str(tmp / "runs"), name=stem, exist_ok=True,
+                                      plots=False)
                 train_wall = time.perf_counter() - t0
                 train_counts = counts()
                 add_launches(train_counts)
@@ -2507,7 +2516,7 @@ def run_families(smi: str) -> dict:
                     **row, "predict": predict, "fp32_card_vs_cpu": {"box_err_px": box_err, "score_rel_err": score_rel_err,
                                                                     "box_atol_px": BOX_ATOL_PX, "score_rtol": SCORE_RTOL},
                     "fixed_batch": runs, "epoch": ep, "epoch_s": ep["train_s"], "train_wall_s": train_wall,
-                    "plots": plot_cost(tr),
+                    "plots": False,
                     "data_wait_share": ep["data_wait_s"] / ep["train_s"], "metrics_train": metrics,
                     "metrics_val_rect": val_metrics, "val_img_per_s": validator.seen / val_wall,
                     "rect_shapes": [list(map(int, s)) for s in validator.dataloader.dataset.batch_shapes],
@@ -2572,6 +2581,328 @@ def run_families(smi: str) -> dict:
         if not all(ch["equal"] for ch in checks):
             raise AssertionError(f"families: keep masks unequal to the plain keep: {[ch for ch in checks if not ch['equal']]}")
         out["nms_keep_checks"] = {"calls": len(checks), "all_equal_plain": True, "K": sorted({ch["K"] for ch in checks})}
+        out["launches"] = dict(launches)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_kernel_checks(probe, batch: int, imgsz: int, seed: int, timed_sites: bool = True) -> dict:
+    """Both train kernels against their plain versions at `probe`'s stride-2 sites and train-mode BN inputs (a
+    (batch, 3, imgsz, imgsz) input, bf16 and float32); then each kind's bf16 calls of a step timed against the plain
+    version and the library call (cuDNN's `convolution_backward`, `torch.batch_norm_stats`), and with `timed_sites`
+    each stride-2 site alone against cuDNN there. `name` in messages is the model's yaml."""
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+    from drone_yolo_tpu_torch.ops.conv_s2 import KINDS, s2_bwd_reference
+
+    name = Path(str(probe.yaml.get("yaml_file", "model"))).name
+    sites = s2_sites(probe, batch, imgsz)
+    s2_checks = []
+    for i, site in enumerate(sites):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, dy = s2_site_inputs(site, dtype, seed=seed + i)
+            dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, site["k"], site["need_dx"])
+            dx_p, dw_p = s2_bwd_reference(x, w, dy, site["k"], site["need_dx"])
+            dname = str(dtype).split(".")[1]
+            row = {"site": site["name"], "k": site["k"], "x": site["x"], "w": site["w"], "dtype": dname}
+            for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
+                tol = dict(S2_TOL[dname][what])
+                tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} {site['name']} {dname} {what}: {m}")
+                err = (got - want).abs()
+                row[f"{what}_err"] = float(err.max())
+                row[f"{what}_err_over_tol"] = float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
+            s2_checks.append(row)
+            del x, w, dy, dx, dw, dx_p, dw_p
+    bn = bn_sites(probe, batch, imgsz)
+    bn_worst = {"sum_err_over_tol": 0.0, "sumsq_err_over_tol": 0.0, "max_abs_err": 0.0}
+    for i, site in enumerate(bn):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = site_input(site["x"], dtype, seed=seed + 100 + i)
+            s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
+            errs = bn_stats_errors(x, s_k, q_k)
+            if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
+                raise AssertionError(f"{name} BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
+            for k in ("sum_err_over_tol", "sumsq_err_over_tol"):
+                bn_worst[k] = max(bn_worst[k], errs[k])
+            bn_worst["max_abs_err"] = max(bn_worst["max_abs_err"], errs["sum_err"], errs["sumsq_err"])
+            del x, s_k, q_k
+
+    s2_time = {}
+    for kind in sorted({s["k"] for s in sites}, reverse=True):
+        p = KINDS[kind]
+        kind_sites = [s for s in sites if s["k"] == kind]
+        pairs = [(st, s2_site_inputs(st, torch.bfloat16, seed=seed + 300 + i)) for i, st in enumerate(kind_sites)]
+        t = {}
+        for prefix, fn in {
+                "": lambda: [cuda_s2bwd.s2_bwd_cuda(x, w, dy, kind, st["need_dx"]) for st, (x, w, dy) in pairs],
+                "plain_": lambda: [s2_bwd_reference(x, w, dy, kind, st["need_dx"]) for st, (x, w, dy) in pairs],
+                "library_": lambda: [torch.ops.aten.convolution_backward(dy, x, w, None, [2, 2], [p, p], [1, 1], False,
+                                                                         [0, 0], 1, [st["need_dx"], True, False])
+                                     for st, (x, w, dy) in pairs]}.items():
+            t.update(kernel_times(fn, reps=2 if prefix == "plain_" else 5, prefix=prefix))
+        t["sites"] = []
+        for st, (x, w, dy) in pairs if timed_sites else ():  # each site alone: the kernel against cuDNN there
+            n_bytes, n_ops = s2_cost(st)
+            row = {"site": st["name"], "x": st["x"], "w": st["w"], "need_dx": st["need_dx"],
+                   "bytes_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "ops_ms": n_ops / PEAK_BF16_PER_S * 1e3}
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=st["need_dx"]: cuda_s2bwd.s2_bwd_cuda(x, w, dy, kind, nd),
+                                    reps=10, site=True))
+            row.update(kernel_times(lambda x=x, w=w, dy=dy, nd=st["need_dx"]: torch.ops.aten.convolution_backward(
+                dy, x, w, None, [2, 2], [p, p], [1, 1], False, [0, 0], 1, [nd, True, False]), reps=10,
+                prefix="library_", site=True))
+            row.update(vs_library=row["ms"] / row["library_ms"], bound_share=row["bound_ms"] / row["ms"])
+            t["sites"].append(row)
+        costs = [s2_cost(st) for st in kind_sites]
+        b_ms = [n_bytes / PEAK_BYTES_PER_S * 1e3 for n_bytes, _ in costs]
+        o_ms = [n_ops / PEAK_BF16_PER_S * 1e3 for _, n_ops in costs]
+        t.update(bound_ms=sum(map(max, b_ms, o_ms)), calls=len(kind_sites),
+                 bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations")
+        s2_time[cuda_s2bwd.NAMES[kind]] = t
+        del pairs
+    xs = [site_input(site["x"], torch.bfloat16, seed=seed + 400 + i) for i, site in enumerate(bn)]
+    bn_time = {}
+    for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],
+                       "plain_": lambda: [bn_stats_reference(x) for x in xs],
+                       "library_": lambda: [torch.batch_norm_stats(x, 1e-3) for x in xs]}.items():
+        bn_time.update(kernel_times(fn, reps=5, prefix=prefix))
+    b_ms = [(2 * x.numel() + 2 * 4 * x.shape[1]) / PEAK_BYTES_PER_S * 1e3 for x in xs]
+    o_ms = [BN_OPS * x.numel() / PEAK_FP32_PER_S * 1e3 for x in xs]
+    bn_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
+                   calls=len(xs), largest_input=max((x.shape for x in xs), key=lambda sh: sh[1]))
+    del xs
+    return {"s2_sites": [(s["name"], s["k"], s["x"], s["w"][0]) for s in sites], "s2_checks": s2_checks,
+            "bn_inputs": len(bn), "bn_checks_worst": bn_worst, "s2_time": s2_time, "bn_time": bn_time}
+
+
+def run_classify(smi: str) -> dict:
+    """Phase 17: classification on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.models.yolo.classify import ClassificationTrainer
+    from drone_yolo_tpu_torch.nn.model import ClassificationModel
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.conv_s2 import KINDS
+
+    c = CLASSIFY_CELL
+    names = {k: cuda_s2bwd.NAMES[k] for k in KINDS}
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+
+    def counts() -> dict:
+        return {"s2_calls": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+                "nms_calls": cuda_nms.greedy_keep_cuda.calls,
+                "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches,
+                             "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                             **{n: cuda_s2bwd.s2_bwd_cuda.launches.get(n, 0) for n in names.values()}}}
+
+    launches = defaultdict(int)
+
+    def add_launches(cnt: dict) -> None:
+        for k, v in cnt["launches"].items():
+            launches[k] += v
+
+    def want_s2(name: str, steps: int) -> dict:
+        n3, n1 = CLASSIFY_S2[name]
+        return {names[3]: n3 * steps, names[1]: n1 * steps}
+
+    def train_kernels(name: str, seed: int) -> dict:
+        row = train_kernel_checks(ClassificationModel(name), c["batch"], c["imgsz"], seed)
+        if tuple(sum(st[1] == k for st in row["s2_sites"]) for k in (3, 1)) != CLASSIFY_S2[name]:
+            raise AssertionError(f"{name}: stride-2 sites {row['s2_sites']}, expected {CLASSIFY_S2[name]} (k=3, k=1)")
+        return row
+
+    def calibrated(name: str, seed: int):
+        model = YOLO(name)
+        model.ensure_variables(imgsz=c["imgsz"], seed=0)
+        model.model.load_state_dict(classifier_weights(model.model.state_dict(), np.random.default_rng(seed),
+                                                       c["linear_gain"]))
+        return model
+
+    def predict_at(model, frames, b: int) -> dict:
+        model.predict(frames[:b], imgsz=c["imgsz"], batch=b, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.predict(frames, imgsz=c["imgsz"], batch=b, verbose=False)
+        wall = time.perf_counter() - t0
+        nc = model.model.nc
+        if len(res) != len(frames) or not all(r.probs.data.shape == (nc,) and np.isfinite(r.probs.data).all()
+                                              and abs(float(r.probs.data.sum()) - 1) < 1e-3 for r in res):
+            raise AssertionError(f"{model.model_name} predict at batch {b}: probabilities not finite or not summing to 1")
+        return {"img_per_s": len(frames) / wall, "speed_ms_per_img": res[-1].speed,
+                "top1": [r.probs.top1 for r in res[:8]], "top1conf": [r.probs.top1conf for r in res[:8]]}
+
+    def fixed_run(name: str, batch: dict, nc: int, steps: int, s2grad, bnstats) -> tuple:
+        trainer = ClassificationTrainer(overrides=dict(model=name, batch=c["batch"], imgsz=c["imgsz"], nbs=c["batch"],
+                                                       optimizer="SGD", amp=True, s2grad=s2grad, bnstats=bnstats,
+                                                       warmup_epochs=0.0), train_loader=[batch] * steps, data={"nc": nc})
+        reset()
+        run = trainer.run_steps()
+        cnt = counts()
+        add_launches(cnt)
+        return trainer, run, cnt
+
+    out = {"cell": {k: v for k, v in c.items()}, "nvidia_smi": smi, "models": {}, "stage_s": {}}
+    t_stage = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["stage_s"][name] = now - t_stage[0]
+        t_stage[0] = now
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_classify_"))
+    try:
+        rng = np.random.default_rng(c["seed"])
+        frames = moving_frames(rng, c["frames"], FRAME_HW, 60)
+        t0 = time.perf_counter()
+        folder = write_cls_folder(tmp / "imagenet10", c["n_train"], c["n_val"], c["seed"])
+        out["dataset_write_s"] = time.perf_counter() - t0
+        lap("inputs")
+
+        # yolov8s-cls: the kernels at its sites, predict, card against CPU, fixed batch, an epoch from disk, val
+        name = c["model"]
+        row = train_kernels(name, seed=8000)
+        n_bn = row["bn_inputs"]
+        lap("kernels")
+        model = calibrated(name, c["seed"])
+        nc = model.model.nc
+        reset()
+        predict = {f"batch{b}": predict_at(model, frames, b) for b in (1, c["predict_batch"])}
+        predict_counts = counts()
+        if predict_counts["nms_calls"] or predict_counts["s2_calls"] != want_s2(name, 0):
+            raise AssertionError(f"{name} predict: kernel calls {predict_counts}, expected none")
+        cpu = YOLO(name, device="cpu")
+        cpu.model.load_state_dict(model.model.state_dict())
+        cpu.initialized = True
+        few = frames[:c["cpu_frames"]]
+        card_res = model.predict(few, imgsz=c["imgsz"], batch=len(few), verbose=False)
+        x_card = model.predictor.preprocess(few).cpu()
+        cpu_res = cpu.predict(few, imgsz=c["imgsz"], batch=len(few), verbose=False)
+        # the resized uint8 pixels equal (CUDA divides by a scalar as a product with its reciprocal: 1 ulp of /255)
+        if not torch.equal((x_card * 255).round(), (cpu.predictor.preprocess(few) * 255).round()):
+            raise AssertionError(f"{name}: the predictor's input on the card differs from the CPU's")
+        p_card = np.stack([r.probs.data for r in card_res])
+        p_cpu = np.stack([r.probs.data for r in cpu_res])
+        prob_err = np.abs(p_card - p_cpu)
+        prob_err_over_tol = float((prob_err / (CLS_PROB_ATOL + CLS_PROB_RTOL * p_cpu)).max())
+        top1_equal = [r.probs.top1 for r in card_res] == [r.probs.top1 for r in cpu_res]
+        if not (top1_equal and prob_err_over_tol <= 1):
+            raise AssertionError(f"{name} float32 card vs CPU: top-1 equal {top1_equal}, probability error over "
+                                 f"tolerance {prob_err_over_tol}")
+        card_vs_cpu = {"frames": len(few), "top1_equal": top1_equal, "top1": [r.probs.top1 for r in card_res],
+                       "top1conf": [r.probs.top1conf for r in card_res], "max_abs_err": float(prob_err.max()),
+                       "err_over_tol": prob_err_over_tol, "rtol": CLS_PROB_RTOL, "atol": CLS_PROB_ATOL}
+        del model, cpu, card_res, cpu_res
+        lap("predict_and_fp32")
+
+        batch = synthetic_cls_batch(np.random.default_rng(c["seed"]), c["batch"], c["imgsz"], nc)
+        runs = {}
+        for mode, (s2grad, bnstats) in (("both", ("cuda", "cuda")), ("stock", (None, None))):
+            torch.cuda.reset_peak_memory_stats()
+            trainer, run, cnt = fixed_run(name, batch, nc, c["fixed_steps"], s2grad, bnstats)
+            want = ((want_s2(name, c["fixed_steps"]), n_bn * c["fixed_steps"]) if s2grad
+                    else (want_s2(name, 0), 0))
+            if (cnt["s2_calls"], cnt["bn_calls"]) != want:
+                raise AssertionError(f"{name} {mode} run: {cnt}, expected stride-2 and BN calls {want}")
+            if cnt["nms_calls"] or (s2grad and cuda_s2bwd.s2_bwd_cuda.impl_calls["mma.sync"] != cnt["s2_calls"]):
+                raise AssertionError(f"{name} {mode} run: {cnt}, impl calls {cuda_s2bwd.s2_bwd_cuda.impl_calls}")
+            loss = [r["loss"] for r in run]
+            if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+                raise AssertionError(f"{name} {mode} run: the fixed-batch loss did not fall: {loss}")
+            ms = float(np.median([r["ms"] for r in run[1:]]))
+            runs[mode] = {"loss": loss, "step_ms_median": ms, "img_per_s": c["batch"] / ms * 1e3,
+                          "first_step_ms": run[0]["ms"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "counts": cnt}
+            if mode == "both":
+                hyp = trainer._warmup_hyp(trainer.ni, 0)
+                runs[mode]["profile"] = profile_device(lambda: trainer.train_step(batch, *hyp)[0].item(), steps=3)
+            del trainer
+        if not np.allclose(runs["both"]["loss"][:3], runs["stock"]["loss"][:3], rtol=TRAIN_LOSS_RTOL):
+            raise AssertionError(f"{name}: the first 3 losses with both kernels {runs['both']['loss'][:3]} against "
+                                 f"stock {runs['stock']['loss'][:3]}")
+        lap("fixed_batch")
+
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = YOLO(name)
+        metrics = model.train(data=str(folder), epochs=1, imgsz=c["imgsz"], batch=c["epoch_batch"], nbs=c["epoch_batch"],
+                              optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", workers=c["workers"],
+                              project=str(tmp / "runs"), name="train", exist_ok=True, plots=False)
+        train_wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        train_counts = counts()
+        add_launches(train_counts)
+        tr = model.trainer
+        reset()
+        last = YOLO(tr.wdir / "last.npz")
+        t0 = time.perf_counter()
+        val_metrics = last.val(data=str(folder), batch=c["epoch_batch"], workers=c["workers"])
+        val_wall = time.perf_counter() - t0
+        val_counts = counts()
+        add_launches(val_counts)
+        steps = tr.nb
+        n_train = c["n_train"] * len(IMAGENET_WNIDS)
+        if steps != n_train // c["epoch_batch"] or tr.model.nc != len(IMAGENET_WNIDS):
+            raise AssertionError(f"{name} epoch: {steps} steps, nc {tr.model.nc}")
+        if train_counts["s2_calls"] != want_s2(name, steps) or train_counts["bn_calls"] != n_bn * steps:
+            raise AssertionError(f"{name} epoch: {train_counts}, expected {want_s2(name, steps)} stride-2 and "
+                                 f"{n_bn * steps} BN calls for {steps} steps")
+        if train_counts["nms_calls"] or val_counts["nms_calls"] or val_counts["bn_calls"]:
+            raise AssertionError(f"{name}: kernel calls in validation {train_counts}, {val_counts}")
+        for what, m in (("train", metrics), ("val", val_metrics)):
+            if set(m) != {"metrics/accuracy_top1", "metrics/accuracy_top5", "fitness"} or not all(
+                    math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+                raise AssertionError(f"{name} {what} metrics: {m}")
+        if last.validator.seen != c["n_val"] * len(IMAGENET_WNIDS):
+            raise AssertionError(f"{name} val saw {last.validator.seen} images")
+        ep = tr.epoch_stats[0]
+        if not np.isfinite(ep["loss_items"]).all():
+            raise AssertionError(f"{name} epoch loss items {ep['loss_items']}")
+        out["models"][name] = {
+            **row, "nc": nc, "predict": predict, "fp32_card_vs_cpu": card_vs_cpu, "fixed_batch": runs,
+            "epoch": ep, "epoch_s": ep["train_s"], "train_wall_s": train_wall, "data_wait_share": ep["data_wait_s"] / ep["train_s"],
+            "metrics_train": metrics, "metrics_val": val_metrics, "val_img_per_s": last.validator.seen / val_wall,
+            "val_speed_ms_per_img": last.validator.speed, "peak_memory_gb": peak_gb,
+            "counts": {"predict": predict_counts, "train": train_counts, "val": val_counts},
+            "per_step": {"s2_calls": want_s2(name, 1), "bn_calls": n_bn}}
+        del model, last, tr
+        lap("epoch_and_val")
+
+        # the other classifiers: the kernels at their sites, predict at batch 32, 3 steps with the kernels and stock
+        for mi, name in enumerate(c["others"]):
+            stem = Path(name).stem
+            row = train_kernels(name, seed=9000 + 1000 * mi)
+            n_bn = row["bn_inputs"]
+            model = calibrated(name, c["seed"] + mi)
+            nc = model.model.nc
+            reset()
+            pred = predict_at(model, frames[:c["predict_batch"]], c["predict_batch"])
+            pcnt = counts()
+            if pcnt["nms_calls"] or pcnt["s2_calls"] != want_s2(name, 0):
+                raise AssertionError(f"{name} predict: kernel calls {pcnt}")
+            del model
+            batch = synthetic_cls_batch(np.random.default_rng(c["seed"] + mi), c["batch"], c["imgsz"], nc)
+            steps = {}
+            for mode, kern in (("both", "cuda"), ("stock", None)):
+                _, run, cnt = fixed_run(name, batch, nc, c["other_steps"], kern, kern)
+                want = ((want_s2(name, c["other_steps"]), n_bn * c["other_steps"]) if kern else (want_s2(name, 0), 0))
+                if (cnt["s2_calls"], cnt["bn_calls"]) != want or cnt["nms_calls"]:
+                    raise AssertionError(f"{name} {mode} steps: {cnt}, expected stride-2 and BN calls {want}")
+                steps[mode] = {"loss": [r["loss"] for r in run], "step_ms_median": float(np.median([r["ms"] for r in run[1:]])),
+                               "counts": cnt}
+            if not (np.isfinite(steps["both"]["loss"]).all()
+                    and np.allclose(steps["both"]["loss"], steps["stock"]["loss"], rtol=TRAIN_LOSS_RTOL)):
+                raise AssertionError(f"{name}: losses with both kernels {steps['both']['loss']} against stock "
+                                     f"{steps['stock']['loss']}")
+            out["models"][name] = {**row, "nc": nc, "predict_batch32": pred, "fixed_batch": steps,
+                                   "per_step": {"s2_calls": want_s2(name, 1), "bn_calls": n_bn}}
+            lap(stem)
         out["launches"] = dict(launches)
         return out
     finally:
@@ -3092,7 +3423,16 @@ def main() -> None:
         kern["launches_by_path"]["families"] = n
     emit("families", t, **families)
 
-    # 17. imports ---------------------------------------------------------------
+    # 17. classify: yolov8s-cls and the other classifiers ------------------------------------
+    t = time.perf_counter()
+    classify = run_classify(smi)
+    for kern in kernels:
+        n = classify["launches"][kern["name"]]
+        kern["launches"] += n
+        kern["launches_by_path"]["classify"] = n
+    emit("classify", t, **classify)
+
+    # 18. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401
@@ -3100,6 +3440,7 @@ def main() -> None:
     import drone_yolo_tpu_torch.models.yolo.pose  # noqa: F401  (the pose trainer and validator)
     import drone_yolo_tpu_torch.models.yolo.segment  # noqa: F401  (the segment predictor, trainer and validator)
     import drone_yolo_tpu_torch.models.yolo.obb  # noqa: F401  (the obb predictor, trainer and validator)
+    import drone_yolo_tpu_torch.models.yolo.classify  # noqa: F401  (the classify predictor, trainer and validator)
     import drone_yolo_tpu_torch.ops.rotated  # noqa: F401  (min_area_rect, OpenCV's without cv2)
     import drone_yolo_tpu_torch.trackers  # noqa: F401
     from drone_yolo_tpu_torch.models.yolo import TASK_MAP
@@ -3111,6 +3452,9 @@ def main() -> None:
         raise AssertionError(f"TASK_MAP['segment'] = {TASK_MAP['segment']}")
     if [v.__name__ for v in TASK_MAP["obb"].values()] != ["OBBTrainer", "OBBValidator", "OBBPredictor"]:
         raise AssertionError(f"TASK_MAP['obb'] = {TASK_MAP['obb']}")
+    if [v.__name__ for v in TASK_MAP["classify"].values()] != ["ClassificationTrainer", "ClassificationValidator",
+                                                                "ClassificationPredictor"]:
+        raise AssertionError(f"TASK_MAP['classify'] = {TASK_MAP['classify']}")
 
     absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib"]
     loaded = sorted(m for m in absent if m in sys.modules)

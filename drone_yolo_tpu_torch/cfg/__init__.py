@@ -42,6 +42,8 @@ TASK2DATA = {"detect": "coco8.yaml", "segment": "coco8-seg.yaml", "classify": "i
              "obb": "dota8.yaml"}
 TASK2MODEL = {"detect": "yolov8n.yaml", "segment": "yolov8n-seg.yaml", "classify": "yolov8n-cls.yaml",
               "pose": "yolov8n-pose.yaml", "obb": "yolov8n-obb.yaml"}
+TASK2METRIC = {"detect": "metrics/mAP50-95(B)", "segment": "metrics/mAP50-95(M)", "classify": "metrics/accuracy_top1",
+               "pose": "metrics/mAP50-95(P)", "obb": "metrics/mAP50-95(B)"}  # each task's headline metric
 
 DEFAULT_CFG = {
     "task": "detect", "mode": "train",

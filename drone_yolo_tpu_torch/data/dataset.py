@@ -1,5 +1,5 @@
 """YOLO-format detection, segmentation and pose dataset: label cache, image loading with a decode buffer, transforms,
-padded batches.
+padded batches; and the image-folder classification dataset (`ClassificationDataset`).
 
 Counterpart of `drone_yolo_tpu/data/dataset.py` (YOLODataset) for the detect, segment, pose and obb tasks. A
 batch from `collate` is a dict of numpy arrays: `img` (B, H, W, 3) uint8 RGB, `cls` (B, M)
@@ -39,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from drone_yolo_tpu_torch.data.augment import Compose, LetterBoxT, seed_sample, v8_transforms
+from drone_yolo_tpu_torch.data.augment import Compose, LetterBoxT, _rng, seed_sample, v8_transforms
 from drone_yolo_tpu_torch.data.utils import (DECODED_FORMATS, IMG_FORMATS, get_hash, img2label_paths, imread_rgb,
                                              polygons2masks_overlap, verify_image_label)
 from drone_yolo_tpu_torch.ops.image import resize_area_u8
@@ -338,3 +338,80 @@ class YOLODataset:
         if self.task == "obb":
             batch["segments_list"] = [s.get("segments", []) for s in samples]
         return batch
+
+
+class ClassificationDataset:
+    """An image-folder classification dataset: `root/<class>/**/<image>`, classes sorted by name, images sorted within
+    each class; a sample is {"img": (imgsz, imgsz, 3) uint8 RGB, "cls": class index}.
+
+    Counterpart of `drone_yolo_tpu/data/dataset.py` `ClassificationDataset`, draw for draw. Train (`augment`): the
+    sample's generators are seeded from (aug_seed, epoch, index) (`seed_sample`), then up to 10 tries of a random
+    window (area share U(0.5, 1), aspect exp(U(log 3/4, log 4/3)), sides round(sqrt(area * aspect)) and
+    round(sqrt(area / aspect)), a corner by `randint`, both ends included) until one fits, a resize to imgsz x imgsz
+    and a horizontal flip with probability 0.5. Validation: the short side resized to imgsz (the other by Python's
+    round), then the centre imgsz x imgsz crop. Resizes are `ops/letterbox.py:resize_linear_u8` (cv2's INTER_LINEAR,
+    which the JAX package calls). `fraction` keeps the first share of the samples. Image formats the port does not
+    decode (all but JPEG and PNG) are refused by name, as `YOLODataset` refuses them.
+    """
+
+    def __init__(self, root, imgsz: int = 224, augment: bool = False, fraction: float = 1.0, hyp=None):
+        self.root = Path(root)
+        self.imgsz = imgsz
+        self.augment = augment
+        self.hyp = hyp
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples = [(str(f), self.class_to_idx[c]) for c in classes for f in sorted((self.root / c).rglob("*.*"))
+                        if f.suffix[1:].lower() in IMG_FORMATS]
+        undecoded = sorted({Path(f).suffix[1:].lower() for f, _ in self.samples} - DECODED_FORMATS)
+        if undecoded:
+            raise NotImplementedError(f"{root}: .{', .'.join(undecoded)} images are not decoded by the port yet (JPEG "
+                                      "and PNG only; see ROADMAP.md)")
+        if fraction < 1.0:
+            self.samples = self.samples[: round(len(self.samples) * fraction)]
+        self.epoch = 0
+        self.aug_seed = 0
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    @staticmethod
+    def _resize(im: np.ndarray, h: int, w: int) -> np.ndarray:
+        return resize_linear_u8(torch.from_numpy(np.ascontiguousarray(im))[None], (h, w))[0].numpy()
+
+    def __getitem__(self, i: int) -> dict:
+        path, label = self.samples[i]
+        im = imread_rgb(path)
+        if self.augment:
+            seed_sample(self.aug_seed, self.epoch, int(i))
+            rng = _rng()
+            h, w = im.shape[:2]
+            area = h * w
+            for _ in range(10):
+                ta = area * rng.uniform(0.5, 1.0)
+                ar = math.exp(rng.uniform(math.log(3 / 4), math.log(4 / 3)))
+                cw, ch = int(round(math.sqrt(ta * ar))), int(round(math.sqrt(ta / ar)))
+                if cw <= w and ch <= h:
+                    x0, y0 = rng.randint(0, w - cw), rng.randint(0, h - ch)
+                    im = im[y0 : y0 + ch, x0 : x0 + cw]
+                    break
+            im = self._resize(im, self.imgsz, self.imgsz)
+            if rng.random() < 0.5:
+                im = np.ascontiguousarray(im[:, ::-1])
+        else:
+            h, w = im.shape[:2]
+            r = self.imgsz / min(h, w)
+            im = self._resize(im, round(h * r), round(w * r))
+            top, left = (im.shape[0] - self.imgsz) // 2, (im.shape[1] - self.imgsz) // 2
+            im = np.ascontiguousarray(im[top : top + self.imgsz, left : left + self.imgsz])
+        return {"img": im, "cls": label}
+
+    def set_epoch(self, epoch: int, seed: int | None = None) -> None:
+        """The epoch (and seed) of the per-sample augmentation draws; the loader sets it."""
+        self.epoch = int(epoch)
+        if seed is not None:
+            self.aug_seed = int(seed)
+
+    def collate(self, samples: list[dict]) -> dict:
+        """{"img": (B, imgsz, imgsz, 3) uint8, "cls": (B,) int32}."""
+        return {"img": np.stack([s["img"] for s in samples]), "cls": np.asarray([s["cls"] for s in samples], np.int32)}

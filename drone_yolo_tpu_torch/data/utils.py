@@ -2,7 +2,7 @@
 
 Counterpart of `drone_yolo_tpu/data/utils.py` (`img2label_paths`, `get_hash`,
 `verify_image_label` for box, polygon and keypoint labels, `polygon2mask`, `polygons2masks_overlap`,
-`check_det_dataset`, `imread_rgb`). Polygons are drawn by `ops/polygon.py:fill_poly` (`cv2.fillPoly`). Images are
+`check_det_dataset`, `check_cls_dataset`, `imread_rgb`). Polygons are drawn by `ops/polygon.py:fill_poly` (`cv2.fillPoly`). Images are
 read by the port's own decoders, JPEG (`data/jpeg.py`) and PNG (`data/png.py`); the other
 formats of the JAX package's `IMG_FORMATS` are refused by name (ROADMAP). The yaml is read by the
 port's YAML subset (`nn/build.py:load_yaml`). Nothing is downloaded: a missing dataset
@@ -226,3 +226,24 @@ def check_det_dataset(dataset) -> dict:
         if missing:
             raise FileNotFoundError(f"dataset images not found: {missing} (nothing is downloaded)")
     return data
+
+
+def check_cls_dataset(dataset) -> dict:
+    """Resolve an image-folder classification dataset: `train/`, then `val/` or `validation/` (or None), then `test/`
+    (or None), as Paths, and `names` {index: class folder} over `train/`'s folders sorted, `nc` their count. A
+    directory that does not exist is looked for as `datasets_dir() / dataset`, as in the JAX package; nothing is
+    downloaded (the default, imagenet10, included)."""
+    path = Path(dataset)
+    if not path.is_dir():
+        alt = datasets_dir() / path
+        if not alt.is_dir():
+            raise FileNotFoundError(f"classification dataset '{dataset}' not found at {path} or {alt} (nothing is "
+                                    "downloaded)")
+        path = alt
+    train = path / "train"
+    val = path / "val" if (path / "val").exists() else (path / "validation" if (path / "validation").exists() else None)
+    test = path / "test" if (path / "test").exists() else None
+    if not train.exists():
+        raise FileNotFoundError(f"{path} missing train/ directory")
+    names = sorted(d.name for d in train.iterdir() if d.is_dir())
+    return {"train": train, "val": val, "test": test, "nc": len(names), "names": dict(enumerate(names))}

@@ -9,11 +9,15 @@ HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `weight/bias/running_mean/running_var`, RepVGG `dense/one/idbn` become
 `rbr_dense/rbr_1x1/rbr_identity`, Proto's transposed conv `up` (a (2, 2, out, in) kernel) becomes
 `upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's), A2C2f's `gamma` keeps its
-name, and the sequences drop the JAX `m` level under which a JAX `_Seq` keeps its children (`_seq_m`):
+name, Classify's `linear/kernel` (1280, nc) becomes the torch (nc, 1280) `linear.weight`, a TorchVision trunk's
+`stem` and flat `blocks/<i>/cv1|cv2|down` become the reference's `m.0`, `m.1` and `m.<4 + layer>.<j>.conv1|bn1|
+conv2|bn2|downsample` (a block with `down` after the first starts the next layer), and the sequences drop the JAX
+`m` level under which a JAX `_Seq` keeps its children (`_seq_m`):
 the head's branches (Detect's `cv2`, `cv3`, Pose's, Segment's and OBB's `cv4`), the sequences nested in
 them (the YOLO11/12 `cv3.<i>.<j>.<k>`), PSABlock's `ffn`, ABlock's `mlp` and A2C2f's pairs of ABlocks
 (`m.<i>.<j>`). Names are the reference torch names (`model.<i>....`), which
-`drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back.
+`drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back (a TorchVision trunk's only
+`to_jax_variables`).
 `from_jax_train_state` maps a whole JAX train state (params, optimizer state,
 EMA, accumulated gradients) the same way.
 
@@ -28,6 +32,7 @@ either package resumes from the other's file.
 from __future__ import annotations
 
 import json
+import re
 from datetime import datetime, timezone
 from pathlib import Path
 
@@ -99,15 +104,79 @@ def _torch_name(parts: list[str]) -> str:
     return ".".join(["model", *names, _LEAF[leaf]])
 
 
+# A TorchVision trunk: the JAX package's `stem` and flat `blocks` <-> the reference's `m.<i>` (torchvision's children:
+# conv1, bn1, relu, maxpool, layer1..layer4), each block's `cv1`/`cv2`/`down` <-> conv1+bn1 / conv2+bn2 / downsample
+_TV_STEM = {"conv": "0", "bn": "1"}
+_TV_BLOCK = {("cv1", "conv"): "conv1", ("cv1", "bn"): "bn1", ("cv2", "conv"): "conv2", ("cv2", "bn"): "bn2",
+             ("down", "conv"): "downsample.0", ("down", "bn"): "downsample.1"}
+_TV_BLOCK_JAX = {v: k for k, v in _TV_BLOCK.items()}
+_TV_FIRST_LAYER = 4  # m.4 is layer1
+
+
+def _tv_stages(blocks: dict) -> dict:
+    """A TorchVision trunk's flat JAX block index -> (torchvision layer, index in it): a block with `down` after the
+    first starts the next layer."""
+    out, layer, j = {}, 0, 0
+    for bi in sorted(blocks, key=int):
+        if "down" in blocks[bi] and int(bi) > 0:
+            layer, j = layer + 1, 0
+        out[bi] = (layer, j)
+        j += 1
+    return out
+
+
+def _tv_to_torch(layer: str, tree: dict) -> dict:
+    """The flat JAX variables of TorchVision layer `layer` -> {torch name: array}."""
+    out = {}
+    for key, a in flatten_tree(tree.get("stem", {})).items():
+        part, leaf = key.split("/")
+        out[f"model.{layer}.m.{_TV_STEM[part]}.{_LEAF[leaf]}"] = a
+    stages = _tv_stages(tree.get("blocks", {}))
+    for key, a in flatten_tree(tree.get("blocks", {})).items():
+        bi, branch, part, leaf = key.split("/")
+        li, j = stages[bi]
+        out[f"model.{layer}.m.{_TV_FIRST_LAYER + li}.{j}.{_TV_BLOCK[branch, part]}.{_LEAF[leaf]}"] = a
+    return out
+
+
+def _tv_to_jax(names: list[str]) -> dict:
+    """The torch names of one TorchVision layer -> {torch name: JAX path}, blocks numbered in order."""
+    order = sorted({tuple(int(p) for p in n.split(".")[3:5]) for n in names if n.split(".")[3].isdigit()
+                    and int(n.split(".")[3]) >= _TV_FIRST_LAYER})
+    flat = {ij: str(bi) for bi, ij in enumerate(order)}
+    out = {}
+    for n in names:
+        parts = n.split(".")
+        layer, i, leaf = parts[1], int(parts[3]), parts[-1]
+        if i < _TV_FIRST_LAYER:
+            out[n] = [layer, "stem", "conv" if i == 0 else "bn"]
+        else:
+            out[n] = [layer, "blocks", flat[i, int(parts[4])], *_TV_BLOCK_JAX[".".join(parts[5:-1])]]
+        is_conv = out[n][-1] == "conv"
+        out[n].append({"weight": "kernel" if is_conv else "scale"}.get(leaf) or _LEAF_JAX[leaf])
+    return out
+
+
+def _is_torchvision(tree: dict) -> bool:
+    return isinstance(tree, dict) and "stem" in tree and "blocks" in tree
+
+
 def from_jax_variables(variables: dict) -> dict:
     """JAX variables tree (numpy leaves, unfused or fused) -> port state_dict of float32 tensors."""
+    flat = {}
+    for layer, tree in variables.items():
+        if _is_torchvision(tree):
+            flat.update(_tv_to_torch(layer, tree))
+        else:
+            flat.update({_torch_name(key.split("/")): a for key, a in flatten_tree({layer: tree}).items()})
     sd = {}
-    for key, v in flatten_tree(variables).items():
-        parts = key.split("/")
+    for name, v in flat.items():
         a = np.array(v, np.float32)
-        if parts[-1] == "kernel":
+        if a.ndim == 4:
             a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))  # HWIO -> OIHW
-        sd[_torch_name(parts)] = torch.from_numpy(a)
+        elif a.ndim == 2:
+            a = np.ascontiguousarray(a.T)  # a linear's (in, out) kernel -> the torch (out, in) weight
+        sd[name] = torch.from_numpy(a)
     return sd
 
 
@@ -125,18 +194,28 @@ def _jax_path(name: str, ndim: int) -> list[str]:
             out.append("m")  # a child of a sequence (a digit after a digit, or after ffn/mlp): JAX keeps it under "m"
         out.append(_BRANCH_JAX.get(p, p))
     if leaf == "weight":
-        return out + ["kernel" if ndim == 4 else "scale"]
+        return out + ["kernel" if ndim in (2, 4) else "scale"]
     return out + [_LEAF_JAX[leaf]]
 
 
+_TV_NAME = re.compile(r"model\.(\d+)\.m\.\d+\.\d+\.conv1\.")  # a BasicBlock of a TorchVision trunk
+
+
 def to_jax_variables(state_dict: dict) -> dict:
-    """Port state_dict -> JAX variables tree of float32 numpy arrays (OIHW kernels become HWIO)."""
+    """Port state_dict -> JAX variables tree of float32 numpy arrays (OIHW kernels become HWIO, a linear's weight its
+    (in, out) kernel)."""
+    tv_layers = {m.group(1) for m in map(_TV_NAME.match, state_dict) if m}
+    tv_paths = {}
+    for layer in tv_layers:
+        tv_paths.update(_tv_to_jax([n for n in state_dict if n.startswith(f"model.{layer}.m.")]))
     flat = {}
     for name, t in state_dict.items():
         a = t.detach().cpu().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
         if a.ndim == 4:
             a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))  # OIHW -> HWIO (a transposed conv's IOHW -> HWOI)
-        flat["/".join(_jax_path(name, a.ndim))] = a
+        elif a.ndim == 2:
+            a = np.ascontiguousarray(a.T)
+        flat["/".join(tv_paths.get(name) or _jax_path(name, a.ndim))] = a
     return unflatten_tree(flat)
 
 

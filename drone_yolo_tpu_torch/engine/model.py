@@ -1,7 +1,7 @@
 """`YOLO` facade: build from a model yaml or load a `drone_yolo_tpu.v1` npz, then predict, track, train or validate.
 
-Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect, segment, pose and obb models: predict,
-track (not of an obb model), train and val (the predictor, trainer and validator chosen by the task), `save`, `load` (a
+Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect, segment, pose, obb and classify models: predict,
+track (not of an obb or classify model), train and val (the predictor, trainer and validator chosen by the task), `save`, `load` (a
 transfer of the weights whose name and shape match), `info`, `embed`, `reset_weights`,
 `names`, `stride`, and user callbacks forwarded to every trainer, validator and predictor
 the facade makes. The model lives on `device`, which is the CUDA card unless the caller
@@ -42,7 +42,7 @@ def select_device(device=None) -> torch.device:
 def _model_class(task: str):
     if task not in TASK2MODELCLASS:
         raise NotImplementedError(f"task {task!r} is not ported yet (ported: {sorted(TASK2MODELCLASS)}; ROADMAP.md queue 1 "
-                                  "item 6)")
+                                  "item 7)")
     return TASK2MODELCLASS[task]
 
 
@@ -176,7 +176,8 @@ class YOLO:
 
     # -- modes -------------------------------------------------------------------------------------
     def predict(self, source=None, stream: bool = False, **kwargs):
-        """Detect (with masks for a segment model, keypoints for a pose model, oriented boxes for an obb model) on a
+        """Detect (with masks for a segment model, keypoints for a pose model, oriented boxes for an obb model), or
+        classify (probabilities for a classify model), on a
         source (`data/loaders.py`: files, directories, globs, .txt lists, MJPEG AVI, numpy frames); returns a list of
         Results (a generator with stream=True). The predictor, chosen by the task, is made at the first call, and again when the dtype changes;
         later calls update its arguments with theirs."""
@@ -209,6 +210,8 @@ class YOLO:
         if self.task == "obb":
             raise NotImplementedError("tracking an obb model is not ported yet (ROADMAP.md queue 1 item 5): the JAX "
                                       "track callback reads only boxes, so it tracks nothing there")
+        if self.task == "classify":
+            raise NotImplementedError("a classify model gives no boxes to track")
         if not hasattr(self, "_pending_tracker_callbacks"):
             register_tracker(self, persist)
         kwargs["conf"] = kwargs.get("conf") or 0.1
@@ -216,8 +219,9 @@ class YOLO:
         return self.predict(source=source, stream=stream, **kwargs)
 
     def train(self, data=None, **kwargs) -> dict:
-        """Train on the dataset yaml `data` with the task's trainer (`engine/trainer.py`, `models/yolo/segment.py`,
-        `models/yolo/pose.py`, `models/yolo/obb.py`), then take over the best EMA weights; returns the last epoch's validation metrics."""
+        """Train on the dataset `data` (a dataset yaml; an image folder for a classifier) with the task's trainer
+        (`engine/trainer.py`, `models/yolo/segment.py`, `models/yolo/pose.py`, `models/yolo/obb.py`,
+        `models/yolo/classify.py`), then take over the best EMA weights; returns the last epoch's validation metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         overrides = {**self.overrides, "device": str(self.device), **kwargs, "mode": "train"}
@@ -237,8 +241,9 @@ class YOLO:
 
     def val(self, data=None, **kwargs) -> dict:
         """Validate on the val split of the dataset yaml `data` with the task's validator (`engine/validator.py`,
-        `models/yolo/segment.py`, `models/yolo/pose.py`, `models/yolo/obb.py`) in rectangular batches (rect=True
-        unless the call says otherwise, as the JAX facade); returns the metrics."""
+        `models/yolo/segment.py`, `models/yolo/pose.py`, `models/yolo/obb.py`, `models/yolo/classify.py`) in
+        rectangular batches (rect=True unless the call says otherwise, as the JAX facade; a classifier's validator
+        crops every image square); returns the metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         args = {**self.overrides, "rect": True, "mode": "val", "device": str(self.device), **kwargs}

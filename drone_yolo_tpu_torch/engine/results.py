@@ -1,7 +1,9 @@
-"""Inference results: `Results` per image with its `Boxes`, `Masks`, `Keypoints` and `OBB`, numpy-backed.
+"""Inference results: `Results` per image with its `Boxes`, `Masks`, `Probs`, `Keypoints` and `OBB`, numpy-backed.
 
-Counterpart of `drone_yolo_tpu/engine/results.py` (Boxes, Masks, Keypoints, OBB, Results) for
-detection, tracking, segmentation, pose and oriented boxes: boxes of 6 columns (xyxy, conf, cls) or, from a
+Counterpart of `drone_yolo_tpu/engine/results.py` (Boxes, Masks, Probs, Keypoints, OBB, Results) for
+detection, tracking, segmentation, pose, oriented boxes and classification: a classifier's probabilities (nc,) with
+top-1 and top-5 (drawn as five lines of text, written by `save_txt` as 'conf name' lines); boxes of 6 columns (xyxy,
+conf, cls) or, from a
 tracker, 7 (xyxy, track id, conf, cls); masks (N, H, W) bool at the original image's size,
 whose `xy` outlines come from `ops/polygon.py:find_contours` (`cv2.findContours`); keypoints
 (N, K, 2 or 3); oriented boxes (N, 7) cx, cy, w, h, angle (radians), conf, cls. A `Results` indexes, slices and
@@ -219,15 +221,44 @@ class OBB:
         return np.concatenate([pts.min(axis=1), pts.max(axis=1)], axis=-1)
 
 
-class Results:
-    """Result of one image: the original frame, its path, the class names, boxes, masks, keypoints, oriented boxes and
-    timings."""
+class Probs:
+    """A classifier's probabilities (nc,) of one image. `top5` is numpy's `argsort()[::-1][:5]`, as in the JAX
+    package: among equal probabilities its order is numpy's, not the validator's lower index first."""
 
-    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, obb=None, speed=None):
+    def __init__(self, probs, orig_shape=None):
+        self.data = np.asarray(probs)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list[int]:
+        return self.data.argsort()[::-1][:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5]
+
+
+class Results:
+    """Result of one image: the original frame, its path, the class names, boxes, masks, a classifier's
+    probabilities, keypoints, oriented boxes and timings."""
+
+    def __init__(self, orig_img, path, names, boxes=None, masks=None, probs=None, keypoints=None, obb=None, speed=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.probs = Probs(probs, self.orig_shape) if probs is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.obb = OBB(obb, self.orig_shape) if obb is not None else None
         self.names = names
@@ -235,28 +266,31 @@ class Results:
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
-        for v in (self.boxes, self.masks, self.keypoints, self.obb):
+        for v in (self.boxes, self.masks, self.probs, self.keypoints, self.obb):
             if v is not None:
                 return len(v)
         return 0
 
     def __getitem__(self, idx) -> Results:
         """The result of the instances `idx` (an index, a slice or an index array) of boxes, masks, keypoints and
-        oriented boxes."""
+        oriented boxes; the probabilities stay whole."""
         r = Results(self.orig_img, self.path, self.names, speed=self.speed)
         for k in ("boxes", "masks", "keypoints", "obb"):
             v = getattr(self, k)
             if v is not None:
                 setattr(r, k, v[idx])
+        r.probs = self.probs
         return r
 
-    def update(self, boxes=None, masks=None, keypoints=None, obb=None) -> None:
-        """Replace the boxes (6 or 7 columns), the masks, the keypoints and/or the oriented boxes; what is None
-        stays."""
+    def update(self, boxes=None, masks=None, probs=None, keypoints=None, obb=None) -> None:
+        """Replace the boxes (6 or 7 columns), the masks, the probabilities, the keypoints and/or the oriented boxes;
+        what is None stays."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
         if masks is not None:
             self.masks = Masks(masks, self.orig_shape)
+        if probs is not None:
+            self.probs = Probs(probs, self.orig_shape)
         if keypoints is not None:
             self.keypoints = Keypoints(keypoints, self.orig_shape)
         if obb is not None:
@@ -265,8 +299,8 @@ class Results:
     def plot(self, conf: bool = True, line_width=None, labels: bool = True, boxes: bool = True, masks: bool = True,
              probs: bool = True, color_mode: str = "class", img=None) -> np.ndarray:
         """The BGR image (the original, or `img`) with the masks, boxes and oriented boxes (labelled 'name conf',
-        'name' without conf, nothing without labels) and keypoints drawn. `probs` and `color_mode` have no effect, as
-        in the JAX package (classification is not ported)."""
+        'name' without conf, nothing without labels) and keypoints drawn, and with `probs` the top-5 lines
+        'conf name' from (8, 8). `color_mode` has no effect, as in the JAX package."""
         annotator = Annotator((img if img is not None else self.orig_img).copy(), line_width=line_width,
                               example=str(self.names))
         if self.masks is not None and masks:
@@ -285,6 +319,8 @@ class Results:
         if self.keypoints is not None:
             for k in self.keypoints.data:
                 annotator.kpts(k, self.orig_shape)
+        if self.probs is not None and probs:
+            annotator.text((8, 8), "\n".join(f"{self.probs.data[j]:.2f} {self._name(j)}" for j in self.probs.top5))
         return annotator.result()
 
     def save(self, filename=None):
@@ -301,10 +337,13 @@ class Results:
 
     def save_txt(self, txt_file, save_conf: bool = False) -> None:
         """Append YOLO-format lines normalised to the original image: 'cls cx cy w h [conf]' per box, or 'cls x1 y1 x2
-        y2 x3 y3 x4 y4 [conf]' per oriented box (its corners)."""
+        y2 x3 y3 x4 y4 [conf]' per oriented box (its corners); for a classifier's probabilities 'conf name' per class
+        of the top 5 and nothing else."""
         h, w = self.orig_shape
         texts = []
-        if self.obb is not None:
+        if self.probs is not None:
+            texts = [f"{self.probs.data[j]:.2f} {self._name(j)}" for j in self.probs.top5]
+        elif self.obb is not None:
             for d, pts in zip(self.obb.data, self.obb.xyxyxyxyn):
                 line = (int(d[-1]), *pts.reshape(-1).tolist()) + ((float(d[-2]),) if save_conf else ())
                 texts.append(("%g " * len(line)).rstrip() % line)
@@ -342,8 +381,13 @@ class Results:
     def summary(self, normalize: bool = False, decimals: int = 5) -> list[dict]:
         """One dict per box: name, class, confidence, box (x1, y1, x2, y2, or an oriented box's four corners x1, y1,
         ..., x4, y4; over the image size with normalize), the mask's outline x, y as `segments` when there are masks,
-        and the keypoints' x, y (and visible) when there are keypoints."""
+        and the keypoints' x, y (and visible) when there are keypoints. A classifier's result gives one dict, its top
+        class."""
         out = []
+        if self.probs is not None:
+            c = self.probs.top1
+            return [{"name": self.names.get(c, c) if isinstance(self.names, dict) else self.names[c], "class": c,
+                     "confidence": round(self.probs.top1conf, decimals)}]
         h, w = self.orig_shape if normalize else (1, 1)
         if self.obb is not None:
             for d, pts in zip(self.obb.data, self.obb.xyxyxyxy):
@@ -376,7 +420,10 @@ class Results:
         return json.dumps(self.summary(normalize, decimals), indent=2)
 
     def verbose(self) -> str:
-        """'2 cars, 1 bus, ' style summary of the boxes or oriented boxes, classes in index order."""
+        """'2 cars, 1 bus, ' style summary of the boxes or oriented boxes, classes in index order; for a classifier
+        'name conf, ' for each of the top 5."""
+        if self.probs is not None:
+            return ", ".join(f"{self._name(j)} {self.probs.data[j]:.2f}" for j in self.probs.top5) + ", "
         data = self.obb if self.obb is not None else self.boxes
         if data is None or not len(data):
             return "(no detections), "

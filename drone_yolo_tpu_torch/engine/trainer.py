@@ -30,8 +30,9 @@ Built with `train_loader` (any sized iterable of batches in the collate format,
 `engine/validator.py` on the EMA weights over it. Device augmentation is not ported.
 
 A task trainer (`models/yolo/segment.py:SegmentationTrainer`, `models/yolo/pose.py:PoseTrainer`,
-`models/yolo/obb.py:OBBTrainer`) sets `task`,
-`loss_names` and `validator_class` and overrides `build_model`, `fits_data` and `get_criterion`; the loss items, the
+`models/yolo/obb.py:OBBTrainer`, `models/yolo/classify.py:ClassificationTrainer`) sets `task`,
+`loss_names` and `validator_class` and overrides `build_model`, `fits_data` and `get_criterion` (the classifier also
+`get_dataset` and `build_dataset`: an image folder); the loss items, the
 metrics and the columns of `results.csv` follow from them. A segment batch's `masks` go to the device with the rest
 of it; a multi-scale resize leaves them at their size, as in the JAX step (the loss resamples them). An OBB batch's
 `rboxes` are scaled with the boxes and keypoints (cx, cy, w, h; the angle stays), which the JAX step forgets
@@ -88,7 +89,7 @@ class BaseTrainer(CallbackMixin):
         self.train_loader = train_loader
         self.val_loader = val_loader
         if data is None and self.args.data:
-            data = check_det_dataset(self.args.data)
+            data = self.get_dataset()
         self.data = dict(data or {})
         self.save_dir = get_save_dir(self.args)
         self.wdir = self.save_dir / "weights"
@@ -104,6 +105,14 @@ class BaseTrainer(CallbackMixin):
         self.plot_join_s = 0.0  # the seconds that join waited
         self.epoch_stats: list[dict] = []  # per epoch: wall seconds, seconds waiting for the loader, validation
         self.callbacks = get_default_callbacks()
+
+    def get_dataset(self) -> dict:
+        """The dataset of `args.data`: a detection dataset yaml (`check_det_dataset`)."""
+        return check_det_dataset(self.args.data)
+
+    def build_dataset(self, img_path, mode: str = "train"):
+        """The dataset of the split at `img_path`, augmented for "train"."""
+        return build_yolo_dataset(self.args, img_path, self.batch_size, self.data, mode=mode)
 
     def build_model(self, cfg) -> DetectionModel:
         """This task's model of the yaml (or yaml dict) `cfg`, for the data's class count."""
@@ -147,7 +156,7 @@ class BaseTrainer(CallbackMixin):
         self.run_callbacks("on_pretrain_routine_start")
         self.setup_model()
         if self.train_loader is None:
-            self.trainset = build_yolo_dataset(self.args, self.data["train"], self.batch_size, self.data, mode="train")
+            self.trainset = self.build_dataset(self.data["train"], "train")
             self.train_loader = build_dataloader(self.trainset, self.batch_size, self.args.workers, shuffle=True,
                                                  seed=self.args.seed)
         self.nb = len(self.train_loader)
@@ -193,7 +202,8 @@ class BaseTrainer(CallbackMixin):
             scale = size / batch["img"].shape[2]
             batch["img"] = F.interpolate(batch["img"], size=(size, size), mode="bilinear", align_corners=False,
                                          antialias=True)
-            batch["bboxes"] = batch["bboxes"] * scale
+            if "bboxes" in batch:  # a classifier's batch has none
+                batch["bboxes"] = batch["bboxes"] * scale
             if "keypoints" in batch:  # x, y move with the image, visibility stays
                 kp = batch["keypoints"]
                 batch["keypoints"] = torch.cat([kp[..., :2] * scale, kp[..., 2:]], -1)
@@ -284,7 +294,8 @@ class BaseTrainer(CallbackMixin):
             self.epoch = epoch
             self.run_callbacks("on_train_epoch_start")
             t_epoch = time.perf_counter()
-            if self.args.close_mosaic and epoch == self.epochs - self.args.close_mosaic and self.trainset is not None:
+            if (self.args.close_mosaic and epoch == self.epochs - self.args.close_mosaic
+                    and hasattr(self.trainset, "close_mosaic")):
                 LOGGER.info("Closing dataloader mosaic")
                 self.trainset.close_mosaic(self.args)
             if hasattr(self.train_loader, "set_epoch"):

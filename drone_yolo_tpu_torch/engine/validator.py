@@ -85,14 +85,17 @@ class BaseValidator(CallbackMixin):
         self.model = net.eval().to(self.device, torch.float32).fuse().to(self.dtype)
         self.nc = self.model.nc
         if self.dataloader is None:
-            self.data = check_det_dataset(self.args.data)
-            dataset = build_yolo_dataset(self.args, self.data["val"], self.args.batch, self.data, mode="val",
-                                         stride=int(max(self.model.head.stride)))
-            self.dataloader = build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False,
-                                               drop_last=False)
+            self.data, self.dataloader = self.build_loader()
         self.names = self.data["names"] if self.data else self.model.names
         self.metrics = self.metrics_class(self.names)  # a fresh one per call: a reused validator reports no stale metrics
         self.confusion_matrix = ConfusionMatrix(nc=self.nc, conf=self.args.conf)
+
+    def build_loader(self) -> tuple[dict, object]:
+        """(the dataset yaml's contents, a loader over its val split in order, every image)."""
+        data = check_det_dataset(self.args.data)
+        dataset = build_yolo_dataset(self.args, data["val"], self.args.batch, data, mode="val",
+                                     stride=int(max(self.model.head.stride)))
+        return data, build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False, drop_last=False)
 
     def preprocess(self, batch: dict) -> torch.Tensor:
         """The uint8 NHWC batch to the device, there NCHW float32 in [0, 1]."""

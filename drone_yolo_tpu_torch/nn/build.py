@@ -1,10 +1,14 @@
-"""Model YAML -> list of layers: the `[from, repeats, module, args]` row grammar of the v8, YOLO11 and YOLO12 families.
+"""Model YAML -> list of layers: the `[from, repeats, module, args]` row grammar of the v8, YOLO11 and YOLO12 families
+and their classifiers.
 
 Counterpart of `drone_yolo_tpu/nn/build.py`: the same depth gain
 `max(round(n * depth), 1)`, width gain `make_divisible(min(c2, max_channels) * width, 8)`
 and n/s/m/l/x scale resolution. A `C3k2` or `A2C2f` row builds the head with
 `legacy=False` (the depthwise class branch); at scales m, l and x `C3k2` takes
-C3k blocks, and at l and x `A2C2f` takes `residual` (its gamma) and mlp_ratio 1.2.
+C3k blocks, and at l and x `A2C2f` takes `residual` (its gamma) and mlp_ratio 1.2. A
+`Classify` row's width is nc, unscaled (a layer whose width equals nc is never scaled, as
+in the JAX package and Ultralytics); `ResNetLayer` rows pass unscaled, and a `TorchVision`
+row declares its width by its first argument.
 The model files are read by `load_yaml`, a reader for the subset of YAML they use,
 so the port needs no YAML package.
 """
@@ -34,9 +38,12 @@ REGISTRY = {
     "Pose": M.Pose,
     "Segment": M.Segment,
     "OBB": M.OBB,
+    "Classify": M.Classify,
+    "ResNetLayer": M.ResNetLayer,
+    "TorchVision": M.TorchVision,
 }
 HEAD_MODULES = {M.Detect, M.Pose, M.Segment, M.OBB}  # take the input widths of their levels as their last argument
-BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.C3k2, M.C2PSA, M.A2C2f, M.SPPF, M.RepVGGBlock}  # take (c1, c2, ...)
+BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.C3k2, M.C2PSA, M.A2C2f, M.SPPF, M.RepVGGBlock, M.Classify}  # (c1, c2, ...)
 REPEAT_MODULES = {M.C2f, M.C3k2, M.C2PSA, M.A2C2f}  # take the repeat count as their third argument
 
 
@@ -240,6 +247,10 @@ def parse_model(d: dict, ch: int = 3):
                 legacy = False
                 if scale in ("l", "x"):  # residual, mlp_ratio
                     args.extend((True, 1.2))
+        elif cls is M.ResNetLayer:  # the arguments pass through unscaled; a block's output is 4 c2, the stem's c2
+            c2 = args[1] if args[3] else args[1] * 4
+        elif cls is M.TorchVision:  # the output width is declared by the first argument, then dropped
+            c2, args = args[0], args[1:]
         elif cls is M.Concat:
             c2 = sum(ch_list[x] for x in f)
         elif cls in HEAD_MODULES:

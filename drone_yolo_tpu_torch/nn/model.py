@@ -1,8 +1,8 @@
-"""Detection, segmentation, pose and oriented box models: the built layer list as one `nn.Module`, with stride probe, seeded init
-and fuse.
+"""Detection, segmentation, pose, oriented box and classification models: the built layer list as one `nn.Module`, with
+stride probe, seeded init and fuse.
 
-Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel / SegmentationModel / PoseModel / OBBModel,
-`guess_model_task`). Layers
+Counterpart of `drone_yolo_tpu/nn/model.py` (BaseModel / DetectionModel / SegmentationModel / PoseModel / OBBModel /
+ClassificationModel, `guess_model_task`). Layers
 live in `self.model` (an `nn.ModuleList`), so parameter names are the reference
 torch names `model.<i>....`.
 """
@@ -66,18 +66,23 @@ class DetectionModel(nn.Module):
                 for p in (mod.weight, mod.bias):
                     if p is not None:
                         p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
+            elif isinstance(mod, nn.Linear):  # Classify's: U(+-1/sqrt(fan_in)) and a zero bias, as the JAX package
+                bound = 1.0 / math.sqrt(mod.in_features)
+                mod.weight.copy_(torch.empty(mod.weight.shape).uniform_(-bound, bound, generator=g))
+                mod.bias.zero_()
             elif isinstance(mod, M.BatchNorm2d):
                 mod.reset_parameters()
             elif isinstance(mod, M.A2C2f) and mod.gamma is not None:
                 mod.gamma.fill_(0.01)
-        self.head.bias_init(imgsz)
+        if isinstance(self.head, M.Detect):
+            self.head.bias_init(imgsz)
 
     def set_s2grad(self, mode: str | None) -> DetectionModel:
         """Backward of the dense stride-2 sites: "cuda" (the kernel; its plain version on CPU tensors) or None (stock)."""
         if mode not in M.S2GRAD_MODES:
             raise ValueError(f"s2grad={mode!r} must be one of {M.S2GRAD_MODES}")
         for mod in self.modules():
-            if isinstance(mod, M.Conv):
+            if isinstance(mod, (M.Conv, M.BasicBlock)):
                 mod.s2grad = mode
         return self
 
@@ -100,6 +105,11 @@ class DetectionModel(nn.Module):
         The input is cast to the parameters' dtype, the compute dtype. Train mode runs under
         `nn.modules.collect_bn_stats()`.
         """
+        out = self.head_input(x)
+        return self.head.raw_maps(out) if raw else self.head.train_out(out) if self.training else self.head(out)
+
+    def head_input(self, x: torch.Tensor):
+        """Every layer before the head on (B, 3, H, W), cast to the parameters' dtype; returns the head's input."""
         if x.dim() != 4 or x.shape[1] != 3:
             raise ValueError(f"expected a (B, 3, H, W) batch, got shape {tuple(x.shape)}")
         out = x.to(next(self.parameters()).dtype)
@@ -108,7 +118,7 @@ class DetectionModel(nn.Module):
             if f != -1:
                 out = y[f] if isinstance(f, int) else [out if j == -1 else y[j] for j in f]
             if mod is self.head:
-                return mod.raw_maps(out) if raw else mod.train_out(out) if self.training else mod(out)
+                return out
             out = mod(out)
             y.append(out if i in self.save else None)
         raise AssertionError("the last layer is the head")
@@ -123,7 +133,7 @@ class DetectionModel(nn.Module):
     @torch.no_grad()
     def fuse(self) -> DetectionModel:
         """Fold BN into convs and collapse RepVGG branches, in place."""
-        for kind in (M.RepVGGBlock, M.Conv):  # RepVGG first: it folds the BNs of its own Conv branches
+        for kind in (M.RepVGGBlock, M.Conv, M.TorchVision):  # RepVGG first: it folds the BNs of its own Conv branches
             for mod in [m for m in self.modules() if isinstance(m, kind)]:
                 mod.fuse()
         return self
@@ -162,7 +172,22 @@ class OBBModel(DetectionModel):
     task = "obb"
 
 
-TASK2MODELCLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel}
+class ClassificationModel(DetectionModel):
+    """Classification model: the layers end in `Classify`, which gives (B, nc) softmax probabilities in eval mode and
+    the logits in train mode. Counterpart of `drone_yolo_tpu/nn/model.py` `ClassificationModel`; its stride is 1, as
+    there, and its init sets no bias priors."""
+
+    task = "classify"
+
+    def _probe_strides(self, imgsz: int = 256) -> None:
+        """A classifier has no detection levels: `Classify.stride` is [1]."""
+
+    def forward(self, x: torch.Tensor):
+        return self.head(self.head_input(x))
+
+
+TASK2MODELCLASS = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel,
+                   "classify": ClassificationModel}
 
 
 def guess_model_task(cfg) -> str:

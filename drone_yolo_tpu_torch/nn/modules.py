@@ -1,4 +1,4 @@
-"""The module sets of the v8, YOLO11 and YOLO12 families as PyTorch modules (NCHW, OIHW).
+"""The module sets of the v8, YOLO11 and YOLO12 families and of the classifiers as PyTorch modules (NCHW, OIHW).
 
 Counterpart of `drone_yolo_tpu/nn/modules.py`. Parameter names follow the
 reference torch `state_dict` (`conv.weight`, `bn.running_mean`, `rbr_dense`, ...),
@@ -10,13 +10,17 @@ Precision follows the JAX package: activations flow in the parameters' dtype
 (bfloat16 on the card after `fuse()` and a cast, or under bf16 autocast in
 training), BatchNorm runs in float32 and the detection decode (DFL expectation,
 anchors, sigmoid) in float32. The attention blocks take their logits and softmax in
-float32 with autocast off (`attention_softmax`), as the JAX package does.
+float32 with autocast off (`attention_softmax`), and `Classify` its pool and linear, as the
+JAX package does. The classifiers' trunks: `ResNetLayer` (the JAX package's names, `stem`,
+`blocks`, `short`) and `TorchVision` (a native ResNet-18/34 under the reference's
+torchvision names).
 
 Train mode: BatchNorm normalizes with batch statistics and hands them to the
 collector of `collect_bn_stats` (the JAX package's `Ctx.updates`); the running
 statistics change only in `DetectionModel.merge_bn_updates`. A `Conv` whose
 `s2grad` is "cuda" routes its stride-2 sites (`ops.conv_s2.covers`) through
-`ops.conv_s2.conv2d_s2`, whose backward is the hand-written CUDA kernel. A
+`ops.conv_s2.conv2d_s2`, whose backward is the hand-written CUDA kernel (so does a
+`BasicBlock`, whose convs are plain `nn.Conv2d` under torchvision's names). A
 `BatchNorm2d` whose `bnstats` is "cuda" takes its batch sums from
 `ops.bn_stats.bn_stats`, whose forward is the hand-written CUDA kernel.
 """
@@ -26,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +121,17 @@ class BatchNorm2d(nn.Module):
         return y.to(x.dtype)
 
 
+@torch.no_grad()
+def fuse_conv_bn(conv: nn.Conv2d, bn: BatchNorm2d) -> nn.Conv2d:
+    """A conv with bias that computes bn(conv(x)) in eval mode."""
+    w, b = bn_fold(bn, conv.weight)
+    fused = nn.Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
+                      dilation=conv.dilation, groups=conv.groups, bias=True, device=w.device, dtype=w.dtype)
+    fused.weight.copy_(w)
+    fused.bias.copy_(b)
+    return fused
+
+
 def conv_forward(mod: nn.Conv2d, x: torch.Tensor, s2grad: str | None) -> torch.Tensor:
     """`mod(x)`; with s2grad="cuda" a site that `covers` accepts runs `conv2d_s2` (stock forward, kernel backward)."""
     if s2grad == "cuda" and covers(mod, x):
@@ -139,17 +155,9 @@ class Conv(nn.Module):
             y = self.bn(y)
         return F.silu(y) if self.act else y
 
-    @torch.no_grad()
     def fuse(self) -> None:
-        if self.bn is None:
-            return
-        w, b = bn_fold(self.bn, self.conv.weight)
-        conv = self.conv
-        fused = nn.Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
-                          dilation=conv.dilation, groups=conv.groups, bias=True, device=w.device, dtype=w.dtype)
-        fused.weight.copy_(w)
-        fused.bias.copy_(b)
-        self.conv, self.bn = fused, None
+        if self.bn is not None:
+            self.conv, self.bn = fuse_conv_bn(self.conv, self.bn), None
 
 
 class DWConv(Conv):
@@ -265,15 +273,19 @@ class C3k2(C2f):
         self.m = nn.ModuleList(C3k(c, c, 2, shortcut, g) if c3k else Bottleneck(c, c, shortcut, g, e=0.5) for _ in range(n))
 
 
+def float32_region(device_type: str):
+    """A region with autocast off on devices that have it (not the meta device of the stride probe)."""
+    usable = torch.amp.autocast_mode.is_autocast_available(device_type)
+    return torch.autocast(device_type, enabled=False) if usable else contextlib.nullcontext()
+
+
 def attention_softmax(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     """softmax(q^T k * scale) over the keys, in float32 (or wider) with autocast off: (..., d, N) x 2 -> (..., N, N).
 
     As the JAX package's attention: the logits and the softmax are float32 whatever the compute dtype; the
     caller casts the weights to it before the product with v. Autocast would otherwise take the matmul to bfloat16.
     """
-    dev = q.device.type
-    usable = torch.amp.autocast_mode.is_autocast_available(dev)  # not on the meta device of the model's stride probe
-    with torch.autocast(dev, enabled=False) if usable else contextlib.nullcontext():
+    with float32_region(q.device.type):
         return ((wide(q).transpose(-2, -1) @ wide(k)) * scale).softmax(-1)
 
 
@@ -633,3 +645,145 @@ class Segment(Detect):
         maps = self.raw_maps(xs)
         preds = self.decode(maps)
         return torch.cat((preds, mc.to(preds.dtype)), -1), (maps, mc, protos)
+
+
+class Classify(nn.Module):
+    """Classification head: Conv(c1, 1280), the global mean in float32, then a float32 linear to c2 classes; softmax
+    in eval mode, the logits in train mode.
+
+    Counterpart of `drone_yolo_tpu/nn/modules.py` `Classify`. `linear` holds the torch (c2, 1280) weight, which the
+    JAX package keeps as `linear/kernel` (1280, c2). The pool and the linear run with autocast off, as the JAX head
+    runs them in float32 whatever the compute dtype. A list input is concatenated on channels. `stride` is [1], the
+    stride the JAX model reports for a head that is not a detection head.
+    """
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1):
+        super().__init__()
+        c_ = 1280
+        self.conv = Conv(c1, c_, k, s, p, g)
+        self.linear = nn.Linear(c_, c2)
+        self.stride = [1]
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(x, 1)
+        y = self.conv(x)
+        with float32_region(y.device.type):
+            y = F.linear(wide(y).mean((2, 3)), wide(self.linear.weight), wide(self.linear.bias))
+        return y if self.training else y.softmax(-1)
+
+
+class ResNetBlock(nn.Module):
+    """ResNet bottleneck: Conv 1x1, Conv 3x3 with stride s, Conv 1x1 to e * c2 without activation, plus the input or
+    `short` (Conv 1x1 with stride s, no activation) where the stride or width changes, then a ReLU. The names are the
+    JAX package's (`short`)."""
+
+    def __init__(self, c1, c2, s=1, e=4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, 3, s)
+        self.cv3 = Conv(c2, c3, 1, act=False)
+        self.short = Conv(c1, c3, 1, s, act=False) if s != 1 or c1 != c3 else None
+
+    def forward(self, x):
+        y = self.cv3(self.cv2(self.cv1(x)))
+        return F.relu(y + (x if self.short is None else self.short(x)))
+
+
+class ResNetLayer(nn.Module):
+    """With `is_first` the stem, Conv 7x7 stride 2 pad 3 then a 3x3 stride-2 max pool (pad 1); else `n` ResNetBlocks,
+    the first with stride s. The arguments pass through the build unscaled, as in the JAX package."""
+
+    def __init__(self, c1, c2, s=1, is_first=False, n=1, e=4):
+        super().__init__()
+        self.is_first = is_first
+        if is_first:
+            self.stem = Conv(c1, c2, 7, 2, p=3)
+        else:
+            self.blocks = nn.ModuleList([ResNetBlock(c1, c2, s, e=e)] + [ResNetBlock(e * c2, c2, 1, e=e) for _ in range(n - 1)])
+
+    def forward(self, x):
+        if self.is_first:
+            return F.max_pool2d(self.stem(x), 3, 2, 1)
+        for b in self.blocks:
+            x = b(x)
+        return x
+
+
+def _conv_bn(conv: nn.Conv2d, bn: BatchNorm2d | None, x: torch.Tensor, s2grad: str | None) -> torch.Tensor:
+    y = conv_forward(conv, x, s2grad)
+    return y if bn is None else bn(y)
+
+
+class BasicBlock(nn.Module):
+    """torchvision's ResNet BasicBlock: conv1 3x3 (stride s), bn1, ReLU, conv2 3x3, bn2, plus the input or
+    `downsample` (1x1 conv with stride s, BN), then a ReLU. `s2grad` picks the backward of its stride-2 convs, as
+    `Conv`'s does; `fuse()` folds each BN into its conv."""
+
+    def __init__(self, c1, c2, s=1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c1, c2, 3, s, 1, bias=False)
+        self.bn1 = BatchNorm2d(c2)
+        self.conv2 = nn.Conv2d(c2, c2, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(c2)
+        self.downsample = (nn.Sequential(nn.Conv2d(c1, c2, 1, s, bias=False), BatchNorm2d(c2))
+                           if s != 1 or c1 != c2 else None)
+        self.s2grad = None
+
+    def forward(self, x):
+        y = F.relu(_conv_bn(self.conv1, self.bn1, x, self.s2grad))
+        y = _conv_bn(self.conv2, self.bn2, y, self.s2grad)
+        if self.downsample is not None:
+            d = self.downsample
+            x = _conv_bn(d[0], d[1] if len(d) > 1 else None, x, self.s2grad)
+        return F.relu(y + x)
+
+    def fuse(self) -> None:
+        if self.bn1 is None:
+            return
+        self.conv1, self.bn1 = fuse_conv_bn(self.conv1, self.bn1), None
+        self.conv2, self.bn2 = fuse_conv_bn(self.conv2, self.bn2), None
+        if self.downsample is not None:
+            self.downsample = nn.Sequential(fuse_conv_bn(*self.downsample))
+
+
+class TorchVision(nn.Module):
+    """A torchvision ResNet-18 or -34 trunk built natively (the card's machine has no torchvision), in place of the
+    reference's TorchVision loader module, as the JAX package builds it.
+
+    `m` is `nn.Sequential(*list(resnet.children())[:-2])`, as the reference's with unwrap=True and truncate=2: conv1
+    (7x7 stride 2), bn1, ReLU, a 3x3 stride-2 max pool (pad 1), then layer1..layer4 of BasicBlocks (the first of
+    layers 2-4 with stride 2 and a downsample), so that the state-dict names are the reference's (`m.0.weight`,
+    `m.4.0.conv1.weight`). BN is the port's (eps 1e-3, as in the JAX package). `weights` is accepted and the trunk is
+    initialised at random, as in the JAX package, with a warning (once) that no pretrained weights are loaded. Other
+    trunks, unwrap=False, truncate < 2 and split=True are refused, as there.
+    """
+
+    STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+
+    def __init__(self, model="resnet18", weights="DEFAULT", unwrap=True, truncate=2, split=False):
+        super().__init__()
+        if model not in self.STAGES or not unwrap or truncate < 2 or split:
+            raise NotImplementedError(f"native TorchVision trunk supports {sorted(self.STAGES)} with unwrap=True, "
+                                      f"truncate>=2, split=False (got {model})")
+        if weights:  # a warning, which Python shows once per process
+            warnings.warn(f"TorchVision({model}, weights={weights!r}): no pretrained weights are loaded (nothing is "
+                          "downloaded); the trunk is initialised at random", stacklevel=2)
+        layers, cin = [], 64
+        for si, (cout, n) in enumerate(zip((64, 128, 256, 512), self.STAGES[model])):
+            blocks = [BasicBlock(cin, cout, 1 if si == 0 else 2)] + [BasicBlock(cout, cout) for _ in range(n - 1)]
+            layers.append(nn.Sequential(*blocks))
+            cin = cout
+        self.m = nn.Sequential(nn.Conv2d(3, 64, 7, 2, 3, bias=False), BatchNorm2d(64), nn.ReLU(), nn.MaxPool2d(3, 2, 1),
+                               *layers)
+
+    def forward(self, x):
+        return self.m(x)
+
+    def fuse(self) -> None:
+        if isinstance(self.m[1], BatchNorm2d):
+            self.m[0] = fuse_conv_bn(self.m[0], self.m[1])
+            self.m[1] = nn.Identity()
+        for mod in [m for m in self.m.modules() if isinstance(m, BasicBlock)]:
+            mod.fuse()

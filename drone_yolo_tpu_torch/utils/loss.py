@@ -1,8 +1,8 @@
 """v8 detection, segmentation, pose and oriented box losses: BCE on class logits, CIoU (probiou for rotated boxes) and
-DFL on task-aligned targets, mask BCE, keypoint OKS and visibility.
+DFL on task-aligned targets, mask BCE, keypoint OKS and visibility; and the classifier's cross-entropy.
 
 Counterpart of `drone_yolo_tpu/utils/loss.py` (`bce_with_logits`, `df_loss`, `v8DetectionLoss`, `v8SegmentationLoss`,
-`v8PoseLoss`, `v8OBBLoss`). Targets arrive padded to M slots per image with a validity mask, in the collate format
+`v8PoseLoss`, `v8OBBLoss`, `v8ClassificationLoss`). Targets arrive padded to M slots per image with a validity mask, in the collate format
 (`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels, `mask` (B, M)); padded slots are zeroed so that they catch no anchor.
 """
 
@@ -246,3 +246,13 @@ class v8OBBLoss(v8DetectionLoss):
 
         items = torch.stack([loss_box * self.gains[0], loss_cls * self.gains[1], loss_dfl * self.gains[2]])
         return items.sum() * b, items.detach()
+
+
+class v8ClassificationLoss:
+    """Cross-entropy of the (B, nc) logits against `cls` (B,): the mean over the batch of the float32 log-softmax
+    NLL. The loss item is the loss itself."""
+
+    def __call__(self, preds: torch.Tensor, batch: dict):
+        logp = wide(preds).log_softmax(-1)
+        loss = -logp.gather(1, batch["cls"].long()[:, None])[:, 0].mean()
+        return loss, loss.detach()[None]

@@ -1,9 +1,9 @@
 """Detection, segmentation, pose and oriented box metrics on the host, in numpy: box IoU, keypoint OKS, TP matching,
-101-point AP, per-class P/R/AP.
+101-point AP, per-class P/R/AP; and the classifiers' top-1 and top-5 accuracy (`ClassifyMetrics`).
 
 A copy of `drone_yolo_tpu/utils/metrics.py` (`box_iou_np`, `match_predictions`,
 `compute_ap`, `ap_per_class`, `smooth`, `Metric`, `DetMetrics`, `SegmentMetrics`, `kpt_iou`, `PoseMetrics`,
-`OBBMetrics`, `ConfusionMatrix`) and of
+`OBBMetrics`, `ClassifyMetrics`, `ConfusionMatrix`) and of
 the COCO keypoint sigmas of `drone_yolo_tpu/models/yolo/pose.py:OKS_SIGMA_NP`, which follow the
 reference ultralytics `utils/metrics.py`. The card produces the detections; matching
 and accumulation are host work, as in the JAX package.
@@ -358,3 +358,32 @@ class OBBMetrics(DetMetrics):
     def __init__(self, names=None):
         super().__init__(names)
         self.task = "obb"
+
+
+class ClassifyMetrics:
+    """Top-1 and top-5 accuracy: `process(targets (N,), preds (N, k) class indices, best first)`; fitness is their
+    mean. `names` is accepted, as by the other metrics, and not used."""
+
+    def __init__(self, names=None):
+        self.top1 = 0.0
+        self.top5 = 0.0
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0, "postprocess": 0.0}
+        self.task = "classify"
+
+    def process(self, targets, preds) -> None:
+        targets, preds = np.asarray(targets), np.asarray(preds)
+        correct = preds == targets[:, None]
+        self.top1 = float(correct[:, 0].mean()) if len(targets) else 0.0
+        self.top5 = float(correct.any(1).mean()) if len(targets) else 0.0
+
+    @property
+    def fitness(self) -> float:
+        return (self.top1 + self.top5) / 2
+
+    @property
+    def keys(self) -> list[str]:
+        return ["metrics/accuracy_top1", "metrics/accuracy_top5"]
+
+    @property
+    def results_dict(self) -> dict:
+        return dict(zip(self.keys + ["fitness"], [self.top1, self.top5, self.fitness]))

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain versions, a train step through them, the segment masks and the rotated
-NMS, on the card.
+"""The port's CUDA kernels against their plain versions, a train step through them, the segment masks, the rotated
+NMS and the classifiers' sites, on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device. The module
 imports neither JAX nor the JAX package, so it runs on a machine that has only
@@ -15,11 +15,12 @@ import torch
 from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_sites, bn_stats_errors, clustered_boxes, s2_site_inputs, s2_sites,
                         spread_weights, synthetic_batch, synthetic_obb_batch, synthetic_pose_batch, synthetic_seg_batch)
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
+from drone_yolo_tpu_torch.models.yolo.classify import ClassificationTrainer
 from drone_yolo_tpu_torch.models.yolo.obb import OBBTrainer
 from drone_yolo_tpu_torch.models.yolo.pose import PoseTrainer
 from drone_yolo_tpu_torch.models.yolo.segment import SegmentationTrainer
 from drone_yolo_tpu_torch.nn import modules as M
-from drone_yolo_tpu_torch.nn.model import DetectionModel, OBBModel, PoseModel, SegmentationModel
+from drone_yolo_tpu_torch.nn.model import ClassificationModel, DetectionModel, OBBModel, PoseModel, SegmentationModel
 from drone_yolo_tpu_torch.ops import conv_s2, cuda_bnstats, cuda_nms, cuda_s2bwd
 from drone_yolo_tpu_torch.ops.masks import process_mask, scale_masks
 from drone_yolo_tpu_torch.ops.bn_stats import bn_stats, bn_stats_reference
@@ -589,3 +590,100 @@ def test_attention_block_bf16_on_the_card_matches_float32_on_the_cpu(cuda_device
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert float(err.max()) <= 0.03 * float(want.abs().max()) and float(err.mean()) <= 0.015 * float(want.abs().mean())
 
+
+
+# the classifiers' stride-2 sites at batch 64, 224 px: (name, k, Ci, Co, input H)
+CLASSIFY_SITES = {
+    "yolov8s-cls.yaml": [("model.0", 3, 3, 32, 224), ("model.1", 3, 32, 64, 112), ("model.3", 3, 64, 128, 56),
+                         ("model.5", 3, 128, 256, 28), ("model.7", 3, 256, 512, 14)],
+    "yolov8-cls-resnet50.yaml": [("model.2.blocks.0.cv2", 3, 128, 128, 56), ("model.2.blocks.0.short", 1, 256, 512, 56),
+                                 ("model.3.blocks.0.cv2", 3, 256, 256, 28), ("model.3.blocks.0.short", 1, 512, 1024, 28),
+                                 ("model.4.blocks.0.cv2", 3, 512, 512, 14), ("model.4.blocks.0.short", 1, 1024, 2048, 14)],
+    "yolo11-cls-resnet18.yaml": [("model.0.m.5.0.conv1", 3, 64, 128, 56), ("model.0.m.5.0.downsample.0", 1, 64, 128, 56),
+                                 ("model.0.m.6.0.conv1", 3, 128, 256, 28), ("model.0.m.6.0.downsample.0", 1, 128, 256, 28),
+                                 ("model.0.m.7.0.conv1", 3, 256, 512, 14), ("model.0.m.7.0.downsample.0", 1, 256, 512, 14)],
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", list(CLASSIFY_SITES))
+def test_s2_kernel_at_the_classify_sites(cuda_device, model, dtype):
+    """The dense stride-2 sites of yolov8s-cls (5, k=3) and of the ResNet-50 and ResNet-18 trunks (3 k=3 and 3 k=1
+    each: the 1x1 stride-2 kernel up to Co 2048 at 14 px) at batch 64, 224 px, against the plain version, as
+    chip_smoke's classify phase holds them."""
+    sites = s2_sites(ClassificationModel(model), 64, 224)
+    assert [(s["name"], s["k"], s["x"][1], s["w"][0], s["x"][2]) for s in sites] == CLASSIFY_SITES[model]
+    dt = getattr(torch, dtype)
+    for i, site in enumerate(sites):
+        x, w, dy = s2_site_inputs(site, dt, seed=700 + i)
+        dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, site["k"], site["need_dx"])
+        torch.cuda.synchronize()
+        dx_p, dw_p = conv_s2.s2_bwd_reference(x, w, dy, site["k"], site["need_dx"])
+        pairs = [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else [])
+        for what, got, want in pairs:
+            tol = dict(S2_TOL[dtype][what])
+            tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{site['name']} {what}: {m}")
+        del x, w, dy, dx, dw, dx_p, dw_p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model,n_bn", [("yolov8s-cls.yaml", 26), ("yolov8-cls-resnet50.yaml", 54),
+                                        ("yolo11-cls-resnet18.yaml", 21)])
+def test_bn_stats_kernel_at_the_classify_inputs(cuda_device, model, n_bn, dtype):
+    """Every train-mode BN input of the classifiers at batch 64, 224 px (ResNet-50's last: 2048 channels at 7 px)
+    against `bn_stats_reference` at chip_smoke's tolerance."""
+    sites = bn_sites(ClassificationModel(model), 64, 224)
+    assert len(sites) == n_bn
+    for i, site in enumerate(sites):
+        g = torch.Generator(device=cuda_device).manual_seed(900 + i)
+        x = (torch.randn(site["x"], generator=g, device=cuda_device) * 2 + 0.5).to(getattr(torch, dtype))
+        s, q = bn_stats(x)
+        errs = bn_stats_errors(x, s, q)
+        assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, (site, errs)
+        del x, s, q
+
+
+@pytest.mark.parametrize("model,k3,k1", [("yolov8s-cls.yaml", 5, 0), ("yolo11-cls-resnet18.yaml", 3, 3),
+                                         ("yolov8-cls-resnet50.yaml", 3, 3)])
+def test_classify_train_step_with_both_kernels_matches_stock(cuda_device, model, k3, k1):
+    """A classifier (nc 10, batch 4, 64 px) in float32 (TF32 off): 2 steps with s2grad="cuda" and bnstats="cuda"
+    against 2 stock steps from the same init, every stride-2 site and train-mode BN through the kernels, counted, and
+    the losses within 1e-4. Then one backward's gradients with the kernels and stock against a float64 evaluation
+    (stock autograd): the kernels' largest error, relative to each tensor's largest gradient, within twice stock's.
+    (ResNet-50's 2x2 maps at 64 px give BN 16 values a channel: both float32 paths part from float64 by up to 10% of
+    a tensor's gradient, and two SGD steps amplify the difference past a fixed tolerance on the BN biases.)"""
+    rng = np.random.default_rng(0)
+    loader = [{"img": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8), "cls": rng.integers(0, 10, 4).astype(np.int32)}
+              for _ in range(2)]
+    n_bn = sum(isinstance(m, M.BatchNorm2d) for m in ClassificationModel(model, nc=10).modules())
+    losses = {}
+    for mode in ("cuda", None):
+        trainer = ClassificationTrainer(overrides=dict(model=model, batch=4, imgsz=64, nbs=4, optimizer="SGD", amp=False,
+                                                       s2grad=mode, bnstats=mode), train_loader=loader, data={"nc": 10})
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        losses[mode] = [r["loss"] for r in trainer.run_steps()]
+        assert cuda_s2bwd.s2_bwd_cuda.calls == ({"s2_bwd_k3": 2 * k3, "s2_bwd_k1": 2 * k1} if mode else
+                                                {"s2_bwd_k3": 0, "s2_bwd_k1": 0})
+        assert cuda_bnstats.bn_stats_cuda.calls == (2 * n_bn if mode else 0)
+    np.testing.assert_allclose(losses["cuda"], losses[None], rtol=1e-4)
+
+    base = ClassificationModel(model, nc=10)
+    base.init(0, imgsz=64)
+    img = torch.from_numpy(loader[0]["img"]).to(cuda_device).permute(0, 3, 1, 2) / 255.0
+    cls = torch.from_numpy(loader[0]["cls"]).to(cuda_device)
+    grads = {}
+    for mode, dtype in (("float64", torch.float64), ("stock", torch.float32), ("kernels", torch.float32)):
+        net = ClassificationModel(model, nc=10)
+        net.load_state_dict(base.state_dict())
+        net = net.to(cuda_device, dtype).train()
+        if mode == "kernels":
+            net.set_s2grad("cuda").set_bnstats("cuda")
+        with M.collect_bn_stats():
+            logits = net(img.to(dtype))
+        torch.nn.functional.cross_entropy(logits, cls.long()).backward()
+        grads[mode] = {n: p.grad.double() for n, p in net.named_parameters()}
+    err = {mode: max(float((grads[mode][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                     for n, g in grads["float64"].items()) for mode in ("stock", "kernels")}
+    assert err["kernels"] <= 2 * err["stock"] + 1e-6, err

@@ -284,6 +284,35 @@ def test_plot_images_equals_jax(tmp_path):
     assert (tmp_path / "t.jpg").stat().st_size > 0
 
 
+def test_plot_images_shrinks_a_large_mosaic_as_jax(tmp_path):
+    """A batch of 16 at 640 px of random pixels: the 2560 px mosaic shrinks by 0.75 to 1920 px (`resize_linear_u8`
+    against `cv2.resize`, within 1 grey level of it at most factors). At this factor the drawing equals the JAX
+    drawing with the port's glyphs bit for bit, and the JAX drawing with cv2's glyphs outside the text boxes."""
+    rng = np.random.default_rng(16)
+    b, s = 16, 640
+    imgs = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
+    n = 40
+    bi, cls = rng.integers(0, b, n), rng.integers(0, 8, n).astype(np.float32)
+    xy, wh = rng.uniform(40, s - 40, (n, 2)), rng.uniform(20, 200, (n, 2))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1).astype(np.float32)
+    args = (imgs, bi, cls, boxes)
+    got = PP.plot_images(*args, names=NAMES, save=False, threaded=False)
+    want = JP.plot_images(*args, fname=tmp_path / "j.jpg", names=NAMES, save=False, threaded=False)
+    want_pg = port_glyphs(JP.plot_images, *args, fname=tmp_path / "g.jpg", names=NAMES, save=False, threaded=False)
+    assert got.shape == want.shape == (1920, 1920, 3)
+    labels = []
+    for i in range(b):
+        x, y = int(s * (i // 4) * 0.75), int(s * (i % 4) * 0.75)
+        for bb, c in zip(boxes[bi == i] * 0.75, cls[bi == i]):
+            name = NAMES[int(c)]
+            h = draw.get_text_size(name, 2 / 3, 1)[0][1]
+            x1, y1 = int(bb[0] + x), int(bb[1] + y)
+            labels.append((name, (x1, y1 - 2) if y1 - h >= 3 else (x1, y1 + h + 2)))
+    text = label_boxes(got.shape, 2, labels)
+    assert len(labels) == n and text.mean() < 0.05
+    assert_equal_but_glyphs(got, want, want_pg, text, "plot_images 16 x 640 px")
+
+
 # -- the confusion matrix ----------------------------------------------------------------------------------------------
 @pytest.mark.parametrize("seed", range(4))
 def test_confusion_matrix_equals_jax(seed):

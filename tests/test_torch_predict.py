@@ -217,24 +217,33 @@ v11_trainer = BaseTrainer(overrides=dict(model="yolo11n.yaml", batch=2, imgsz=64
                                          optimizer="SGD", s2grad="cuda", bnstats="cuda"), train_loader=[batch],
                           data={"nc": 2})
 steps += v11_trainer.run_steps()
+from drone_yolo_tpu_torch.models.yolo.classify import ClassificationTrainer
+probs = YOLO("yolov8n-cls.yaml", device="cpu").predict(source=frames, imgsz=32, verbose=False)
+cls_batch = {"img": np.random.default_rng(1).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8), "cls": np.array([0, 1], np.int32)}
+cls_trainer = ClassificationTrainer(overrides=dict(model="yolov8n-cls.yaml", batch=2, imgsz=32, nbs=2, device="cpu",
+                                                   amp=False, optimizer="SGD", s2grad="cuda", bnstats="cuda"),
+                                    train_loader=[cls_batch], data={"nc": 2})
+steps += cls_trainer.run_steps()
 print(json.dumps({"modules": mods, "n": [len(r.boxes) for r in res + v11], "train_loss": [s["loss"] for s in steps],
-                  "optimizer_steps": trainer.step + both.step + v11_trainer.step, "metrics": metrics,
+                  "probs": [r.probs.data.shape[0] for r in probs],
+                  "optimizer_steps": trainer.step + both.step + v11_trainer.step + cls_trainer.step, "metrics": metrics,
                   "loaded": sorted(m for m in BLOCKED if sys.modules.get(m) is not None)}))
 """
 
 
 def test_port_runs_without_jax_cv2_pil_yaml():
-    """Every module of the port imports, and the flagship and yolo11n predict and train a step, with jax, cv2, PIL,
-    yaml and sklearn blocked."""
+    """Every module of the port imports, and the flagship, yolo11n and yolov8n-cls predict and train a step, with jax,
+    cv2, PIL, yaml and sklearn blocked."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", RUN_PORT], cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {"drone_yolo_tpu_torch.ops.cuda_nms", "drone_yolo_tpu_torch.engine.predictor", "drone_yolo_tpu_torch.ops.cuda_s2bwd",
             "drone_yolo_tpu_torch.engine.trainer", "drone_yolo_tpu_torch.engine.validator", "drone_yolo_tpu_torch.ops.cuda_bnstats",
-            "drone_yolo_tpu_torch.utils.metrics"} <= set(out["modules"])
-    assert out["loaded"] == [] and all(n > 0 for n in out["n"])
-    assert out["optimizer_steps"] == 3 and len(out["n"]) == 4 and all(math.isfinite(v) for v in out["train_loss"])
+            "drone_yolo_tpu_torch.utils.metrics", "drone_yolo_tpu_torch.models.yolo.classify"} <= set(out["modules"])
+    assert out["loaded"] == [] and all(n > 0 for n in out["n"]) and out["probs"] == [1000, 1000]
+    assert out["optimizer_steps"] == 4 and len(out["n"]) == 4 and all(math.isfinite(v) for v in out["train_loss"])
+    assert len(out["train_loss"]) == 4
     assert set(out["metrics"]) == {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)", "fitness"}
 
 
