@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card: builds the kernels, checks them, serves, trains and
-validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, drives the
+validates the flagship, runs the drone-video pipeline (tracking, pose, geo) over synthetic video, tracks a panning
+clip with BoT-SORT and its camera-motion compensation, tiles a 4K frame, drives the
 command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model,
 predicts with, trains and validates an instance segmentation model and an oriented box model, does the same
 with the YOLO11 and YOLO12 families, and with the classifiers (yolov8s-cls, yolo11s-cls, yolo12s-cls and the
@@ -79,7 +80,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
 10. track: the drone-video analytics path. `DroneVideoPipeline` with the flagship (tracking) and
    `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth, fused, bfloat16, and a
    `GeoConverter`, over 64 synthetic 1080x1920 frames of 60 textured rectangles that move, enter and
-   leave (`moving_frames`, seed 3), imgsz 640, conf 0.25, ByteTrack. Random weights score near
+   leave (`moving_frames`, seed 3), imgsz 640, conf 0.25, ByteTrack (bytetrack.yaml, named). Random weights score near
    sigmoid(-13), below ByteTrack's thresholds, so each model's class logits are spread to follow
    the image (`scored_weights`, gain 30) and shifted so that 5% of frame 0's anchors score above
    0.25 (`calibrated_weights`). Pass A holds the keep mask of every NMS call of both models (the
@@ -91,14 +92,32 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    track + geo without the pose model; then the device's busy share over 8 steps of the full
    pipeline (torch.profiler), and `BYTETracker.update` alone on detection streams of 50, 200 and
    500 targets (`detection_stream`, 60 frames each);
-11. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 6
+11. botsort: BoT-SORT with sparse optical-flow camera-motion compensation (GMC) on the card, and tiled inference.
+   A panning clip (`panning_frames`, seed 23): 64 1920x1080 frames, each a window of a larger textured canvas with the
+   track cell's moving rectangles, warped on the card by `ops/image.py:warp_affine_u8` by a similarity that moves
+   3-20 px and turns up to 0.1 degree a frame; the track cell's flagship, pose model, calibrated weights (on the
+   clip's first frame), conf and geo. Pass A runs `DroneVideoPipeline(tracker="botsort.yaml")` with pose: every
+   keep mask against `greedy_keep_reference`, NMS calls = frames + pose calls with two launches each (counts set to
+   0 before it, read after it); the GMC of the CPU over the clip's first 16 frames (a thread beside the weights'
+   calibration and pass A) against the card's:
+   corners (`GMC_CORNER_SHARE`), the tracker's status from equal corner lists (`GMC_STATUS_SHARE`), warps
+   (`GMC_LIN_TOL`, `GMC_T_TOL` px); every card warp against the clip's known motion (`KNOWN_T_TOL` px on the
+   translation, `KNOWN_ROT_TOL` rad); the card's GMC steps must get card tensors. Pass B: frames/s of detect +
+   BoT-SORT + geo and of detect + BoT-SORT + pose + geo; GMC ms a frame by step (grey and resize, corners, flow,
+   RANSAC; each synchronised; over 16 frames), `BOTSORT.update` ms a frame; the device's idle share over 3 steps of the full
+   pipeline (torch.profiler); ByteTrack over the same clip, ids and track lengths beside BoT-SORT's (a finding, not
+   a check). Pass C: `ops/tiling.py:tiled_inference` of one 2160x3840 frame (`moving_frames`, seed 29, 240
+   rectangles; RGB) through the flagship's predictor (fused, bf16), 640 px crops with gap 128: 32 windows in two
+   batches of 16; every keep mask (the crops' B = 16 calls and the merge's B = 1) against the plain keep, 3 NMS calls
+   and 6 launches; ms a frame split into crop and upload, forward and NMS, and merge (the median of 5 after one);
+12. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 6
    frames (`moving_frames`, seed 5: JPEG at 1920x1080, 1080x1920 and 1280x720, PNG at 1280x720), one MJPEG
    AVI of 8 1080p frames at 30000/1001 frames/s (`data/avi.py:AviWriter`, quality 95), and
    16 dense-proxy images cropped to 8 aspect ratios (`write_mixed_val`). The flagship's weights are
    `calibrated_weights` saved by `YOLO.save` with train_args imgsz 640. Through `cfg.entrypoint` strings, with no
-   imgsz: (a) predict over the directory with save_txt and save_crop (max_det 4), (b) track over clip.avi, then
-   `DroneVideoPipeline.run("clip.avi")`, (c) val over the mixed set (rect, the facade's default) and with
-   rect=False. Every NMS keep mask of (a)-(c) is held against `greedy_keep_reference`, counts set to 0 before
+   imgsz: (a) predict over the directory with save_txt and save_crop (max_det 4), (b) track over clip.avi (the
+   default tracker, BoT-SORT), then `DroneVideoPipeline.run("clip.avi")`, (c) val over the mixed set (rect, the
+   facade's default) and with rect=False. Every NMS keep mask of (a)-(c) is held against `greedy_keep_reference`, counts set to 0 before
    them and read after them. Checks: one label file per image, crops written, track ids, the CSV of
    run("clip.avi") byte-equal to that of `step` over the frames decoded from the payloads, each rect batch at
    its planned shape and at most `rect_max_shapes` shapes, square batches at 640. Printed: decode ms per 1080p
@@ -106,7 +125,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    rect against square, predict img/s from the directory at batch 1 and 8, the host seconds of (a) by part
    (loading and decoding, the predictor's stages, save_txt, save_crop) and each stage's seconds, each beside the
    nvidia-smi line;
-12. draw: `save=True`. The flagship at 640 px, bf16, `calibrated_weights` (0.4% of the clip's first frame's
+13. draw: `save=True`. The flagship at 640 px, bf16, `calibrated_weights` (0.4% of the clip's first frame's
    anchors above conf 0.25), predicts with save=True over the entry phase's directory and its AVI, then without save
    over the AVI; yolov8s-seg, -pose (on the AVI's first 2 frames; 1% above conf) and -obb (2 frames of rotated
    rectangles at 1024 px) predict one batch of 2 each with save=True and without. Every greedy-NMS keep mask is
@@ -116,7 +135,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    task's masks, keypoints or oriented boxes drawn. Printed per model: plot ms and encode ms per frame (host seconds
    inside `Results.plot` and the encoders), predict frames/s with save=True against save=False, each beside the
    nvidia-smi line;
-13. pose: pose training and validation. `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth: the
+14. pose: pose training and validation. `yolov8s-pose.yaml` (nc 1, 17 keypoints) at full width and depth: the
    stride-2 backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites and the BN-statistics kernel against
    `bn_stats_reference` at all its 63 train-mode BN inputs (the keypoint branch's 6 of 51 channels among them), in
    bfloat16 and float32 at batch 8, 640 px; then a seeded dataset of 16 train and 8 val images of 17-keypoint
@@ -129,7 +148,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    batch (the val split's first 8 images, letterboxed) at a constant lr, whose `pose_loss` must end below its first
    value. Printed: step ms and img/s of the fixed batch, its device idle share (torch.profiler), epoch seconds and
    the data-wait share, validation img/s, peak card memory, each beside the nvidia-smi line;
-14. segment: instance segmentation. `yolov8s-seg.yaml` (nc 80, 32 prototypes) at full width and depth: the stride-2
+15. segment: instance segmentation. `yolov8s-seg.yaml` (nc 80, 32 prototypes) at full width and depth: the stride-2
    backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites and the BN-statistics kernel against
    `bn_stats_reference` at the 9 BN inputs the detect part lacks (Proto's 3 at 80x80 and 160x160, cv4's 6), in
    bfloat16 and float32 at batch 8, 640 px, and timed there against the plain version and `torch.batch_norm_stats`;
@@ -145,7 +164,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    split's 8 images, letterboxed) at a constant lr, whose `seg_loss` must end below its first value. Printed:
    predict img/s and masks per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and
    the data-wait share, validation img/s, box and mask mAP, peak card memory, each beside the nvidia-smi line;
-15. obb: oriented boxes. `yolov8s-obb.yaml` (nc 15, DOTA-v1's class count) at full width and depth and DOTA's
+16. obb: oriented boxes. `yolov8s-obb.yaml` (nc 15, DOTA-v1's class count) at full width and depth and DOTA's
    training size, 1024 px: the stride-2 backward kernel against `s2_bwd_reference` at its 7 dense k=3 sites (layer
    0's dw a sum of 2,097,152 products) and the BN-statistics kernel against `bn_stats_reference` at all its 63
    train-mode BN inputs (the angle branch cv4's 6 among them), in bfloat16 and float32 at batch 8, and one step's
@@ -163,7 +182,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    and oriented boxes per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and the
    data-wait share, validation img/s, peak card memory, the kernels' errors against the tolerance and their times,
    each beside the nvidia-smi line;
-16. families: the YOLO11 and YOLO12 families (C3k2, C2PSA attention, A2C2f area attention, the depthwise class
+17. families: the YOLO11 and YOLO12 families (C3k2, C2PSA attention, A2C2f area attention, the depthwise class
    branch). `yolo11s.yaml` and `yolo12s.yaml` (nc 80) at full width: both train kernels against their plain versions
    at the 7 dense k=3 stride-2 sites (yolo11s layers 0, 1, 3, 5, 7, 17, 20; yolo12s 0, 1, 3, 5, 7, 15, 18) and at
    every train-mode BN input (81 and 113), bf16 and float32, batch 8, 640 px, then one bf16 step's calls timed
@@ -177,7 +196,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    batch 8 and 5 fixed-batch steps with both kernels, each loss finite and falling. Every greedy-NMS keep mask is
    held against `greedy_keep_reference`. Counts are set to 0 before each run and read after it: 7 stride-2 calls and
    one BN call per BN input a step, one NMS call a predict or val batch (none for obb);
-17. classify: image classification. `yolov8s-cls.yaml` (nc 1000, ImageNet-1k) at its published width, 224 px: both
+18. classify: image classification. `yolov8s-cls.yaml` (nc 1000, ImageNet-1k) at its published width, 224 px: both
    train kernels against their plain versions at its 5 dense k=3 stride-2 sites (layers 0, 1, 3, 5, 7; 3 -> 32 ...
    256 -> 512) and its 26 train-mode BN inputs, bf16 and float32 at batch 64, each kind's calls of a step and each site
    alone timed against the plain version and cuDNN's `convolution_backward` (the BN inputs against
@@ -193,7 +212,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    1024 -> 2048 at 14 px) and BN inputs (ResNet-50's last 2048 channels at 7 px), each site alone against cuDNN;
    predict at batch 32; 3 fixed-batch steps with both kernels against 3 stock within `TRAIN_LOSS_RTOL`. Counts are
    set to 0 before each run and read after it: the stride-2 and BN calls of every step exactly, no greedy-NMS call;
-18. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
+19. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
    modules of every path (apps, trackers, the pose, segment, obb and classify predictors, trainers and validators,
    the loaders, `ops/rotated.py`) loaded.
 
@@ -291,6 +310,20 @@ TRACK_CELL = dict(frames=64, hw=(1080, 1920), objects=60, obj_px=(24, 120), seed
                   pose_model="yolov8s-pose.yaml", cls_gain=30.0, share_above_conf=0.05,
                   geo=dict(lat=31.2304, lon=121.4737, altitude_m=80.0, yaw_deg=15.0, pitch_deg=90.0))
 TRACKER_TARGETS = (50, 200, 500)  # BYTETracker.update alone on detection streams of this many targets
+# the botsort phase: the track cell's models, weights, conf and geo over a panning clip (`panning_frames`: 64 1080p
+# frames, 3-20 px and up to 0.1 degree a frame), then tiled inference of one 4K frame (32 windows of 640 px, gap 128)
+BOTSORT_CELL = dict(seed=23, shift=(3.0, 20.0), max_rot_deg=0.1, cpu_frames=16, timed_frames=16,
+                    tiled=dict(hw=(2160, 3840), crop=640, gap=128, batch=16, objects=240, seed=29))
+# the card's GMC against the CPU's on the clip's first `cpu_frames` frames (the CPU's takes ~0.4 s a 1080p frame, in a
+# thread beside pass A): the corner lists and the tracker's status (the two compute the same integer and float32
+# operations in the same order), the warps
+GMC_CORNER_SHARE, GMC_STATUS_SHARE, GMC_LIN_TOL, GMC_T_TOL = 0.995, 0.99, 1e-3, 0.02
+# the card's warps against the clip's known motion. A warp's translation is its displacement at pixel (0, 0), about
+# 1100 px from the frame's centre, where a rotation error of 1e-4 rad alone moves it 0.11 px; and the moving rectangles'
+# corners that RANSAC's 3 px (6 px at full scale) keep as inliers pull the least-squares fit. The JAX package's GMC
+# (cv2, on the CPU) misses this clip's translation by up to 0.274 px (27 of 64 frames above 0.1 px; its centre by up
+# to 0.120 px) and its rotation by up to 1.38e-4 rad, so translations are held to 0.5 px, rotations to 2e-4 rad
+KNOWN_T_TOL, KNOWN_ROT_TOL = 0.5, 2e-4
 # the entry phase: one MJPEG AVI of 8 1080p frames (16 before the pose phase) at 30000/1001 frames/s; a directory of
 # 6 frames (12 before the families phase): the AVI's first 2 (JPEG 1920x1080), then JPEG 1080x1920 and 1280x720 and
 # PNG 1280x720; a mixed-aspect val set of 16 dense-proxy images (32 before) at 640 px. The predict over the directory
@@ -804,14 +837,19 @@ def scored_weights(state_dict: dict, rng: np.random.Generator, cls_bias: float, 
     return out
 
 
-def moving_frames(rng: np.random.Generator, n: int, hw: tuple[int, int], n_objects: int, size=(8, 40)):
+def moving_frames(rng: np.random.Generator, n: int, hw: tuple[int, int], n_objects: int, size=(8, 40),
+                  background=None):
     """`n` BGR uint8 frames of `n_objects` textured rectangles moving at constant velocity over a fixed textured
-    background; an object enters at a random frame and leaves at a random later one, so tracks are born and die.
-    The texture keeps neighbouring anchors from scoring exactly alike. Shared with the tests."""
+    background (or over `background`, an (h, w, 3) uint8 image); an object enters at a random frame and leaves at a
+    random later one, so tracks are born and die. The texture keeps neighbouring anchors from scoring exactly alike.
+    Shared with the tests. A generator when `background` is given (its frames are large)."""
     h, w = hw
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    bg = np.stack([90 + 30 * np.sin(xx / w * 6.3 + c) + 20 * np.cos(yy / h * 4.1 + c) for c in range(3)], -1)
-    bg = np.clip(bg + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
+    if background is None:
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        bg = np.stack([90 + 30 * np.sin(xx / w * 6.3 + c) + 20 * np.cos(yy / h * 4.1 + c) for c in range(3)], -1)
+        bg = np.clip(bg + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
+    else:
+        bg = background
     wh = rng.integers(size[0], size[1] + 1, (n_objects, 2))
     xy = rng.uniform(0, 1, (n_objects, 2)) * (np.array([w, h]) - wh)
     vel = rng.normal(0, 1.5, (n_objects, 2)) * max(h, w) / 640
@@ -819,8 +857,8 @@ def moving_frames(rng: np.random.Generator, n: int, hw: tuple[int, int], n_objec
                for bw, bh in wh]
     start = rng.integers(0, max(1, n // 2), n_objects)
     stop = np.minimum(n, start + rng.integers(n // 4 + 1, n + 1, n_objects))
-    frames = []
-    for f in range(n):
+
+    def frame(f: int) -> np.ndarray:
         img = bg.copy()
         for j in np.flatnonzero((start <= f) & (f < stop)):
             x1, y1 = np.floor(xy[j] + vel[j] * (f - start[j])).astype(int)
@@ -828,8 +866,62 @@ def moving_frames(rng: np.random.Generator, n: int, hw: tuple[int, int], n_objec
             cx1, cy1, cx2, cy2 = max(x1, 0), max(y1, 0), min(x1 + bw, w), min(y1 + bh, h)
             if cx1 < cx2 and cy1 < cy2:
                 img[cy1:cy2, cx1:cx2] = patches[j][cy1 - y1:cy2 - y1, cx1 - x1:cx2 - x1]
-        frames.append(img)
-    return frames
+        return img
+
+    frames = (frame(f) for f in range(n))
+    return frames if background is not None else list(frames)
+
+
+def similarity(angle: float, centre, shift) -> np.ndarray:
+    """(2, 3) float64 warp: a rotation by `angle` (radians, counterclockwise in image axes) about `centre`, then a
+    translation by `shift`."""
+    c, s = math.cos(angle), math.sin(angle)
+    r = np.array([[c, -s], [s, c]])
+    return np.concatenate([r, (np.asarray(centre) - r @ np.asarray(centre) + np.asarray(shift))[:, None]], 1)
+
+
+def panning_frames(rng: np.random.Generator, n: int, hw: tuple[int, int], n_objects: int, size=(8, 40),
+                   shift=(3.0, 20.0), max_rot_deg: float = 0.1, device="cpu"):
+    """A camera that pans and turns over ground: `n` BGR uint8 frames (h, w), each a window of a larger textured
+    canvas (fields and roofs: rectangles of flat colour, some noise) with `n_objects` of `moving_frames`' textured
+    rectangles moving over it, warped by `ops/image.py:warp_affine_u8` on `device`. From one frame to the next the
+    view moves by `shift[0]`-`shift[1]` px (its heading turns slowly) and turns by up to `max_rot_deg` degrees.
+    Returns (frames, motions): motions[i] is the (2, 3) float64 warp of frame i-1's pixels to frame i's (the
+    identity for frame 0). Shared with the tests."""
+    from drone_yolo_tpu_torch.ops.image import warp_affine_u8
+
+    h, w = hw
+    steps = rng.uniform(*shift, n)
+    heading = rng.uniform(0, 2 * math.pi) + np.cumsum(rng.normal(0, 0.25, n))
+    turns = np.deg2rad(rng.uniform(-max_rot_deg, max_rot_deg, n))
+    steps[0] = turns[0] = 0.0
+    centre = np.array([w / 2, h / 2])
+    # the camera's rotation and position on the canvas, frame by frame (frame pixel p sees canvas pixel pose @ p)
+    poses, pose = [], np.eye(3)
+    for i in range(n):
+        motion = np.vstack([similarity(turns[i], centre, steps[i] * np.array([math.cos(heading[i]),
+                                                                              math.sin(heading[i])])), [0, 0, 1]])
+        pose = pose @ np.linalg.inv(motion)
+        poses.append(pose)
+    corners = np.array([[x, y, 1.0] for x in (0, w) for y in (0, h)]).T
+    seen = np.concatenate([(p @ corners)[:2] for p in poses], 1)
+    lo = np.floor(seen.min(1)) - 2
+    ch, cw = (np.ceil(seen.max(1)) + 2 - lo).astype(int)[::-1]
+    yy, xx = np.mgrid[0:ch, 0:cw].astype(np.float32)
+    canvas = np.stack([90 + 30 * np.sin(xx / 97 + c) + 20 * np.cos(yy / 61 + c) for c in range(3)], -1)
+    for _ in range(int(ch * cw / 1500)):
+        bh, bw = rng.integers(8, 90, 2)
+        y0, x0 = rng.integers(0, ch - bh), rng.integers(0, cw - bw)
+        canvas[y0:y0 + bh, x0:x0 + bw] = rng.uniform(20, 235, 3)
+    canvas = np.clip(canvas + rng.normal(0, 5, canvas.shape), 0, 255).astype(np.uint8)
+    objects = moving_frames(rng, n, (ch, cw), n_objects, size, background=canvas)
+    to_canvas = np.array([[1, 0, -lo[0]], [0, 1, -lo[1]], [0, 0, 1]])
+    frames, motions = [], []
+    for i, img in enumerate(objects):
+        src = torch.from_numpy(img).to(device)
+        frames.append(warp_affine_u8(src, np.linalg.inv(to_canvas @ poses[i])[:2], (w, h)).cpu().numpy())
+        motions.append(np.linalg.inv(poses[i]) @ poses[i - 1] if i else np.eye(3))
+    return frames, [m[:2] for m in motions]
 
 
 def detection_stream(rng: np.random.Generator, n_frames: int = 120, n_targets: int = 48, hw=(720, 1280)):
@@ -1195,7 +1287,8 @@ def run_track() -> dict:
             if m.predictor is not None:
                 m.predictor.__dict__.pop("trackers", None)
         STrack.reset_id()
-        return DroneVideoPipeline(det, pose if with_pose else None, geo, imgsz=c["imgsz"], conf=c["conf"])
+        return DroneVideoPipeline(det, pose if with_pose else None, geo, imgsz=c["imgsz"], conf=c["conf"],
+                                  tracker="bytetrack.yaml")
 
     # pass A: every keep mask of both models' NMS against the plain keep on the same candidates
     checks, kernel_keep = [], nms_ops.greedy_keep
@@ -1275,7 +1368,7 @@ def run_track() -> dict:
 
     # the device's busy share over steps of the full pipeline (torch.profiler)
     pipe_d, it = pipeline(True), itertools.cycle(frames)
-    prof = profile_device(lambda: pipe_d.step(next(it)), steps=8, top=8)
+    prof = profile_device(lambda: pipe_d.step(next(it)), steps=3, top=8)  # ~8,000 traced launches a step
 
     # BYTETracker.update alone
     tracker_alone = {}
@@ -1310,6 +1403,266 @@ def run_track() -> dict:
             "nms_calls": nms_calls, "nms_launches": nms_launches,
             "profile": {k: prof[k] for k in ("steps", "wall_ms_per_step", "device_ms_per_step", "device_idle_share", "top")},
             "bytetrack_update_alone": tracker_alone}
+
+
+def run_botsort() -> dict:
+    """Phase 11: BoT-SORT with camera-motion compensation over a panning clip, and tiled inference (see the module
+    docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.apps import DroneVideoPipeline, GeoConverter
+    from drone_yolo_tpu_torch.ops import cuda_nms, flow, tiling
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+    from drone_yolo_tpu_torch.trackers import gmc as gmc_mod
+    from drone_yolo_tpu_torch.trackers.bot_sort import BOTSORT
+    from drone_yolo_tpu_torch.trackers.byte_tracker import STrack
+
+    c, b = TRACK_CELL, BOTSORT_CELL
+    h, w = c["hw"]
+    dev = torch.device("cuda")
+    t_gen = time.perf_counter()
+    frames, motions = panning_frames(np.random.default_rng(b["seed"]), c["frames"], c["hw"], c["objects"], c["obj_px"],
+                                     b["shift"], b["max_rot_deg"], device=dev)
+    gen_s = time.perf_counter() - t_gen
+    n_cpu = min(b["cpu_frames"], len(frames))
+
+    # the motion compensation's steps, recorded on each side (card outputs copied to the host)
+    rec = {"card": defaultdict(list), "cpu": defaultdict(list)}
+    steps = {"corners": "good_features_to_track", "flow": "calc_optical_flow_pyr_lk",
+             "ransac": "estimate_affine_partial_2d"}
+    plain_steps = {k: getattr(flow, fn) for k, fn in steps.items()}
+
+    def recording(key, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            side = "card" if a[0].is_cuda else "cpu"
+            if side == "card" and not all(x.is_cuda for x in a if torch.is_tensor(x)):
+                raise AssertionError(f"botsort: {key} on the card was given a host tensor")
+            rec[side][key].append(tuple(x.cpu() if torch.is_tensor(x) else x for x in
+                                        (out if isinstance(out, tuple) else (out,))))
+            return out
+        return run
+
+    def cpu_gmc() -> list:
+        g = gmc_mod.GMC(device="cpu")
+        return [g.apply(f) for f in frames[:n_cpu]]
+
+    # the CPU's GMC over the same frames, in a thread beside the untimed work (the weights, pass A)
+    for k, fn in steps.items():
+        setattr(flow, fn, recording(k, plain_steps[k]))
+    pool = ThreadPoolExecutor(1)
+    cpu_job = pool.submit(cpu_gmc)
+    det, pose = YOLO(FLAGSHIP), YOLO(c["pose_model"])
+    biases = {name: calibrated_weights(m, frames[0], seed, c["cls_gain"], c["share_above_conf"], c["conf"], c["imgsz"])
+              for seed, (name, m) in enumerate(((FLAGSHIP, det), (c["pose_model"], pose)))}
+    geo = GeoConverter(**c["geo"], image_width_px=w, image_height_px=h)
+    stage_s = {"clip": gen_s, "weights": time.perf_counter() - t_gen - gen_s}
+
+    def pipeline(with_pose: bool, tracker: str = "botsort.yaml") -> DroneVideoPipeline:
+        """A new pipeline whose trackers start afresh, as for a new video."""
+        for m in (det, pose):
+            if m.predictor is not None:
+                m.predictor.__dict__.pop("trackers", None)
+        STrack.reset_id()
+        return DroneVideoPipeline(det, pose if with_pose else None, geo, imgsz=c["imgsz"], conf=c["conf"],
+                                  tracker=tracker)
+
+    # pass A: BoT-SORT with pose; every keep mask against the plain keep
+    checks, kernel_keep = [], nms_ops.greedy_keep
+    card_warps = []
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        plain = nms_ops.greedy_keep_reference(boxes, valid, iou_thres)
+        checks.append({"B": int(boxes.shape[0]), "K": int(boxes.shape[1]), "valid": int(valid.sum()),
+                       "kept": int(keep.sum()), "cuda": bool(boxes.is_cuda), "equal": bool(torch.equal(keep, plain))})
+        return keep
+
+    apply = gmc_mod.GMC.apply
+
+    def recorded_apply(self, raw_frame, detections=None):
+        out = apply(self, raw_frame, detections)
+        if self.device.type == "cuda":
+            card_warps.append(out)
+        return out
+
+    nms_ops.greedy_keep, gmc_mod.GMC.apply = checked_keep, recorded_apply
+    t_pass = time.perf_counter()
+    try:
+        cuda_nms.reset_counts()
+        pipe_a = pipeline(True)
+        steps_a = [pipe_a.step(f) for f in frames]
+        nms_a = {"calls": cuda_nms.greedy_keep_cuda.calls, "launches": cuda_nms.greedy_keep_cuda.launches}
+        stage_s["pass_a"] = time.perf_counter() - t_pass
+        cpu_warps = cpu_job.result()
+        stage_s["cpu_gmc_wait"] = time.perf_counter() - t_pass - stage_s["pass_a"]
+    finally:
+        pool.shutdown()
+        nms_ops.greedy_keep, gmc_mod.GMC.apply = kernel_keep, apply
+        for k, fn in steps.items():
+            setattr(flow, fn, plain_steps[k])
+    n_pose = sum("pose" in o for o in steps_a)
+    if not isinstance(det.predictor.trackers[0], BOTSORT) or len(card_warps) != len(frames):
+        raise AssertionError(f"botsort: {type(det.predictor.trackers[0]).__name__} tracker, {len(card_warps)} card "
+                             f"warps for {len(frames)} frames")
+    if not all(ch["equal"] and ch["cuda"] for ch in checks) or len(checks) != len(frames) + n_pose:
+        raise AssertionError(f"botsort: {sum(not ch['equal'] for ch in checks)} of {len(checks)} keep masks differ "
+                             f"from the plain keep ({len(frames)} frames, {n_pose} pose calls)")
+    if nms_a["calls"] != len(frames) + n_pose or nms_a["launches"] != 2 * nms_a["calls"]:
+        raise AssertionError(f"botsort: {nms_a} NMS calls and launches for {len(frames)} frames and {n_pose} pose "
+                             "calls")
+    # the card's GMC against the CPU's: corners, the tracker's status from the same previous corners, warps
+    corners = {"card": [x[0] for x in rec["card"]["corners"]][:n_cpu], "cpu": [x[0] for x in rec["cpu"]["corners"]]}
+    if len(rec["card"]["corners"]) != len(frames) or len(corners["cpu"]) != n_cpu:
+        raise AssertionError(f"botsort: corners of {len(corners['card'])} card and {len(corners['cpu'])} CPU frames")
+    corner_same = sum(int((a == b_).all(-1).sum()) if a.shape == b_.shape else 0
+                      for a, b_ in zip(corners["card"], corners["cpu"]))
+    corner_total = sum(len(b_) for b_ in corners["cpu"])
+    same_lists = [i for i in range(n_cpu) if torch.equal(corners["card"][i], corners["cpu"][i])]
+    status_same = status_total = 0
+    flow_err = 0.0
+    for j, ((pc, sc), (pp, sp)) in enumerate(zip(rec["card"]["flow"], rec["cpu"]["flow"])):
+        if j in same_lists:  # frame j's corners went into the flow to frame j + 1 on both sides
+            status_same += int((sc == sp).sum())
+            status_total += len(sp)
+            both = (sc[:, 0] == 1) & (sp[:, 0] == 1)
+            flow_err = max(flow_err, float((pc - pp).abs()[both].max()) if both.any() else 0.0)
+    lin_err = max(float(np.abs(a[:, :2] - b_[:, :2]).max()) for a, b_ in zip(card_warps, cpu_warps))
+    t_err = max(float(np.abs(a[:, 2] - b_[:, 2]).max()) for a, b_ in zip(card_warps, cpu_warps))
+    known_t = [float(np.abs(a[:, 2] - m[:, 2]).max()) for a, m in zip(card_warps, motions)]
+    known_rot = [abs(math.atan2(a[1, 0], a[0, 0]) - math.atan2(m[1, 0], m[0, 0])) for a, m in zip(card_warps, motions)]
+    centre = np.array([w / 2, h / 2, 1.0])
+    known_centre = [float(np.abs(a @ centre - m @ centre).max()) for a, m in zip(card_warps, motions)]
+    gmc_check = {"cpu_frames": n_cpu, "corners_equal": corner_same, "corners": corner_total,
+                 "corner_lists_equal": len(same_lists),
+                 "status_equal": status_same, "status_points": status_total, "flow_max_px": flow_err,
+                 "warp_linear_max": lin_err, "warp_translation_max_px": t_err,
+                 "known_translation_max_px": max(known_t), "known_translation_median_px": float(np.median(known_t)),
+                 "known_centre_max_px": max(known_centre), "known_rotation_max_rad": max(known_rot),
+                 "ransac_inliers_median": float(np.median([int(x[1].sum()) for x in rec["card"]["ransac"]])),
+                 "tolerances": {"corners_share": GMC_CORNER_SHARE, "status_share": GMC_STATUS_SHARE,
+                                "warp_linear": GMC_LIN_TOL, "warp_translation_px": GMC_T_TOL,
+                                "known_translation_px": KNOWN_T_TOL, "known_rotation_rad": KNOWN_ROT_TOL}}
+    if (corner_same < GMC_CORNER_SHARE * corner_total or status_same < GMC_STATUS_SHARE * status_total
+            or lin_err > GMC_LIN_TOL or t_err > GMC_T_TOL):
+        raise AssertionError(f"botsort: the card's GMC differs from the CPU's: {gmc_check}")
+    if max(known_t) > KNOWN_T_TOL or max(known_rot) > KNOWN_ROT_TOL:
+        raise AssertionError(f"botsort: the card's warps miss the clip's known motion: {gmc_check}")
+
+    # pass B: timed, detect + BoT-SORT + geo, then with pose; GMC's steps and BOTSORT.update timed apart
+    stage = defaultdict(float)
+
+    def timed(fn, key, sync=False):
+        def run(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                stage[key] += time.perf_counter() - t
+        return run
+
+    t_pass = time.perf_counter()
+    fps = {}
+    for with_pose in (False, True):
+        pipe_b = pipeline(with_pose)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for f in frames:
+            pipe_b.step(f)
+        fps["detect_botsort_pose_geo" if with_pose else "detect_botsort_geo"] = len(frames) / (time.perf_counter() - t)
+    botsort_tracks = {tid: len(v) for tid, v in pipe_b.trajectories.items()}
+    update, preprocess = BOTSORT.update, gmc_mod.GMC.preprocess
+    BOTSORT.update = timed(update, "update")
+    gmc_mod.GMC.preprocess = timed(preprocess, "gray_resize", sync=True)
+    for k, fn in steps.items():
+        setattr(flow, fn, timed(plain_steps[k], k, sync=True))
+    try:
+        pipe_t = pipeline(False)
+        for f in frames[:b["timed_frames"]]:
+            pipe_t.step(f)
+    finally:
+        BOTSORT.update, gmc_mod.GMC.preprocess = update, preprocess
+        for k, fn in steps.items():
+            setattr(flow, fn, plain_steps[k])
+    n = min(b["timed_frames"], len(frames))
+    gmc_ms = {k: stage[k] * 1e3 / n for k in ("gray_resize", "corners", "flow", "ransac")}
+    pipe_d, it = pipeline(True), itertools.cycle(frames)
+    prof = profile_device(lambda: pipe_d.step(next(it)), steps=3, top=8)  # ~8,000 traced launches a step
+
+    stage_s["pass_b"] = time.perf_counter() - t_pass
+    # ByteTrack over the same clip: track lengths and ids beside BoT-SORT's (a finding, not a check)
+    t_pass = time.perf_counter()
+    pipe_bt = pipeline(False, "bytetrack.yaml")
+    for f in frames:
+        pipe_bt.step(f)
+    lens = {"botsort": list(botsort_tracks.values()), "bytetrack": [len(v) for v in pipe_bt.trajectories.values()]}
+    trackers = {k: {"ids": len(v), "track_len_median": float(np.median(v)) if v else 0.0,
+                    "track_len_max": max(v, default=0)} for k, v in lens.items()}
+
+    stage_s["bytetrack"] = time.perf_counter() - t_pass
+    # pass C: tiled inference of one 4K frame, 32 windows in two batches of 16, through the detector's predictor
+    t_pass = time.perf_counter()
+    tc = b["tiled"]
+    frame4k = np.ascontiguousarray(moving_frames(np.random.default_rng(tc["seed"]), 1, tc["hw"], tc["objects"],
+                                                 c["obj_px"])[0][..., ::-1])  # RGB, as tiled_inference takes it
+    predictor = det.predictor
+    spans = []
+
+    def forward(variables, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predictor.inference(batch)
+        torch.cuda.synchronize()
+        spans.append((t0, time.perf_counter()))
+        return out
+
+    def tiled():
+        spans.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tiling.tiled_inference(forward, None, frame4k, crop_size=tc["crop"], gap=tc["gap"],
+                                     max_crop_batch=tc["batch"], iou=predictor.args.iou, max_det=predictor.args.max_det,
+                                     device=predictor.device)
+        t1 = time.perf_counter()
+        return out, {"total": t1 - t0, "crop_upload": spans[0][0] - t0,
+                     "forward_nms": sum(e - s for s, e in spans), "merge": t1 - spans[-1][1]}
+
+    checks.clear()
+    nms_ops.greedy_keep = checked_keep
+    try:
+        cuda_nms.reset_counts()
+        merged, _ = tiled()
+        nms_c = {"calls": cuda_nms.greedy_keep_cuda.calls, "launches": cuda_nms.greedy_keep_cuda.launches}
+    finally:
+        nms_ops.greedy_keep = kernel_keep
+    n_windows = len(tiling.get_windows(tc["hw"], tc["crop"], tc["gap"]))
+    if (n_windows, [ch["B"] for ch in checks]) != (32, [tc["batch"], tc["batch"], 1]) or not all(
+            ch["equal"] and ch["cuda"] for ch in checks) or nms_c != {"calls": 3, "launches": 6}:
+        raise AssertionError(f"tiled: {n_windows} windows, NMS calls {checks}, counts {nms_c}")
+    if not (len(merged) and np.isfinite(merged).all() and merged.shape[1] == 6 and (merged[:, 4] >= c["conf"]).all()):
+        raise AssertionError(f"tiled: merged detections {merged.shape}, finite {np.isfinite(merged).all()}")
+    times = [tiled()[1] for _ in range(6)][1:]
+    tiled_ms = {k: float(np.median([t[k] for t in times])) * 1e3 for k in times[0]}
+    stage_s["pass_c"] = time.perf_counter() - t_pass
+    return {"detector": FLAGSHIP, "pose_model": c["pose_model"], "cell": {**b, "frames": len(frames), "hw": c["hw"],
+                                                                          "objects": c["objects"]},
+            "class_bias": biases, "dtype": "bfloat16", "fused": True, "stage_s": stage_s,
+            "gmc_check": gmc_check,
+            "nms_keep_checks": {"calls": len(checks) + len(frames) + n_pose, "all_equal_plain": True},
+            "nms_pass_a": nms_a, "pose_calls": n_pose, "fps": fps, "gmc_ms_per_frame": gmc_ms,
+            "gmc_ms_per_frame_sum": sum(gmc_ms.values()), "botsort_update_ms_per_frame": stage["update"] * 1e3 / n,
+            "association_ms_per_frame": (stage["update"] - sum(stage[k] for k in gmc_ms)) * 1e3 / n,
+            "profile": {k: prof[k] for k in ("steps", "wall_ms_per_step", "device_ms_per_step", "device_idle_share",
+                                             "top")},
+            "trackers": trackers,
+            "tiled": {"hw": tc["hw"], "windows": n_windows, "batches": 2, "merged": len(merged),
+                      "merge_K": checks[-1]["K"], "merge_kept": checks[-1]["kept"], "ms_per_frame": tiled_ms,
+                      "nms": nms_c},
+            "nms_calls": nms_a["calls"] + nms_c["calls"], "nms_launches": nms_a["launches"] + nms_c["launches"],
+            "nms_launches_tiled": nms_c["launches"], "nms_launches_botsort": nms_a["launches"]}
 
 
 def write_mixed_val(root: Path, n: int, size: int, nc: int, seed: int) -> Path:
@@ -1369,7 +1722,7 @@ def host_seconds(targets: dict):
 
 
 def run_entry(smi: str, keep: Path) -> dict:
-    """Phase 11: the normal entry points on the card (see the module docstring), their checks and their numbers. Its
+    """Phase 12: the normal entry points on the card (see the module docstring), their checks and their numbers. Its
     inputs clip.avi and frames/ are copied to `keep` for the draw phase."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.apps import DroneVideoPipeline, GeoConverter
@@ -1597,7 +1950,7 @@ def run_entry(smi: str, keep: Path) -> dict:
 
 
 def run_draw(smi: str, media: Path) -> dict:
-    """Phase 12: save=True on the card: annotated images and MJPEG AVI written by the port's drawing and encoders,
+    """Phase 13: save=True on the card: annotated images and MJPEG AVI written by the port's drawing and encoders,
     read back by the port's decoders; every greedy-NMS keep mask against the plain keep; plot, encode and predict
     frames/s with and without save."""
     import drone_yolo_tpu_torch.data.avi as avi_mod
@@ -1705,7 +2058,7 @@ def run_draw(smi: str, media: Path) -> dict:
 
 
 def run_pose(smi: str) -> dict:
-    """Phase 13: pose training and validation on the card (see the module docstring), its checks and its numbers."""
+    """Phase 14: pose training and validation on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.cfg import get_val_cfg
     from drone_yolo_tpu_torch.data.build import build_yolo_dataset
@@ -1907,7 +2260,7 @@ def run_pose(smi: str) -> dict:
 
 
 def run_segment(smi: str) -> dict:
-    """Phase 14: instance segmentation on the card (see the module docstring), its checks and its numbers."""
+    """Phase 15: instance segmentation on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.cfg import get_val_cfg
     from drone_yolo_tpu_torch.data.build import build_yolo_dataset
@@ -2118,7 +2471,7 @@ def run_segment(smi: str) -> dict:
 
 
 def run_obb(smi: str) -> dict:
-    """Phase 15: oriented boxes on the card (see the module docstring), its checks and its numbers."""
+    """Phase 16: oriented boxes on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.cfg import get_val_cfg
     from drone_yolo_tpu_torch.data.build import build_yolo_dataset
@@ -2331,7 +2684,7 @@ def run_obb(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 def run_families(smi: str) -> dict:
-    """Phase 16: the YOLO11 and YOLO12 families on the card (see the module docstring), its checks and its numbers."""
+    """Phase 17: the YOLO11 and YOLO12 families on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.models.yolo import TASK_MAP
     from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, guess_model_task
@@ -2678,7 +3031,7 @@ def train_kernel_checks(probe, batch: int, imgsz: int, seed: int, timed_sites: b
 
 
 def run_classify(smi: str) -> dict:
-    """Phase 17: classification on the card (see the module docstring), its checks and its numbers."""
+    """Phase 18: classification on the card (see the module docstring), its checks and its numbers."""
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch.models.yolo.classify import ClassificationTrainer
     from drone_yolo_tpu_torch.nn.model import ClassificationModel
@@ -3365,7 +3718,16 @@ def main() -> None:
     nms_row["launches_by_path"]["track"] = track["nms_launches"]
     emit("track", t, **track)
 
-    # 11. entry: the command line, files, MJPEG AVI, PNG, rect validation ------------------
+    # 11. botsort: BoT-SORT with camera-motion compensation over a panning clip, tiled inference of a 4K frame ------
+    t = time.perf_counter()
+    bots = run_botsort()
+    nms_row["launches"] += bots["nms_launches"]
+    nms_row["calls"] += bots["nms_calls"]
+    nms_row["launches_by_path"]["botsort"] = bots["nms_launches_botsort"]
+    nms_row["launches_by_path"]["tiled"] = bots["nms_launches_tiled"]
+    emit("botsort", t, **bots)
+
+    # 12. entry: the command line, files, MJPEG AVI, PNG, rect validation ------------------
     t = time.perf_counter()
     media = Path(tempfile.mkdtemp(prefix="chip_smoke_media_"))
     try:
@@ -3375,7 +3737,7 @@ def main() -> None:
         nms_row["launches_by_path"]["entry"] = entry["nms_launches"]
         emit("entry", t, **entry)
 
-        # 12. draw: save=True, annotated images and MJPEG AVI ----------------------------------
+        # 13. draw: save=True, annotated images and MJPEG AVI ----------------------------------
         t = time.perf_counter()
         draw = run_draw(smi, media)
     finally:
@@ -3385,7 +3747,7 @@ def main() -> None:
     nms_row["launches_by_path"]["draw"] = draw["nms_launches"]
     emit("draw", t, **draw)
 
-    # 13. pose: training and validation of yolov8s-pose ------------------------------
+    # 14. pose: training and validation of yolov8s-pose ------------------------------
     t = time.perf_counter()
     pose = run_pose(smi)
     for kern in kernels:
@@ -3395,7 +3757,7 @@ def main() -> None:
     nms_row["calls"] += pose["counts"]["train"]["nms_calls"] + pose["counts"]["val"]["nms_calls"]
     emit("pose", t, **pose)
 
-    # 14. segment: prediction, training and validation of yolov8s-seg ---------------------
+    # 15. segment: prediction, training and validation of yolov8s-seg ---------------------
     t = time.perf_counter()
     seg = run_segment(smi)
     for kern in kernels:
@@ -3405,7 +3767,7 @@ def main() -> None:
     nms_row["calls"] += sum(seg["counts"][k]["nms_calls"] for k in ("predict", "train", "val"))
     emit("segment", t, **seg)
 
-    # 15. obb: prediction, training and validation of yolov8s-obb at 1024 px ---------------
+    # 16. obb: prediction, training and validation of yolov8s-obb at 1024 px ---------------
     t = time.perf_counter()
     obb = run_obb(smi)
     for kern in kernels:
@@ -3414,7 +3776,7 @@ def main() -> None:
         kern["launches_by_path"]["obb"] = n
     emit("obb", t, **obb)
 
-    # 16. families: YOLO11 and YOLO12 on every ported task ------------------------------
+    # 17. families: YOLO11 and YOLO12 on every ported task ------------------------------
     t = time.perf_counter()
     families = run_families(smi)
     for kern in kernels:
@@ -3423,7 +3785,7 @@ def main() -> None:
         kern["launches_by_path"]["families"] = n
     emit("families", t, **families)
 
-    # 17. classify: yolov8s-cls and the other classifiers ------------------------------------
+    # 18. classify: yolov8s-cls and the other classifiers ------------------------------------
     t = time.perf_counter()
     classify = run_classify(smi)
     for kern in kernels:
@@ -3432,7 +3794,7 @@ def main() -> None:
         kern["launches_by_path"]["classify"] = n
     emit("classify", t, **classify)
 
-    # 18. imports ---------------------------------------------------------------
+    # 19. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401

@@ -1,5 +1,5 @@
-"""Drone-video analytics pipeline: detect + track on the card, smoothing, geo conversion and trajectory export on
-the host, with an optional pose model.
+"""Drone-video analytics pipeline: detect + track (ByteTrack or BoT-SORT) on the card, smoothing, geo conversion and
+trajectory export on the host, with an optional pose model.
 
 Counterpart of `drone_yolo_tpu/apps/pipeline.py` (`DroneVideoPipeline`: `step`, `_smooth`, `run`, `export_csv`
 with the mix6 CSV columns). `run` reads what the JAX package opens with `cv2.VideoCapture`: an MJPEG AVI file
@@ -65,15 +65,17 @@ def open_source(source):
 
 
 class DroneVideoPipeline:
-    """Video analytics: detect + ByteTrack + smoothing + GSD scaling + trajectory CSV, with an optional pose model.
+    """Video analytics: detect + track + smoothing + GSD scaling + trajectory CSV, with an optional pose model.
 
     `detector` and `pose_model` are YOLO facades, or model names that become facades on `device` (the card by
-    default). `geo` is a `GeoConverter` or None.
+    default). `geo` is a `GeoConverter` or None. `tracker` is bytetrack.yaml by default, as in the JAX package, or
+    botsort.yaml. `tiled`, `crop_size` and `gap` are stored, as the JAX pipeline stores them and never reads them:
+    frames are not tiled (a warning says so once); `ops/tiling.py:tiled_inference` tiles a frame.
     """
 
     def __init__(self, detector="yolov8s-p2-repvgg-sf.yaml", pose_model=None, geo=None, imgsz: int = 640,
-                 conf: float = 0.25, tracker: str = "bytetrack.yaml", smooth_window: int = 5, classes=None,
-                 device=None):
+                 conf: float = 0.25, tracker: str = "bytetrack.yaml", tiled: bool = False, crop_size: int = 640,
+                 gap: int = 128, smooth_window: int = 5, classes=None, device=None):
         from drone_yolo_tpu_torch import YOLO
 
         self.det = detector if hasattr(detector, "track") else YOLO(detector, device=device)
@@ -82,6 +84,12 @@ class DroneVideoPipeline:
         self.imgsz = imgsz
         self.conf = conf
         self.tracker = tracker
+        self.tiled = tiled
+        self.crop_size = crop_size
+        self.gap = gap
+        if tiled:
+            LOGGER.warning("DroneVideoPipeline: tiled=True is stored, as in the JAX pipeline, which never reads it; "
+                           "frames are not tiled (ops/tiling.py:tiled_inference tiles a frame)")
         self.smooth_window = smooth_window
         self.classes = classes
         self.trajectories = defaultdict(list)  # id -> [(frame, cx, cy, conf, cls)]

@@ -3,8 +3,7 @@
 Counterpart of `drone_yolo_tpu/cfg/__init__.py` (get_cfg, check_cfg, get_save_dir,
 entrypoint) and `cfg/default.yaml`. `DEFAULT_CFG` holds every key of the JAX package's
 defaults with the same values, as Python data, so reading them needs no YAML parser,
-plus the port's own `s2grad` and `bnstats`. One default differs: `tracker` is
-`bytetrack.yaml`, since BoT-SORT is not ported yet (ROADMAP.md queue 1 item 5).
+plus the port's own `s2grad` and `bnstats`.
 
 `get_cfg` merges defaults, a config and overrides and checks types and ranges as the
 JAX package does; a key outside the set is refused. `check_ported(args, mode)` refuses by
@@ -74,7 +73,7 @@ DEFAULT_CFG = {
     "flipud": 0.0, "fliplr": 0.5, "bgr": 0.0, "mosaic": 1.0, "mixup": 0.0, "copy_paste": 0.0,
     "copy_paste_mode": "flip", "auto_augment": "randaugment", "erasing": 0.4, "crop_fraction": 1.0,
     "cfg": None,
-    "tracker": "bytetrack.yaml",  # the JAX default is botsort.yaml; BoT-SORT is not ported yet
+    "tracker": "botsort.yaml",
     # the JAX package's TPU settings
     "dtype": "bfloat16", "mesh_shape": None, "mesh_axes": None, "prefetch": 2, "pre_nms_topk": 4096,
     # the port's own: backward of the dense stride-2 convs and the batch sums of train-mode BatchNorm, None (stock

@@ -202,9 +202,11 @@ class YOLO:
         return self.predict(source, stream, **kwargs)
 
     def track(self, source=None, stream: bool = False, persist: bool = False, **kwargs):
-        """Predict, then ByteTrack on the host: boxes with track ids (7 columns). A new tracker starts at each call
-        and at each new video file of the source; with `persist` the tracker carries over from call to call, so a
-        video can go frame by frame. conf defaults to 0.1; `tracker` names a tracker yaml (bytetrack.yaml)."""
+        """Predict, then track: boxes with track ids (7 columns). `tracker` names a tracker yaml: botsort.yaml (the
+        default: BoT-SORT, ByteTrack's association on the host after camera-motion compensation by sparse optical
+        flow on the model's device) or bytetrack.yaml. A new tracker starts at each call and at each new video file
+        of the source; with `persist` the tracker carries over from call to call, so a video can go frame by frame.
+        conf defaults to 0.1."""
         from drone_yolo_tpu_torch.trackers.track import register_tracker
 
         if self.task == "obb":

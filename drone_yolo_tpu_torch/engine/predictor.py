@@ -78,6 +78,7 @@ class DetectionPredictor(CallbackMixin):
         self.save_dir = get_save_dir(self.args)
         self.model = None
         self.results = None
+        self.frames = None  # the batch's BGR uint8 frames on the device, as `preprocess` uploaded them
         self.dataset = None
         self.source_type = None
         self.vid_writers = {}  # one AviWriter per video written with save, by its output path
@@ -102,14 +103,16 @@ class DetectionPredictor(CallbackMixin):
 
         Frames of one shape are letterboxed as one float batch (`ops.letterbox.letterbox`, the JAX
         package's device path); frames of mixed shapes one by one in uint8 (`letterbox_u8`, its
-        `cv2.resize` path), then normalised.
+        `cv2.resize` path), then normalised. The uploaded uint8 frames stay in `self.frames` for the
+        tracker's motion compensation.
         """
         if len({im.shape for im in imgs}) == 1:
             raw = torch.from_numpy(np.ascontiguousarray(np.stack(imgs))).to(self.device)
+            self.frames = raw
             x = raw.flip(-1).permute(0, 3, 1, 2).float() / 255.0  # BGR -> RGB, NHWC -> NCHW
             return letterbox(x, self.imgsz)
-        raw = torch.cat([letterbox_u8(torch.from_numpy(np.ascontiguousarray(im)).to(self.device)[None], self.imgsz)
-                         for im in imgs])
+        self.frames = [torch.from_numpy(np.ascontiguousarray(im)).to(self.device) for im in imgs]
+        raw = torch.cat([letterbox_u8(f[None], self.imgsz) for f in self.frames])
         return raw.flip(-1).permute(0, 3, 1, 2).float() / 255.0
 
     @torch.inference_mode()

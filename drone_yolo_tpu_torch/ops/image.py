@@ -11,7 +11,8 @@ release the interpreter lock, so the loader's threads run them in parallel:
 - `rgb_to_hsv_u8` / `hsv_to_rgb_u8`: `cv2.cvtColor` RGB2HSV (8-bit: division tables with 12
   fraction bits, hue in 0..179) and HSV2RGB (float32, saturating round);
 - `resize_area_u8`: `cv2.resize(..., INTER_AREA)` for shrinking: integer factors as OpenCV's
-  fast path, other factors with its area weights.
+  fast path, other factors with its area weights;
+- `bgr_to_gray_u8`: `cv2.cvtColor(img, COLOR_BGR2GRAY)` in OpenCV's 15-bit fixed point, on the tensor's device.
 """
 
 from __future__ import annotations
@@ -22,6 +23,20 @@ import numpy as np
 import torch
 
 HSV_SHIFT = 12
+
+
+GRAY_BITS = 15
+GRAY_BGR = (3735, 19235, 9798)  # OpenCV's B, G, R weights in 2**-15
+
+
+def bgr_to_gray_u8(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) uint8 BGR -> (..., H, W) uint8 grey: (3735 B + 19235 G + 9798 R + 2**14) >> 15, as
+    cv2.cvtColor(img, COLOR_BGR2GRAY). Runs on the tensor's device."""
+    if img.dtype != torch.uint8 or img.shape[-1] != 3:
+        raise ValueError(f"expected a uint8 (..., H, W, 3) image, got {img.dtype} {tuple(img.shape)}")
+    x = img.int()
+    y = x[..., 0] * GRAY_BGR[0] + x[..., 1] * GRAY_BGR[1] + x[..., 2] * GRAY_BGR[2]
+    return ((y + (1 << (GRAY_BITS - 1))) >> GRAY_BITS).to(torch.uint8)
 
 
 def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
@@ -40,9 +55,10 @@ def _invert_affine(m: np.ndarray) -> np.ndarray:
     return np.array([[a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]], [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]]])
 
 
-def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, border: int = 114) -> np.ndarray:
+def warp_affine_u8(img, m: np.ndarray, dsize, border: int = 114):
     """Warp an (H, W, C) uint8 image by the (2, 3) matrix `m` (source -> destination) to `dsize` = (width, height),
-    bilinear, with a constant border: cv2.warpAffine(img, m, dsize, borderValue=(border,) * 3).
+    bilinear, with a constant border: cv2.warpAffine(img, m, dsize, borderValue=(border,) * 3). A numpy image is
+    warped on the CPU and comes back as numpy; a tensor is warped on its device and comes back as a tensor.
 
     As OpenCV's warp kernels compute it (4.11 on): the inverse matrix in float32; per destination pixel the source
     point x * m00 + (y * m01 + m02), the last step a fused multiply-add; its floor picks the four taps (the border
@@ -50,15 +66,17 @@ def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, border: int = 114) -> 
     p0 + a * (p1 - p0) in float32; rounded half to even and saturated."""
     out_w, out_h = int(dsize[0]), int(dsize[1])
     h, w, c = img.shape
-    inv = torch.from_numpy(_invert_affine(np.asarray(m, np.float64)).astype(np.float32))
-    xs = torch.arange(out_w, dtype=torch.float32)[None, :]
-    ys = torch.arange(out_h, dtype=torch.float32)[:, None]
+    tensor = torch.is_tensor(img)
+    dev = img.device if tensor else torch.device("cpu")
+    inv = torch.from_numpy(_invert_affine(np.asarray(m, np.float64)).astype(np.float32)).to(dev)
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
     sx = _fma(xs, inv[0, 0].double(), ys * inv[0, 1] + inv[0, 2])
     sy = _fma(xs, inv[1, 0].double(), ys * inv[1, 1] + inv[1, 2])
     ix, iy = torch.floor(sx), torch.floor(sy)
     ax, ay = (sx - ix)[..., None], (sy - iy)[..., None]
     ix, iy = ix.long(), iy.long()
-    src = torch.from_numpy(np.ascontiguousarray(img)).reshape(h * w, c)
+    src = (img.contiguous() if tensor else torch.from_numpy(np.ascontiguousarray(img))).reshape(h * w, c)
 
     def tap(dx: int, dy: int) -> torch.Tensor:
         tx, ty = ix + dx, iy + dy
@@ -69,8 +87,8 @@ def warp_affine_u8(img: np.ndarray, m: np.ndarray, dsize, border: int = 114) -> 
     p00, p01, p10, p11 = tap(0, 0), tap(1, 0), tap(0, 1), tap(1, 1)
     v0 = p00 + ax * (p01 - p00)
     v1 = p10 + ax * (p11 - p10)
-    out = v0 + ay * (v1 - v0)
-    return torch.round(out).clamp(0, 255).to(torch.uint8).numpy()
+    out = torch.round(v0 + ay * (v1 - v0)).clamp(0, 255).to(torch.uint8)
+    return out if tensor else out.numpy()
 
 
 def _div_table(num: int, den_scale: float) -> torch.Tensor:

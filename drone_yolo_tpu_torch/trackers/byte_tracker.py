@@ -163,7 +163,7 @@ class BYTETracker:
     def get_kalmanfilter(self):
         return KalmanFilterXYAH()
 
-    def init_track(self, xywhs, scores, cls):
+    def init_track(self, xywhs, scores, cls, img=None):
         return [STrack(xywh, s, c) for xywh, s, c in zip(xywhs, scores, cls)] if len(xywhs) else []
 
     def get_dists(self, tracks, detections):
@@ -175,7 +175,7 @@ class BYTETracker:
     def multi_predict(self, tracks):
         STrack.multi_predict(tracks)
 
-    def update(self, boxes_xyxy, scores, cls):
+    def update(self, boxes_xyxy, scores, cls, img=None, feats=None):
         """One frame step. Returns (N, 8) [x1,y1,x2,y2,id,score,cls,det_idx]."""
         self.frame_id += 1
         scores = np.asarray(scores, np.float32)
@@ -192,8 +192,8 @@ class BYTETracker:
         remain_inds = scores >= self.args.track_high_thresh
         inds_low = (scores > self.args.track_low_thresh) & (scores < self.args.track_high_thresh)
 
-        dets = self.init_track(xywh[remain_inds], scores[remain_inds], cls[remain_inds])
-        dets_second = self.init_track(xywh[inds_low], scores[inds_low], cls[inds_low])
+        dets = self.init_track(xywh[remain_inds], scores[remain_inds], cls[remain_inds], img)
+        dets_second = self.init_track(xywh[inds_low], scores[inds_low], cls[inds_low], img)
 
         activated, refound, lost, removed = [], [], [], []
         unconfirmed = [t for t in self.tracked_stracks if not t.is_activated]

@@ -1,8 +1,8 @@
-"""Association costs and linear assignment for ByteTrack, on the host.
+"""Association costs and linear assignment for ByteTrack and BoT-SORT, on the host.
 
 Counterpart of `drone_yolo_tpu/trackers/matching.py` (`linear_assignment` by
 `scipy.optimize.linear_sum_assignment`, `iou_distance` over `box_iou_np`,
-`fuse_score`). BoT-SORT's `embedding_distance` is not ported yet.
+`embedding_distance`, `fuse_score`).
 """
 
 from __future__ import annotations
@@ -43,6 +43,18 @@ def iou_distance(atracks, btracks) -> np.ndarray:
     if len(aboxes) == 0 or len(bboxes) == 0:
         return np.ones((len(aboxes), len(bboxes)), np.float32)
     return 1.0 - box_iou_np(aboxes, bboxes)
+
+
+def embedding_distance(tracks, detections, metric: str = "cosine") -> np.ndarray:
+    """Appearance-feature cosine distance (BoT-SORT ReID)."""
+    cost = np.zeros((len(tracks), len(detections)), np.float32)
+    if cost.size == 0:
+        return cost
+    det_feats = np.asarray([d.curr_feat for d in detections], np.float32)
+    trk_feats = np.asarray([t.smooth_feat for t in tracks], np.float32)
+    a = trk_feats / (np.linalg.norm(trk_feats, axis=1, keepdims=True) + 1e-9)
+    b = det_feats / (np.linalg.norm(det_feats, axis=1, keepdims=True) + 1e-9)
+    return np.maximum(0.0, 1.0 - a @ b.T)
 
 
 def fuse_score(cost_matrix: np.ndarray, detections) -> np.ndarray:

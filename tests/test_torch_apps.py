@@ -245,6 +245,8 @@ for name, bias in (("yolov8n-p2-repvgg-sf.yaml", -7.0), ("yolov8n-pose.yaml", -2
     models.append(m)
 frames = chip_smoke.moving_frames(np.random.default_rng(0), 3, (128, 128), 12)
 tracks = [len(r.boxes) for f in frames for r in models[0].track(f, persist=True, imgsz=128, verbose=False)]
+tracker = models[0].predictor.trackers[0]  # no tracker named: BoT-SORT, its motion compensation on the frames
+tracker = [type(tracker).__name__, tracker.gmc.method, tracker.gmc.initialized, tuple(tracker.gmc.prev_frame.shape)]
 models[0].predictor = None
 d = Path(tempfile.mkdtemp())
 for i, f in enumerate(frames):
@@ -270,7 +272,8 @@ from drone_yolo_tpu_torch.data.avi import AviReader
 cli("val", f"data={src / 'ds' / 'data.yaml'}", "batch=2", "workers=1", *common)
 models[0].predictor = None  # a new tracker
 video = DroneVideoPipeline(models[0], imgsz=128).run(str(src / "media" / "clip.avi"), csv_path=src / "v.csv")
-print(json.dumps({"modules": mods, "tracks": tracks, "frames": out["frames"], "n_tracks": out["n_tracks"],
+print(json.dumps({"modules": mods, "tracks": tracks, "tracker": tracker, "frames": out["frames"],
+                  "n_tracks": out["n_tracks"],
                   "stats": len(stats), "density_finite": bool(np.isfinite(dens).all()),
                   "labels": sorted(p.name for p in (src / "runs" / "p" / "labels").iterdir()),
                   "saved": [sorted(p.name for p in (src / "runs" / d).iterdir()) for d in ("p", "t")],
@@ -299,7 +302,10 @@ def test_track_pose_and_pipeline_run_without_jax_cv2_pil_yaml_sklearn(tmp_path):
             "drone_yolo_tpu_torch.trackers.kalman_filter", "drone_yolo_tpu_torch.trackers.matching",
             "drone_yolo_tpu_torch.apps.pipeline", "drone_yolo_tpu_torch.apps.geo", "drone_yolo_tpu_torch.apps.analytics",
             "drone_yolo_tpu_torch.models.yolo.pose", "drone_yolo_tpu_torch.data.avi", "drone_yolo_tpu_torch.data.png",
-            "drone_yolo_tpu_torch.data.loaders", "drone_yolo_tpu_torch.__main__"} <= set(out["modules"])
+            "drone_yolo_tpu_torch.data.loaders", "drone_yolo_tpu_torch.__main__", "drone_yolo_tpu_torch.trackers.bot_sort",
+            "drone_yolo_tpu_torch.trackers.gmc", "drone_yolo_tpu_torch.ops.flow",
+            "drone_yolo_tpu_torch.ops.tiling"} <= set(out["modules"])
+    assert out["tracker"] == ["BOTSORT", "sparseOptFlow", True, [64, 64]]
     assert out["loaded"] == [] and out["frames"] == 3 and out["n_tracks"] > 0 and out["stats"] > 0
     assert all(n > 0 for n in out["tracks"]) and out["density_finite"]
     assert math.isfinite(out["n_tracks"])

@@ -687,3 +687,52 @@ def test_classify_train_step_with_both_kernels_matches_stock(cuda_device, model,
     err = {mode: max(float((grads[mode][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
                      for n, g in grads["float64"].items()) for mode in ("stock", "kernels")}
     assert err["kernels"] <= 2 * err["stock"] + 1e-6, err
+
+
+def test_gmc_on_the_card_matches_the_cpu(cuda_device):
+    """BoT-SORT's motion compensation: each step on the card (card tensors in, card tensors out) equals the CPU's,
+    corners, flow and status exactly, and the warps of a panning clip."""
+    from chip_smoke import panning_frames
+    from drone_yolo_tpu_torch.ops import flow
+    from drone_yolo_tpu_torch.trackers.gmc import GMC
+
+    frames, _ = panning_frames(np.random.default_rng(1), 6, (360, 640), 12, (12, 40), shift=(2.0, 8.0),
+                               device=cuda_device)
+    card, cpu = GMC(device=cuda_device), GMC(device="cpu")
+    for f in frames:
+        g_card, g_cpu = card.preprocess(torch.from_numpy(f).to(cuda_device)), cpu.preprocess(f)
+        assert g_card.is_cuda and torch.equal(g_card.cpu(), g_cpu)
+        k_card, k_cpu = flow.good_features_to_track(g_card), flow.good_features_to_track(g_cpu)
+        assert k_card.is_cuda and torch.equal(k_card.cpu(), k_cpu)
+        if cpu.prev_kpts is not None:
+            (n_card, s_card), (n_cpu, s_cpu) = (flow.calc_optical_flow_pyr_lk(g.prev_frame, x, g.prev_kpts)
+                                                for g, x in ((card, g_card), (cpu, g_cpu)))
+            assert n_card.is_cuda and torch.equal(s_card.cpu(), s_cpu) and torch.equal(n_card.cpu(), n_cpu)
+        w_card, w_cpu = card.apply(torch.from_numpy(f).to(cuda_device)), cpu.apply(f)
+        np.testing.assert_allclose(w_card, w_cpu, rtol=0, atol=1e-6)
+
+
+def test_tiled_merge_on_the_card_matches_the_cpu(cuda_device):
+    """`tiled_inference`'s merge through the NMS kernel (one call, two launches) equals the plain merge on the CPU."""
+    from drone_yolo_tpu_torch.ops import tiling
+
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 256, (700, 1000, 3), dtype=np.uint8)
+
+    def forward(variables, batch):  # a box on each cell of a 5x5 grid of each crop, scored by its pixels
+        b, _, h, w = batch.shape
+        cells = batch[:, :, h // 10::h // 5, w // 10::w // 5][:, :, :5, :5].float()
+        score = (cells[:, 0] * 0.5 + cells[:, 1] * 0.3 + cells[:, 2] * 0.2).flatten(1)
+        ys, xs = torch.meshgrid(torch.arange(5.0), torch.arange(5.0), indexing="ij")
+        x1, y1 = (xs.flatten() * w / 5 - w / 15).to(batch.device), (ys.flatten() * h / 5 - h / 15).to(batch.device)
+        box = torch.stack([x1, y1, x1 + w * 4 / 15, y1 + h * 4 / 15], 1).expand(b, 25, 4)
+        cls = (torch.arange(25, device=batch.device) % 3).float().expand(b, 25)
+        return torch.cat([box, score[..., None], cls[..., None]], 2), torch.full((b,), 25, device=batch.device)
+
+    calls, launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
+    got = tiling.tiled_inference(forward, None, img, crop_size=256, gap=64, max_crop_batch=6, iou=0.5,
+                                 device=cuda_device)
+    assert (cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches) == (calls + 1, launches + 2)
+    want = tiling.tiled_inference(forward, None, img, crop_size=256, gap=64, max_crop_batch=6, iou=0.5, device="cpu")
+    assert 0 < len(got) < 25 * 20
+    np.testing.assert_array_equal(got, want)

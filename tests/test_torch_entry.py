@@ -3,7 +3,7 @@
 The flagship at scale n, imgsz 96, float32 on the CPU, one set of weights (the port's seeded init redrawn by
 `chip_smoke.spread_weights`) saved once by the port's `YOLO.save` with train_args imgsz 96:
 
-- `DEFAULT_CFG` holds the JAX package's key set and defaults (tracker aside) and its type groups;
+- `DEFAULT_CFG` holds the JAX package's key set and defaults (botsort.yaml the tracker) and its type groups;
 - `entrypoint` over a table of command lines gives each package's `YOLO` (a recorder here) the same model, task,
   mode and arguments; special words and bad words behave alike;
 - `YOLO("last.npz")` carries the checkpoint's train_args into predict: with no imgsz both facades predict at 96 and
@@ -74,9 +74,9 @@ def predictions(ckpt, tmp_path_factory):
 
 def test_default_cfg_matches_jax():
     port = dict(port_cfg.DEFAULT_CFG)
-    assert port.pop("tracker") == "bytetrack.yaml" and JAX_DEFAULTS["tracker"] == "botsort.yaml"
+    assert port["tracker"] == JAX_DEFAULTS["tracker"] == "botsort.yaml"
     assert port.pop("s2grad") is None and port.pop("bnstats") is None
-    assert port == {k: v for k, v in JAX_DEFAULTS.items() if k != "tracker"}
+    assert port == JAX_DEFAULTS
     for group in ("CFG_FLOAT_KEYS", "CFG_FRACTION_KEYS", "CFG_INT_KEYS", "CFG_BOOL_KEYS"):
         assert getattr(port_cfg, group) == getattr(jax_cfg, group), group
     assert load_yaml(port_cfg.yaml_text(port_cfg.DEFAULT_CFG)) == port_cfg.DEFAULT_CFG
@@ -171,8 +171,10 @@ def test_refusals_by_name(ckpt, tmp_path):
     for mode in ("tune", "benchmark", "export"):
         with pytest.raises(NotImplementedError, match=f"{mode}.*not ported"):
             getattr(m, mode)()
-    with pytest.raises(ValueError, match="not ported yet"):
-        m.track(str(imgs), tracker="botsort.yaml")
+    orb = tmp_path / "orb.yaml"  # BoT-SORT is ported with sparseOptFlow motion compensation; ORB's is not
+    orb.write_text((port_cfg.TRACKER_CFG_DIR / "botsort.yaml").read_text().replace("sparseOptFlow #", "orb #"))
+    with pytest.raises(NotImplementedError, match="gmc_method 'orb' is not ported"):
+        m.track(str(imgs), tracker=str(orb))
     r = Results(np.zeros((4, 4, 3), np.uint8), str(tmp_path / "x.png"), {0: "a"}, boxes=np.zeros((0, 6)))
     np.testing.assert_array_equal(r.plot(), r.orig_img)
     assert r.save(tmp_path / "r.png") == tmp_path / "r.png"

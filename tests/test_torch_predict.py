@@ -269,5 +269,5 @@ def test_port_package_holds_sources_only():
         data = p.read_bytes()
         assert b"\0" not in data and len(data) <= 64 * 1024, p
         data.decode("utf-8")
-    assert sum(p.stat().st_size for p in files) < 640 * 1024  # 524 KB with the YOLO11 and YOLO12 families
+    assert sum(p.stat().st_size for p in files) < 664 * 1024  # 672 KB with BoT-SORT's optical flow and tiling
     assert "build/" in (REPO / ".gitignore").read_text().split()

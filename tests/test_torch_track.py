@@ -126,15 +126,18 @@ def test_iou_distance_and_fuse_score_equal_to_jax():
 
 
 def test_tracker_cfg_reader(tmp_path):
-    """bytetrack.yaml as the JAX package reads it; a user's yaml by path; BoT-SORT refused by name."""
+    """bytetrack.yaml and botsort.yaml as the JAX package reads them; a user's yaml by path; an unknown tracker_type
+    refused by name."""
     cfg = load_tracker_cfg("bytetrack.yaml")
     assert vars(cfg) == yaml_load(JAX_TRACKERS / "bytetrack.yaml")
+    assert vars(load_tracker_cfg("botsort.yaml")) == yaml_load(JAX_TRACKERS / "botsort.yaml")
     own = tmp_path / "mine.yaml"
     own.write_text("tracker_type: bytetrack\ntrack_high_thresh: 0.5 # high\ntrack_low_thresh: 0.2\n"
                    "new_track_thresh: 0.6\ntrack_buffer: 60\nmatch_thresh: 0.9\nfuse_score: False\n")
     assert vars(load_tracker_cfg(own)) == yaml_load(own)
-    with pytest.raises(ValueError, match="not ported yet"):
-        load_tracker_cfg(JAX_TRACKERS / "botsort.yaml")
+    (tmp_path / "sort.yaml").write_text("tracker_type: sort\n")
+    with pytest.raises(ValueError, match="tracker_type 'sort' is not a tracker"):
+        load_tracker_cfg(tmp_path / "sort.yaml")
     with pytest.raises(FileNotFoundError):
         load_tracker_cfg("nosuch.yaml")
 
