@@ -4,7 +4,7 @@ clip with BoT-SORT and its camera-motion compensation, tiles a 4K frame, drives 
 command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model,
 predicts with, trains and validates an instance segmentation model and an oriented box model, does the same
 with the YOLO11 and YOLO12 families, and with the classifiers (yolov8s-cls, yolo11s-cls, yolo12s-cls and the
-ResNet-50 and ResNet-18 trunks).
+ResNet-50 and ResNet-18 trunks), and predicts with and trains the YOLOv3, v5, v6, P6, Ghost and YOLOv9 yamls.
 
     python3 chip_smoke.py
 
@@ -212,7 +212,30 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    1024 -> 2048 at 14 px) and BN inputs (ResNet-50's last 2048 channels at 7 px), each site alone against cuDNN;
    predict at batch 32; 3 fixed-batch steps with both kernels against 3 stock within `TRAIN_LOSS_RTOL`. Counts are
    set to 0 before each run and read after it: the stride-2 and BN calls of every step exactly, no greedy-NMS call;
-19. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
+19. zoo: the YOLOv3, v5, v6, P6, Ghost and YOLOv9 (GELAN) yamls (`ZOO_CELL`; nc 80, batch 8, random weights from a
+   seed). `yolov9c.yaml` at 640 px: both train kernels against their plain versions at its 2 dense k=3 stride-2 sites
+   (layers 0 and 1; ADown's stride-2 convs see the odd map of their 2x2 mean and are not sites) and its 154 BN inputs
+   (RepConv's two branches among them), bf16 and float32, each kind's calls timed against cuDNN and
+   `torch.batch_norm_stats`; predict with `calibrated_weights` on 720x1280 frames at batch 1 and 8; the float32
+   forward on the card against the CPU's and fused against unfused (`BOX_ATOL_PX`, `SCORE_RTOL`); 10 fixed-batch
+   bf16 steps (SGD at a constant lr of 0.01) with both kernels and 10 stock (ms, img/s, the idle share of a profiled
+   step); one epoch over 8 + 8 dense-proxy JPEGs with both kernels, then rect val of `last.npz`. `yolov8s-p6.yaml`
+   at 1280 px (predict on 1080x1920 frames at batch 1 and 8; 9 sites, the P6 level's downsample among them) and
+   `yolov8s-ghost-p2.yaml` (predict at batch 8; GhostConv's cv1 sites): the same kernel and float32 checks, 5 bf16
+   steps with both kernels. The 16 others (yolov3-tiny, yolov3, yolov3-spp, yolov5s, yolov5s-p6, yolov6s,
+   yolov8s-ghost, yolov8s-ghost-p6, yolov8s-pose-p6, yolov8s-seg-p6, yolov9t, s, m, e, yolov9c-seg, yolov9e-seg;
+   1280 px for the P6 yamls): both train kernels against their plain versions at their sites and BN inputs as
+   above (`kernel_site_checks`; a shape checked at an earlier model's site is not checked again), predict at batch 8
+   on the random init at conf 0 (32 detections an image) and 3 bf16 steps with both kernels, their stride-2 calls
+   timed against the plain version and cuDNN. Every detection model also takes one float32 backward (TF32 off, batch
+   2) with both kernels and one stock against a float64 one (`float64_grad_errors`): the first losses within
+   `TRAIN_LOSS_RTOL`, the kernels' largest gradient error within 2x stock's (two bf16 runs part at the first step,
+   and two float32 runs a step or two later, as TAL's assignments and max pools follow the last digits: the step
+   losses are readings). Counts are set to 0 before each run and read after it: the
+   stride-2 (k=3, k=1) and BN calls of every step exactly as the model's sites and BN inputs, one NMS call a predict
+   or val batch, every keep mask equal to `greedy_keep_reference`; the bf16 loss of the 5- and 10-step runs falling
+   below its first value;
+20. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
    modules of every path (apps, trackers, the pose, segment, obb and classify predictors, trainers and validators,
    the loaders, `ops/rotated.py`) loaded.
 
@@ -238,6 +261,7 @@ import copy
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -246,7 +270,7 @@ import sys
 import tempfile
 import time
 from collections import defaultdict
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -363,6 +387,25 @@ FAMILY_CELL = dict(models=("yolo11s.yaml", "yolo12s.yaml"), nc=80, imgsz=640, ba
                           ("yolo12s-seg.yaml", 640)), task_steps=5)
 FAMILY_S2_LAYERS = {"yolo11s.yaml": ["0", "1", "3", "5", "7", "17", "20"],
                     "yolo12s.yaml": ["0", "1", "3", "5", "7", "15", "18"]}
+# the zoo phase: the v3, v5, v6, P6, Ghost and YOLOv9 yamls (nc 80, or 1 for the pose model), batch 8, fixed-batch
+# steps by SGD at a constant lr of 0.01, epochs at the default schedule. yolov9c at 640 px: both train kernels against
+# their plain versions at its sites and BN inputs, predict on 720x1280 frames at batch 1 and 8, the float32 forward on
+# the card against the CPU's and fused against unfused, 10 bf16 steps with both kernels and 10 stock, one epoch over
+# 8 + 8 dense-proxy JPEGs and rect val of last.npz. yolov8s-p6 at 1280 px (predict on 1080x1920 frames at batch 1 and
+# 8) and yolov8s-ghost-p2 (batch 8): the kernel and float32 checks and 5 bf16 steps. The 16 others: predict at batch 8
+# and 3 bf16 steps, their stride-2 calls timed against the plain version and cuDNN. Every model: both train kernels
+# against their plain versions at each site and BN input shape not checked at an earlier model. Every detection
+# model: one float32 backward with both kernels and one stock, each against a float64 one
+ZOO_CELL = dict(nc=80, batch=8, seed=31, conf=0.25, cls_gain=30.0, share_above_conf=0.002, task_share_above_conf=0.02,
+                workers=4,
+                main=("yolov9c.yaml", 640, FRAME_HW, (1, 8), 10), n_train=8, n_val=8, data_nc=6, obj_px=(6, 24),
+                checked=(("yolov8s-p6.yaml", 1280, (1080, 1920), (1, 8), 5), ("yolov8s-ghost-p2.yaml", 640, FRAME_HW,
+                                                                               (8,), 5)),
+                others=tuple((name, 1280 if "p6" in name else 640) for name in (
+                    "yolov3-tiny.yaml", "yolov3.yaml", "yolov3-spp.yaml", "yolov5s.yaml", "yolov5s-p6.yaml",
+                    "yolov6s.yaml", "yolov8s-ghost.yaml", "yolov8s-ghost-p6.yaml", "yolov8s-pose-p6.yaml",
+                    "yolov8s-seg-p6.yaml", "yolov9t.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9e.yaml",
+                    "yolov9c-seg.yaml", "yolov9e-seg.yaml")), other_steps=3, frames=8)
 # the draw phase: the flagship (640 px, bf16, weights calibrated so that a share of 0.004 of the anchors of the clip's
 # first frame pass conf 0.25) predicts with save=True over the entry phase's directory (JPEG 1920x1080 x2, 1080x1920,
 # 1280x720, PNG 1280x720) and its 8-frame 1080p MJPEG AVI, and again without save over the AVI; then yolov8s-seg,
@@ -983,12 +1026,14 @@ def sass_counts(library: Path) -> dict:
 
 
 def profile_device(fn, steps: int, top: int = 15) -> dict:
-    """torch.profiler over `steps` calls of `fn` (after one warm-up call): device busy share and the kernels that take the time."""
+    """torch.profiler over `steps` calls of `fn` (after one warm-up call): device busy share and the kernels that take
+    the time. Only the device's activity is traced: the host's ops would only be dropped below, and tracing them
+    costs seconds over a large model's step."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t_wall = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -2940,47 +2985,12 @@ def run_families(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def train_kernel_checks(probe, batch: int, imgsz: int, seed: int, timed_sites: bool = True) -> dict:
-    """Both train kernels against their plain versions at `probe`'s stride-2 sites and train-mode BN inputs (a
-    (batch, 3, imgsz, imgsz) input, bf16 and float32); then each kind's bf16 calls of a step timed against the plain
-    version and the library call (cuDNN's `convolution_backward`, `torch.batch_norm_stats`), and with `timed_sites`
-    each stride-2 site alone against cuDNN there. `name` in messages is the model's yaml."""
-    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_s2bwd
-    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+def s2_kind_times(sites: list[dict], seed: int, timed_sites: bool = True) -> dict:
+    """The bf16 stride-2 backward calls of one step at `sites` (`s2_sites`), by kind: the kernel's device time against
+    the plain version's and cuDNN's `convolution_backward`, and the bound (bytes over the memory rate or operations
+    over the bf16 rate, site by site); with `timed_sites` each site alone against cuDNN there."""
+    from drone_yolo_tpu_torch.ops import cuda_s2bwd
     from drone_yolo_tpu_torch.ops.conv_s2 import KINDS, s2_bwd_reference
-
-    name = Path(str(probe.yaml.get("yaml_file", "model"))).name
-    sites = s2_sites(probe, batch, imgsz)
-    s2_checks = []
-    for i, site in enumerate(sites):
-        for dtype in (torch.bfloat16, torch.float32):
-            x, w, dy = s2_site_inputs(site, dtype, seed=seed + i)
-            dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, site["k"], site["need_dx"])
-            dx_p, dw_p = s2_bwd_reference(x, w, dy, site["k"], site["need_dx"])
-            dname = str(dtype).split(".")[1]
-            row = {"site": site["name"], "k": site["k"], "x": site["x"], "w": site["w"], "dtype": dname}
-            for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
-                tol = dict(S2_TOL[dname][what])
-                tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
-                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} {site['name']} {dname} {what}: {m}")
-                err = (got - want).abs()
-                row[f"{what}_err"] = float(err.max())
-                row[f"{what}_err_over_tol"] = float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
-            s2_checks.append(row)
-            del x, w, dy, dx, dw, dx_p, dw_p
-    bn = bn_sites(probe, batch, imgsz)
-    bn_worst = {"sum_err_over_tol": 0.0, "sumsq_err_over_tol": 0.0, "max_abs_err": 0.0}
-    for i, site in enumerate(bn):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = site_input(site["x"], dtype, seed=seed + 100 + i)
-            s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
-            errs = bn_stats_errors(x, s_k, q_k)
-            if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
-                raise AssertionError(f"{name} BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
-            for k in ("sum_err_over_tol", "sumsq_err_over_tol"):
-                bn_worst[k] = max(bn_worst[k], errs[k])
-            bn_worst["max_abs_err"] = max(bn_worst["max_abs_err"], errs["sum_err"], errs["sumsq_err"])
-            del x, s_k, q_k
 
     s2_time = {}
     for kind in sorted({s["k"] for s in sites}, reverse=True):
@@ -3011,10 +3021,76 @@ def train_kernel_checks(probe, batch: int, imgsz: int, seed: int, timed_sites: b
         costs = [s2_cost(st) for st in kind_sites]
         b_ms = [n_bytes / PEAK_BYTES_PER_S * 1e3 for n_bytes, _ in costs]
         o_ms = [n_ops / PEAK_BF16_PER_S * 1e3 for _, n_ops in costs]
-        t.update(bound_ms=sum(map(max, b_ms, o_ms)), calls=len(kind_sites),
+        t.update(bound_ms=sum(map(max, b_ms, o_ms)), bytes_ms=sum(b_ms), calls=len(kind_sites),
                  bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations")
         s2_time[cuda_s2bwd.NAMES[kind]] = t
         del pairs
+    return s2_time
+
+
+def kernel_site_checks(name: str, sites: list[dict], bn: list[dict], seed: int, seen: set | None = None) -> dict:
+    """Both train kernels against their plain versions, in bf16 and float32, at the stride-2 `sites` (`s2_sites`:
+    dx and dw under S2_TOL, widened by S2_SUM_FLOOR of the largest entry) and the BN inputs `bn` (`bn_sites`: within
+    BN_RTOL/BN_ATOL). A shape in `seen` was checked already at another site of the same shape and is skipped; the
+    shapes checked here are added to it. `name` (a model's) is for the messages."""
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops.conv_s2 import s2_bwd_reference
+
+    seen = set() if seen is None else seen
+    s2_checks = []
+    for i, site in enumerate(sites):
+        key = ("s2", site["k"], site["x"], site["w"], site["need_dx"])
+        if key in seen:
+            continue
+        seen.add(key)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, dy = s2_site_inputs(site, dtype, seed=seed + i)
+            dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, site["k"], site["need_dx"])
+            dx_p, dw_p = s2_bwd_reference(x, w, dy, site["k"], site["need_dx"])
+            dname = str(dtype).split(".")[1]
+            row = {"site": site["name"], "k": site["k"], "x": site["x"], "w": site["w"], "dtype": dname}
+            for what, got, want in [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else []):
+                tol = dict(S2_TOL[dname][what])
+                tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name} {site['name']} {dname} {what}: {m}")
+                err = (got - want).abs()
+                row[f"{what}_err"] = float(err.max())
+                row[f"{what}_err_over_tol"] = float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
+            s2_checks.append(row)
+            del x, w, dy, dx, dw, dx_p, dw_p
+    bn_worst = {"inputs_checked": 0, "sum_err_over_tol": 0.0, "sumsq_err_over_tol": 0.0, "max_abs_err": 0.0}
+    for i, site in enumerate(bn):
+        if ("bn", site["x"]) in seen:
+            continue
+        seen.add(("bn", site["x"]))
+        bn_worst["inputs_checked"] += 1
+        for dtype in (torch.bfloat16, torch.float32):
+            x = site_input(site["x"], dtype, seed=seed + 100 + i)
+            s_k, q_k = cuda_bnstats.bn_stats_cuda(x)
+            errs = bn_stats_errors(x, s_k, q_k)
+            if not (errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1):
+                raise AssertionError(f"{name} BN statistics at {site['name']} {dtype}: kernel vs plain {errs}")
+            for k in ("sum_err_over_tol", "sumsq_err_over_tol"):
+                bn_worst[k] = max(bn_worst[k], errs[k])
+            bn_worst["max_abs_err"] = max(bn_worst["max_abs_err"], errs["sum_err"], errs["sumsq_err"])
+            del x, s_k, q_k
+    return {"s2_checks": s2_checks, "bn_checks_worst": bn_worst}
+
+
+def train_kernel_checks(probe, batch: int, imgsz: int, seed: int, timed_sites: bool = True,
+                        seen: set | None = None) -> dict:
+    """Both train kernels against their plain versions at `probe`'s stride-2 sites and train-mode BN inputs (a
+    (batch, 3, imgsz, imgsz) input, bf16 and float32; `kernel_site_checks`, `seen` its shapes checked already); then
+    each kind's bf16 calls of a step timed against the plain version and the library call (cuDNN's
+    `convolution_backward`, `torch.batch_norm_stats`), and with `timed_sites` each stride-2 site alone against cuDNN
+    there."""
+    from drone_yolo_tpu_torch.ops import cuda_bnstats
+    from drone_yolo_tpu_torch.ops.bn_stats import bn_stats_reference
+
+    name = Path(str(probe.yaml.get("yaml_file", "model"))).name
+    sites, bn = s2_sites(probe, batch, imgsz), bn_sites(probe, batch, imgsz)
+    checks = kernel_site_checks(name, sites, bn, seed, seen)
+    s2_time = s2_kind_times(sites, seed, timed_sites=timed_sites)
     xs = [site_input(site["x"], torch.bfloat16, seed=seed + 400 + i) for i, site in enumerate(bn)]
     bn_time = {}
     for prefix, fn in {"": lambda: [cuda_bnstats.bn_stats_cuda(x) for x in xs],
@@ -3026,8 +3102,47 @@ def train_kernel_checks(probe, batch: int, imgsz: int, seed: int, timed_sites: b
     bn_time.update(bound_ms=sum(map(max, b_ms, o_ms)), bound_by="bytes" if sum(b_ms) >= sum(o_ms) else "operations",
                    calls=len(xs), largest_input=max((x.shape for x in xs), key=lambda sh: sh[1]))
     del xs
-    return {"s2_sites": [(s["name"], s["k"], s["x"], s["w"][0]) for s in sites], "s2_checks": s2_checks,
-            "bn_inputs": len(bn), "bn_checks_worst": bn_worst, "s2_time": s2_time, "bn_time": bn_time}
+    return {"s2_sites": [(s["name"], s["k"], s["x"], s["w"][0]) for s in sites], **checks, "bn_inputs": len(bn),
+            "s2_time": s2_time, "bn_time": bn_time}
+
+
+def float64_grad_errors(base, batch: dict) -> dict:
+    """A detection model's loss and gradients on the card from `base`'s weights and `batch` (`synthetic_batch`): one
+    float32 backward (TF32 as the caller set it) with both train kernels, one stock, and one stock in float64. Each
+    run's largest error over the parameters (each tensor's max|g - g64| / max|g64|; tensors whose float64 gradient
+    stays below 1e-6 of the largest are left aside), the losses, and each run's kernel calls. Through deep stacks two
+    float32 runs part by their sums' order alone, so the kernels' run is held to stock's distance from float64
+    (`kernels_within_stock`: within 2x stock's plus 1e-6), not to stock's run."""
+    from drone_yolo_tpu_torch.nn import modules as M
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_s2bwd
+    from drone_yolo_tpu_torch.utils.loss import v8DetectionLoss
+
+    calls = {}
+
+    def grads(who, mode, dtype):
+        m = copy.deepcopy(base).to("cuda", dtype).train().set_s2grad(mode).set_bnstats(mode)
+        img = torch.from_numpy(batch["img"].transpose(0, 3, 1, 2).copy()).to("cuda", dtype) / 255.0
+        tgt = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items() if k != "img"}
+        tgt = {k: v.to(dtype) if v.is_floating_point() else v for k, v in tgt.items()}
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        with M.collect_bn_stats():
+            maps = m(img)
+        loss = v8DetectionLoss(m)(maps, tgt)[0]
+        loss.backward()
+        calls[who] = {"s2": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn": cuda_bnstats.bn_stats_cuda.calls}
+        return float(loss.detach()), {n: p.grad.double() for n, p in m.named_parameters()}
+
+    (l64, g64), (lk, gk), (ls, gs) = (grads("float64", None, torch.float64), grads("kernels", "cuda", torch.float32),
+                                      grads("stock", None, torch.float32))
+    cuda_s2bwd.reset_counts()  # the comparison's launches are not the path's
+    cuda_bnstats.reset_counts()
+    top = max(float(g.abs().max()) for g in g64.values())
+    live = [n for n, g in g64.items() if float(g.abs().max()) > 1e-6 * top]
+    err = {who: max(float((g[n] - g64[n]).abs().max() / g64[n].abs().max()) for n in live)
+           for who, g in (("kernels", gk), ("stock", gs))}
+    return {"loss": {"float64": l64, "kernels": lk, "stock": ls}, "max_rel_err_vs_float64": err, "calls": calls,
+            "kernels_within_stock": err["kernels"] <= 2 * err["stock"] + 1e-6}
 
 
 def run_classify(smi: str) -> dict:
@@ -3260,6 +3375,264 @@ def run_classify(smi: str) -> dict:
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_zoo(smi: str) -> dict:
+    """Phase 19: the v3, v5, v6, P6, Ghost and YOLOv9 yamls on the card (see the module docstring), its checks and its
+    numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.models.yolo import TASK_MAP
+    from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, guess_model_task
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+
+    c = ZOO_CELL
+    k3, k1 = cuda_s2bwd.NAMES[3], cuda_s2bwd.NAMES[1]
+    launches = defaultdict(int)
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+
+    def counts() -> dict:
+        cnt = {"s2_calls": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+               "nms_calls": cuda_nms.greedy_keep_cuda.calls,
+               "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches,
+                            "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                            **{n: cuda_s2bwd.s2_bwd_cuda.launches.get(n, 0) for n in (k3, k1)}}}
+        for k, v in cnt["launches"].items():
+            launches[k] += v
+        return cnt
+
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        checks.append({"K": int(boxes.shape[1]), "equal": bool(torch.equal(keep, nms_ops.greedy_keep_reference(
+            boxes, valid, iou_thres)))})
+        return keep
+
+    def data_for(task: str, rng, imgsz: int) -> tuple[dict, dict]:
+        if task == "pose":
+            return synthetic_pose_batch(rng, c["batch"], imgsz, 1, 17), {"nc": 1, "kpt_shape": [17, 3]}
+        if task == "segment":
+            return synthetic_seg_batch(rng, c["batch"], imgsz, c["nc"]), {"nc": c["nc"]}
+        return synthetic_batch(rng, c["batch"], imgsz, c["nc"]), {"nc": c["nc"]}
+
+    def fixed_steps(name: str, task: str, imgsz: int, steps: int, per_step: tuple, seed: int, main: bool) -> dict:
+        """`steps` bf16 steps on one batch with both kernels at lr 0.01 (for the main model as many stock too, and a
+        profiled step): the counts exact, the losses finite, and over runs of 5 steps or more falling below the
+        first. The losses are readings, not a comparison: two bf16 runs part at the first step (yolov9c-seg's first
+        losses 343.58 and 355.19, the BN sums' order alone, against 349.10 in float32), and two float32 runs a step
+        or two later, as TAL's assignments and max pools follow the last digits (`grad_checks` compares)."""
+        batch, data = data_for(task, np.random.default_rng(seed), imgsz)
+        runs = {}
+        for mode, kern in (("both", "cuda"), *((("stock", None),) if main else ())):
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = TASK_MAP[task]["trainer"](
+                overrides=dict(model=name, batch=c["batch"], imgsz=imgsz, nbs=c["batch"], optimizer="SGD", lr0=0.01,
+                               amp=True, s2grad=kern, bnstats=kern, warmup_epochs=0.0), train_loader=[batch] * steps,
+                data=data)
+            reset()
+            run = trainer.run_steps()
+            cnt = counts()
+            n_k3, n_k1, n_bn = per_step if kern else (0, 0, 0)
+            if (cnt["s2_calls"], cnt["bn_calls"], cnt["nms_calls"]) != ({k3: steps * n_k3, k1: steps * n_k1},
+                                                                         steps * n_bn, 0):
+                raise AssertionError(f"{name} {mode} steps: {cnt}, expected {per_step} stride-2 (k=3, k=1) and BN "
+                                     "calls a step")
+            ms = float(np.median([r["ms"] for r in run[1:]]))
+            runs[mode] = {"loss": [r["loss"] for r in run], "step_ms_median": ms, "img_per_s": c["batch"] / ms * 1e3,
+                          "first_step_ms": run[0]["ms"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "counts": cnt, "build_and_steps_s": time.perf_counter() - t0}
+            if main and kern:
+                t0 = time.perf_counter()
+                hyp = trainer._warmup_hyp(trainer.ni, 0)
+                reset()
+                runs[mode]["profile"] = profile_device(lambda: trainer.train_step(batch, *hyp)[0].item(), steps=1)
+                counts()  # the profiled step's launches
+                runs[mode]["profile"]["s"] = time.perf_counter() - t0
+            del trainer
+        losses = {mode: r["loss"] for mode, r in runs.items()}
+        if not all(np.isfinite(loss).all() for loss in losses.values()):
+            raise AssertionError(f"{name}: fixed-batch losses {losses}")
+        if steps >= 5 and not all(min(loss[1:]) < loss[0] for loss in losses.values()):
+            raise AssertionError(f"{name}: the fixed-batch loss did not fall: {losses}")
+        return runs
+
+    def grad_checks(name: str, model, imgsz: int, seed: int) -> dict:
+        """`float64_grad_errors` of a copy of the detection model `model` (the predict facade's, unfused) drawn anew
+        from `seed` for `imgsz`, on one batch of 2 at `imgsz`, float32 with TF32 off: the first losses within
+        TRAIN_LOSS_RTOL, the kernels' run within 2x stock's distance from float64. (Not on the predict weights: their
+        class logits, spread for conf 0.25, make a loss of ~2e5 whose float32 gradients part from float64 by more.)"""
+        base = copy.deepcopy(model)
+        base.init(seed, imgsz=imgsz)
+        out = float64_grad_errors(base, synthetic_batch(np.random.default_rng(seed), 2, imgsz, c["nc"]))
+        if not (math.isclose(out["loss"]["kernels"], out["loss"]["stock"], rel_tol=TRAIN_LOSS_RTOL)
+                and out["kernels_within_stock"]):
+            raise AssertionError(f"{name}: float32 gradients with both kernels and stock against float64: {out}")
+        reset()
+        return out
+
+    def predict(name: str, task: str, imgsz: int, frames: list, batches: tuple, seed: int, calibrate: bool) -> tuple:
+        """Predict at each batch size (a warm-up, then the timed call): with `calibrate` the scores of
+        `calibrated_weights` at conf 0.25, else the random init at conf 0 (every candidate valid, K = 1024) keeping 32
+        detections an image."""
+        model, conf, out, max_det = YOLO(name), 0.0, {}, 32
+        if calibrate:
+            share = c["share_above_conf"] if task == "detect" else c["task_share_above_conf"]
+            conf, max_det = c["conf"], 300
+            out["cls_bias"] = calibrated_weights(model, frames[0], seed, c["cls_gain"], share, conf, imgsz)
+        n_checks = len(checks)
+        reset()
+        for b in batches:
+            model.predict(frames[:b], imgsz=imgsz, conf=conf, batch=b, max_det=max_det, verbose=False)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = model.predict(frames[:b], imgsz=imgsz, conf=conf, batch=b, max_det=max_det, verbose=False)
+            wall = time.perf_counter() - t0
+            n_det = [len(r.boxes) for r in res]
+            ok = sum(n_det) and all(np.isfinite(r.boxes.data).all() for r in res)
+            if task == "pose":
+                ok = ok and all(r.keypoints.data.shape == (len(r.boxes), 17, 3) for r in res)
+            elif task == "segment":
+                ok = ok and all(r.masks is None or r.masks.data.shape[0] == len(r.boxes) for r in res)
+            if not ok:
+                raise AssertionError(f"{name} predict at batch {b}: {n_det} detections, or not finite")
+            out[f"batch{b}"] = {"img_per_s": b / wall, "n_det": n_det, "speed_ms_per_img": res[0].speed}
+        cnt = counts()
+        if cnt["nms_calls"] != 2 * len(batches) or len(checks) - n_checks != 2 * len(batches):
+            raise AssertionError(f"{name} predict: {cnt['nms_calls']} NMS kernel calls, {len(checks) - n_checks} "
+                                 f"checked, expected one a batch ({2 * len(batches)})")
+        out["counts"] = cnt
+        return model, out
+
+    def fp32_checks(model, frame: np.ndarray) -> dict:
+        """The float32 forward (TF32 off, `spread_weights`) on the card against the CPU's, and fused against unfused on
+        the card, on one letterboxed frame: boxes within BOX_ATOL_PX, scores within SCORE_RTOL."""
+        net = copy.deepcopy(model.model)
+        net.load_state_dict(spread_weights(net.state_dict(), np.random.default_rng(1)))
+        out = {"box_atol_px": BOX_ATOL_PX, "score_rtol": SCORE_RTOL}
+        with torch.inference_mode():
+            net = net.float()
+            x = model.predictor.preprocess([frame]).float()
+            unfused = net(x)[0][..., :4 + net.nc]
+            fused = net.fuse()(x)[0][..., :4 + net.nc]
+            cpu = net.cpu()(x.cpu())[0][..., :4 + net.nc]
+        for what, a, b in (("card_vs_cpu", fused.cpu(), cpu), ("fused_vs_unfused", fused, unfused)):
+            box = float((a[..., :4] - b[..., :4]).abs().max())
+            score = float(((a[..., 4:] - b[..., 4:]).abs() / b[..., 4:]).max())
+            if not (box <= BOX_ATOL_PX and score <= SCORE_RTOL):
+                raise AssertionError(f"float32 {what}: box err {box} px, score rel err {score}")
+            out[what] = {"box_err_px": box, "score_rel_err": score}
+        return out
+
+    out = {"cell": dict(c), "nvidia_smi": smi, "models": {}, "stage_s": {}}
+    t_stage = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["stage_s"][name] = now - t_stage[0]
+        t_stage[0] = now
+        print(f"zoo: {name} {out['stage_s'][name]:.2f} s", file=sys.stderr, flush=True)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_zoo_"))
+    frames = {hw: moving_frames(np.random.default_rng(c["seed"] + i), c["frames"], hw, 60)
+              for i, hw in enumerate(sorted({FRAME_HW, *(m[2] for m in c["checked"])}))}
+    nms_ops.greedy_keep = checked_keep
+    # the epoch's JPEGs are encoded in a process of their own while the models before the epoch run
+    writer = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        dense = writer.submit(write_dense_dataset, tmp / "dense", c["n_train"], c["n_val"], c["main"][1],
+                              c["seed"], c["data_nc"], c["obj_px"])
+        lap("inputs")
+        plan = [(*c["main"], True, True)] + [(*m, True, False) for m in c["checked"]] + \
+               [(name, imgsz, FRAME_HW, (c["batch"],), c["other_steps"], False, False) for name, imgsz in c["others"]]
+        seen = set()  # the site shapes whose kernels were checked already: each shape once across the zoo
+        for mi, (name, imgsz, hw, batches, steps, checked, main) in enumerate(plan):
+            task, stem = guess_model_task(name), Path(name).stem
+            with torch.device("meta"):  # the sites' shapes only
+                probe = TASK2MODELCLASS[task](name, nc=1 if task == "pose" else c["nc"])
+            sites, bn = s2_sites(probe, c["batch"], imgsz), bn_sites(probe, c["batch"], imgsz)
+            per_step = (sum(s["k"] == 3 for s in sites), sum(s["k"] == 1 for s in sites), len(bn))
+            row = {"imgsz": imgsz, "task": task, "per_step": dict(zip(("s2_k3", "s2_k1", "bn"), per_step)),
+                   "s2_sites": [(s["name"], s["k"], s["x"], s["w"][0]) for s in sites]}
+            if checked:
+                row.update(train_kernel_checks(probe, c["batch"], imgsz, seed=7000 + 100 * mi, timed_sites=main,
+                                               seen=seen))
+            else:
+                row.update(kernel_site_checks(name, sites, bn, 7000 + 100 * mi, seen))
+                if sites:
+                    row["s2_time"] = s2_kind_times(sites, 7000 + 100 * mi, timed_sites=False)
+            del probe
+            lap(f"{stem}.kernels")
+            model, row["predict"] = predict(name, task, imgsz, frames[hw], batches, c["seed"] + mi, checked)
+            if checked:
+                row["fp32"] = fp32_checks(model, frames[hw][0])
+            lap(f"{stem}.predict")
+            if task == "detect":
+                row["grads"] = grad_checks(name, model.model, imgsz, c["seed"] + 70 + mi)
+                lap(f"{stem}.grads")
+            del model
+            row["fixed_batch"] = fixed_steps(name, task, imgsz, steps, per_step, c["seed"] + 50 + mi, main)
+            lap(f"{stem}.steps")
+            if main:  # one epoch from disk with both kernels, then rect val of last.npz
+                data = dense.result()[0]
+                lap("dataset_wait")
+                n_checks = len(checks)
+                reset()
+                model = YOLO(name)
+                t0 = time.perf_counter()
+                metrics = model.train(data=str(data), epochs=1, imgsz=imgsz, batch=c["batch"], nbs=c["batch"],
+                                      optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
+                                      workers=c["workers"], project=str(tmp / "runs"), name=stem, exist_ok=True,
+                                      plots=False)
+                train_wall = time.perf_counter() - t0
+                train_counts = counts()
+                tr = model.trainer
+                reset()
+                last = YOLO(tr.wdir / "last.npz")
+                t0 = time.perf_counter()
+                val_metrics = last.val(data=str(data))  # rect batches: the facade's default
+                val_wall = time.perf_counter() - t0
+                val_counts = counts()
+                steps_run, n_k3, n_k1 = tr.nb, per_step[0], per_step[1]
+                if (train_counts["s2_calls"] != {k3: n_k3 * steps_run, k1: n_k1 * steps_run}
+                        or train_counts["bn_calls"] != per_step[2] * steps_run):
+                    raise AssertionError(f"{name} epoch: {train_counts}, expected {per_step} a step for {steps_run} "
+                                         "steps")
+                val_batches = math.ceil(c["n_val"] / c["batch"]) + len(last.validator.dataloader)
+                if (len(checks) - n_checks != val_batches
+                        or train_counts["nms_calls"] + val_counts["nms_calls"] != val_batches):
+                    raise AssertionError(f"{name}: {len(checks) - n_checks} NMS calls checked, kernel calls "
+                                         f"{train_counts['nms_calls']} + {val_counts['nms_calls']}, for {val_batches} "
+                                         "val batches")
+                for what, m in (("train", metrics), ("val", val_metrics)):
+                    if len(m) != 5 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+                        raise AssertionError(f"{name} {what} metrics: {m}")
+                ep = tr.epoch_stats[0]
+                shapes = last.validator.dataloader.dataset.batch_shapes
+                row["epoch"] = {"epoch_s": ep["train_s"], "train_wall_s": train_wall,
+                                "data_wait_share": ep["data_wait_s"] / ep["train_s"], "loss_items": ep["loss_items"],
+                                "metrics_train": metrics, "metrics_val_rect": val_metrics,
+                                "val_img_per_s": last.validator.seen / val_wall,
+                                "rect_shapes": [list(map(int, s)) for s in shapes],
+                                "counts": {"train": train_counts, "val": val_counts}}
+                del model, last, tr
+                lap(f"{stem}.epoch_and_val")
+            out["models"][name] = row
+    finally:
+        nms_ops.greedy_keep = kernel_keep
+        writer.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(ch["equal"] for ch in checks):
+        raise AssertionError(f"zoo: keep masks unequal to the plain keep: {[ch for ch in checks if not ch['equal']]}")
+    out["nms_keep_checks"] = {"calls": len(checks), "all_equal_plain": True, "K": sorted({ch["K"] for ch in checks})}
+    out["launches"] = dict(launches)
+    return out
 
 
 def main() -> None:
@@ -3794,7 +4167,16 @@ def main() -> None:
         kern["launches_by_path"]["classify"] = n
     emit("classify", t, **classify)
 
-    # 19. imports ---------------------------------------------------------------
+    # 19. zoo: the v3, v5, v6, P6, Ghost and YOLOv9 yamls ---------------------------------------
+    t = time.perf_counter()
+    zoo = run_zoo(smi)
+    for kern in kernels:
+        n = zoo["launches"].get(kern["name"], 0)
+        kern["launches"] += n
+        kern["launches_by_path"]["zoo"] = n
+    emit("zoo", t, **zoo)
+
+    # 20. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401

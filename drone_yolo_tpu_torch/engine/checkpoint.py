@@ -8,14 +8,19 @@ YAML parsing (format: `drone_yolo_tpu/engine/checkpoint.py`).
 HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `weight/bias/running_mean/running_var`, RepVGG `dense/one/idbn` become
 `rbr_dense/rbr_1x1/rbr_identity`, Proto's transposed conv `up` (a (2, 2, out, in) kernel) becomes
-`upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's), A2C2f's `gamma` keeps its
-name, Classify's `linear/kernel` (1280, nc) becomes the torch (nc, 1280) `linear.weight`, a TorchVision trunk's
+`upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's; so does a yolov6
+`nn.ConvTranspose2d` layer's), A2C2f's `gamma` keeps its name, GhostBottleneck's `g1/dw/g2/sc_dw/sc_pw`
+become the reference's `conv.0/conv.1/conv.2/shortcut.0/shortcut.1`, a fused RepConv's `kernel/bias` its
+own `weight/bias`, a fused RepVGGBlock's (where the port model has one) its `rbr_reparam`, Classify's
+`linear/kernel` (1280, nc) becomes the torch (nc, 1280) `linear.weight`, a TorchVision trunk's
 `stem` and flat `blocks/<i>/cv1|cv2|down` become the reference's `m.0`, `m.1` and `m.<4 + layer>.<j>.conv1|bn1|
 conv2|bn2|downsample` (a block with `down` after the first starts the next layer), and the sequences drop the JAX
-`m` level under which a JAX `_Seq` keeps its children (`_seq_m`):
-the head's branches (Detect's `cv2`, `cv3`, Pose's, Segment's and OBB's `cv4`), the sequences nested in
-them (the YOLO11/12 `cv3.<i>.<j>.<k>`), PSABlock's `ffn`, ABlock's `mlp` and A2C2f's pairs of ABlocks
-(`m.<i>.<j>`). Names are the reference torch names (`model.<i>....`), which
+`m` level under which a JAX `_Seq` (or `_RepeatSeq`) keeps its children: a node of the tree whose only key is `m`.
+Those are the head's branches (Detect's `cv2.<i>`, `cv3.<i>`, Pose's, Segment's and OBB's `cv4.<i>`), the sequences
+nested in them (the YOLO11/12 `cv3.<i>.<j>`), PSABlock's `ffn`, ABlock's `mlp`, A2C2f's pairs of ABlocks
+(`m.<i>`), RepNCSPELAN4's `cv2` and `cv3`, and a repeated row of a module that does not count its repeats
+(`model.<i>.<j>`: yolov3's Bottlenecks, yolov6's Convs). `_jax_path` puts the level back from the torch name
+alone. Names are the reference torch names (`model.<i>....`), which
 `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` maps back (a TorchVision trunk's only
 `to_jax_variables`).
 `from_jax_train_state` maps a whole JAX train state (params, optimizer state,
@@ -42,28 +47,12 @@ import torch
 FORMAT = "drone_yolo_tpu.v1"
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var",
          "gamma": "gamma"}
-_BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity", "up": "upsample"}
+_BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity", "up": "upsample",
+           "g1": "conv.0", "dw": "conv.1", "g2": "conv.2", "sc_dw": "shortcut.0", "sc_pw": "shortcut.1"}
 _BRANCH_JAX = {v: k for k, v in _BRANCH.items()}
 _LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias", "gamma": "gamma"}
-_HEAD_SEQS = ("cv2", "cv3", "cv4")  # Detect's box and class branches; Pose's keypoint, Segment's mask, OBB's angle
 _NAMED_SEQS = ("ffn", "mlp")  # PSABlock's and ABlock's feed-forward sequences
-_ABLOCK = ("attn", "mlp")  # an ABlock's children: an A2C2f block `m.<i>` whose children have them is a sequence
-
-
-def _seq_m(path: list[str], j: int, dropped: set[int]) -> bool:
-    """Whether the "m" at `path[j]` of a JAX variable path is the level under which a `_Seq` keeps its children.
-
-    `dropped` holds the earlier positions of such levels in the path."""
-    if path[j] != "m" or j < 2:
-        return False
-    parent = path[j - 1]
-    if parent in _NAMED_SEQS:
-        return True
-    if not parent.isdigit():
-        return False
-    if path[j - 2] in _HEAD_SEQS or j - 2 in dropped:  # a head branch, or a sequence inside a sequence
-        return True
-    return path[j - 2] == "m" and j + 2 < len(path) and path[j + 2] in _ABLOCK  # A2C2f's pair of ABlocks
+_ELAN_SEQS = ("cv2", "cv3")  # RepNCSPELAN4's sequences; Detect's branch lists of the same names hold sequences
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -90,18 +79,20 @@ def unflatten_tree(flat: dict) -> dict:
     return out
 
 
-def _torch_name(parts: list[str]) -> str:
-    """JAX variable path (layer index first) -> reference torch parameter name."""
-    *path, leaf = parts
-    names, dropped = [], set()
-    for j, p in enumerate(path):
-        if _seq_m(path, j, dropped):
-            dropped.add(j)
-            continue
-        names.append(_BRANCH.get(p, p))
-    if len(path) == 1 and leaf in ("kernel", "bias"):
-        names.append("rbr_reparam")  # a layer-level kernel is a fused RepVGGBlock
-    return ".".join(["model", *names, _LEAF[leaf]])
+def _torch_names(tree: dict, prefix: list[str], reparam: set) -> dict:
+    """A JAX variables (sub)tree under the torch path `prefix` -> {reference torch name: leaf}. A node whose only key
+    is `m` is a JAX sequence: its `m` level has no torch counterpart. A node's own kernel and bias are a fused
+    RepVGGBlock's (`rbr_reparam`) where the torch path is in `reparam`, else the module's own (a transposed conv's,
+    a fused RepConv's)."""
+    out = {}
+    path = ".".join(["model", *prefix])
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_torch_names(v, prefix if k == "m" and len(tree) == 1 else [*prefix, _BRANCH.get(k, k)],
+                                    reparam))
+        else:
+            out[".".join([path, *(["rbr_reparam"] if path in reparam else []), _LEAF[k]])] = v
+    return out
 
 
 # A TorchVision trunk: the JAX package's `stem` and flat `blocks` <-> the reference's `m.<i>` (torchvision's children:
@@ -161,14 +152,19 @@ def _is_torchvision(tree: dict) -> bool:
     return isinstance(tree, dict) and "stem" in tree and "blocks" in tree
 
 
-def from_jax_variables(variables: dict) -> dict:
-    """JAX variables tree (numpy leaves, unfused or fused) -> port state_dict of float32 tensors."""
+def from_jax_variables(variables: dict, model=None) -> dict:
+    """JAX variables tree (numpy leaves, unfused or fused) -> port state_dict of float32 tensors. A fused tree of a
+    model with RepVGGBlocks needs the port `model` it is for: a fused RepVGGBlock's kernel and bias sit in the JAX
+    tree as a plain module's do, and only the model's own RepVGGBlocks say where `rbr_reparam` goes."""
+    from drone_yolo_tpu_torch.nn.modules import RepVGGBlock
+
+    reparam = set() if model is None else {n for n, m in model.named_modules() if isinstance(m, RepVGGBlock)}
     flat = {}
     for layer, tree in variables.items():
         if _is_torchvision(tree):
             flat.update(_tv_to_torch(layer, tree))
         else:
-            flat.update({_torch_name(key.split("/")): a for key, a in flatten_tree({layer: tree}).items()})
+            flat.update(_torch_names(tree, [layer], reparam))
     sd = {}
     for name, v in flat.items():
         a = np.array(v, np.float32)
@@ -181,18 +177,31 @@ def from_jax_variables(variables: dict) -> dict:
 
 
 def _jax_path(name: str, ndim: int) -> list[str]:
-    """Reference torch parameter name -> JAX variable path; the inverse of `_torch_name`."""
+    """Reference torch parameter name -> JAX variable path; the inverse of `_torch_names`. A torch index is a child of a
+    JAX sequence, under its `m`, when it follows the layer's index (a repeated row), another index (a head branch's
+    sequence, A2C2f's pair of ABlocks), `ffn` or `mlp`, or `cv2`/`cv3` without a second index after it
+    (RepNCSPELAN4's; Detect's `cv2.<i>` is a list of sequences)."""
     parts = name.split(".")
     if parts[0] != "model" or len(parts) < 3:
         raise ValueError(f"not a model parameter name: {name}")
     *path, leaf = parts[1:]
-    out = []
-    for j, p in enumerate(path):
+    out, j = [], 1
+    while j < len(path):
+        p = path[j]
+        pair = ".".join(path[j:j + 2])
+        if pair in _BRANCH_JAX:  # GhostBottleneck's stages
+            out.append(_BRANCH_JAX[pair])
+            j += 2
+            continue
         if p == "rbr_reparam" and j == len(path) - 1:
-            continue  # a fused RepVGGBlock's kernel lives at the layer level
-        if j >= 2 and p.isdigit() and (path[j - 1].isdigit() or path[j - 1] in _NAMED_SEQS):
-            out.append("m")  # a child of a sequence (a digit after a digit, or after ffn/mlp): JAX keeps it under "m"
+            break  # a fused RepVGGBlock's kernel lives at the block
+        prev, after = path[j - 1], path[j + 1] if j + 1 < len(path) else ""
+        seq_child = j == 1 or prev.isdigit() or prev in _NAMED_SEQS or (prev in _ELAN_SEQS and not after.isdigit())
+        if p.isdigit() and seq_child:
+            out.append("m")
         out.append(_BRANCH_JAX.get(p, p))
+        j += 1
+    out.insert(0, path[0])
     if leaf == "weight":
         return out + ["kernel" if ndim in (2, 4) else "scale"]
     return out + [_LEAF_JAX[leaf]]
@@ -320,7 +329,7 @@ def load_checkpoint(path):
     model = TASK2MODELCLASS[task](dict(header["yaml"]))
     if not any(k.endswith("/mean") for k in flat):  # folded weights carry no BN statistics
         model.fuse()
-    model.load_state_dict(from_jax_variables(unflatten_tree(flat)), strict=True)
+    model.load_state_dict(from_jax_variables(unflatten_tree(flat), model), strict=True)
     model.names = {int(k): v for k, v in header.get("names", {}).items()} or model.names
     if header.get("stride"):
         model.head.stride = [int(s) for s in header["stride"]]

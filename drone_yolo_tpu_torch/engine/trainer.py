@@ -111,8 +111,9 @@ class BaseTrainer(CallbackMixin):
         return check_det_dataset(self.args.data)
 
     def build_dataset(self, img_path, mode: str = "train"):
-        """The dataset of the split at `img_path`, augmented for "train"."""
-        return build_yolo_dataset(self.args, img_path, self.batch_size, self.data, mode=mode)
+        """The dataset of the split at `img_path`, augmented for "train"; rect shapes round to the largest stride."""
+        return build_yolo_dataset(self.args, img_path, self.batch_size, self.data, mode=mode,
+                                  stride=int(max(self.model.head.stride)))
 
     def build_model(self, cfg) -> DetectionModel:
         """This task's model of the yaml (or yaml dict) `cfg`, for the data's class count."""

@@ -1,5 +1,5 @@
-"""Model YAML -> list of layers: the `[from, repeats, module, args]` row grammar of the v8, YOLO11 and YOLO12 families
-and their classifiers.
+"""Model YAML -> list of layers: the `[from, repeats, module, args]` row grammar of the v3, v5, v6, v8 (P2, P6, Ghost),
+v9 (GELAN), YOLO11 and YOLO12 families and their classifiers.
 
 Counterpart of `drone_yolo_tpu/nn/build.py`: the same depth gain
 `max(round(n * depth), 1)`, width gain `make_divisible(min(c2, max_channels) * width, 8)`
@@ -8,7 +8,11 @@ and n/s/m/l/x scale resolution. A `C3k2` or `A2C2f` row builds the head with
 C3k blocks, and at l and x `A2C2f` takes `residual` (its gamma) and mlp_ratio 1.2. A
 `Classify` row's width is nc, unscaled (a layer whose width equals nc is never scaled, as
 in the JAX package and Ultralytics); `ResNetLayer` rows pass unscaled, and a `TorchVision`
-row declares its width by its first argument.
+row declares its width by its first argument. A row that repeats a module which does not
+count its own repeats (yolov3's `Bottleneck`, yolov6's `Conv`) builds an `nn.Sequential` of
+them (`model.<i>.<j>...`); `CBLinear` rows give a tuple of unscaled widths, which `CBFuse`
+rows pick from. A yaml's `activation: nn.ReLU()` makes every `Conv` whose activation is the
+default a ReLU one, the head's too (`_activation`).
 The model files are read by `load_yaml`, a reader for the subset of YAML they use,
 so the port needs no YAML package.
 """
@@ -20,20 +24,46 @@ import math
 import re
 from pathlib import Path
 
+from torch import nn
+
 from drone_yolo_tpu_torch.cfg import MODEL_CFG_DIR
 from drone_yolo_tpu_torch.nn import modules as M
 
 REGISTRY = {
     "Conv": M.Conv,
     "DWConv": M.DWConv,
+    "GhostConv": M.GhostConv,
+    "Bottleneck": M.Bottleneck,
+    "GhostBottleneck": M.GhostBottleneck,
+    "C2": M.C2,
     "C2f": M.C2f,
+    "C3": M.C3,
+    "C3Ghost": M.C3Ghost,
     "C3k2": M.C3k2,
     "C2PSA": M.C2PSA,
     "A2C2f": M.A2C2f,
+    "SPP": M.SPP,
     "SPPF": M.SPPF,
     "RepVGGBlock": M.RepVGGBlock,
+    "RepConv": M.RepConv,
+    "RepCSP": M.RepCSP,
+    "RepNCSPELAN4": M.RepNCSPELAN4,
+    "ELAN1": M.ELAN1,
+    "AConv": M.AConv,
+    "ADown": M.ADown,
+    "SPPELAN": M.SPPELAN,
+    "CBLinear": M.CBLinear,
+    "CBFuse": M.CBFuse,
     "Concat": M.Concat,
     "nn.Upsample": M.Upsample,
+    "nn.Identity": nn.Identity,
+    "Identity": nn.Identity,
+    "nn.MaxPool2d": nn.MaxPool2d,
+    "MaxPool2d": nn.MaxPool2d,
+    "nn.ZeroPad2d": nn.ZeroPad2d,
+    "ZeroPad2d": nn.ZeroPad2d,
+    "nn.ConvTranspose2d": nn.ConvTranspose2d,
+    "ConvTranspose2d": nn.ConvTranspose2d,
     "Detect": M.Detect,
     "Pose": M.Pose,
     "Segment": M.Segment,
@@ -43,8 +73,10 @@ REGISTRY = {
     "TorchVision": M.TorchVision,
 }
 HEAD_MODULES = {M.Detect, M.Pose, M.Segment, M.OBB}  # take the input widths of their levels as their last argument
-BASE_MODULES = {M.Conv, M.DWConv, M.C2f, M.C3k2, M.C2PSA, M.A2C2f, M.SPPF, M.RepVGGBlock, M.Classify}  # (c1, c2, ...)
-REPEAT_MODULES = {M.C2f, M.C3k2, M.C2PSA, M.A2C2f}  # take the repeat count as their third argument
+BASE_MODULES = {M.Conv, M.DWConv, M.GhostConv, M.Bottleneck, M.GhostBottleneck, M.C2, M.C2f, M.C3, M.C3Ghost, M.C3k2,
+                M.C2PSA, M.A2C2f, M.SPP, M.SPPF, M.RepVGGBlock, M.RepConv, M.RepCSP, M.RepNCSPELAN4, M.ELAN1, M.AConv,
+                M.ADown, M.SPPELAN, M.Classify, nn.ConvTranspose2d}  # (c1, c2, ...)
+REPEAT_MODULES = {M.C2, M.C2f, M.C3, M.C3Ghost, M.C3k2, M.C2PSA, M.A2C2f, M.RepCSP}  # the repeat count is 3rd argument
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +222,16 @@ def yaml_model_load(path) -> dict:
     raise FileNotFoundError(f"model yaml '{path}' not found (searched {MODEL_CFG_DIR})")
 
 
+def _activation(spec) -> str | None:
+    """The Conv activation a yaml's `activation:` key names: None when absent, "relu" for ReLU. Any other is refused
+    by name (the JAX package keeps SiLU for it without a word)."""
+    if spec is None:
+        return None
+    if re.fullmatch(r"(torch\.)?(nn\.)?ReLU\((inplace\s*=\s*(True|False))?\)", str(spec).strip()):
+        return "relu"
+    raise ValueError(f"activation {spec!r} is not ported; nn.ReLU() is")
+
+
 def parse_model(d: dict, ch: int = 3):
     """Build the layers of a model dict.
 
@@ -207,6 +249,7 @@ def parse_model(d: dict, ch: int = 3):
             scale = next(iter(scales))
         depth, width, max_channels = scales[scale]
 
+    act = _activation(d.get("activation"))
     ch_list = [ch]
     modules, froms, save = [], [], []
     legacy = True  # the v8 head's class branch; a C3k2 or A2C2f row switches to the depthwise one
@@ -253,17 +296,29 @@ def parse_model(d: dict, ch: int = 3):
             c2, args = args[0], args[1:]
         elif cls is M.Concat:
             c2 = sum(ch_list[x] for x in f)
+        elif cls is M.CBLinear:  # the output is a tuple of the listed widths, unscaled
+            c2, args = args[0], [ch_list[f], *args]
+        elif cls is M.CBFuse:
+            c2 = ch_list[f[-1]]
         elif cls in HEAD_MODULES:
             if cls is M.Segment and len(args) > 2:  # Segment(nc, nm, npr): npr is width-scaled, as the JAX package
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             args = [*args, [ch_list[x] for x in f]]
             c2 = ch_list[f[0]]
-        else:  # Upsample keeps its input's channels
+        else:  # Upsample, Identity, MaxPool2d and ZeroPad2d keep their input's channels
             c2 = ch_list[f]
-        if n_scaled != 1:
-            raise ValueError(f"layer {i}: repeats of {mname} outside a repeat-aware module are not ported yet")
 
-        modules.append(cls(*args, legacy=legacy) if cls in HEAD_MODULES else cls(*args))
+        if cls in HEAD_MODULES:
+            module = cls(*args, legacy=legacy)
+        elif n_scaled > 1:  # a module that does not count its repeats, stacked (the JAX package's `_RepeatSeq`)
+            module = nn.Sequential(*(cls(*args) for _ in range(n_scaled)))
+        else:
+            module = cls(*args)
+        if act is not None:
+            for m in module.modules():
+                if isinstance(m, M.Conv) and m.act is True:
+                    m.act = act
+        modules.append(module)
         froms.append(f)
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:

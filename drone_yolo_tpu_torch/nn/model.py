@@ -132,8 +132,8 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def fuse(self) -> DetectionModel:
-        """Fold BN into convs and collapse RepVGG branches, in place."""
-        for kind in (M.RepVGGBlock, M.Conv, M.TorchVision):  # RepVGG first: it folds the BNs of its own Conv branches
+        """Fold BN into convs and collapse RepVGG and RepConv branches, in place."""
+        for kind in (M.RepVGGBlock, M.RepConv, M.Conv, M.TorchVision):  # the first two fold their own Convs' BNs
             for mod in [m for m in self.modules() if isinstance(m, kind)]:
                 mod.fuse()
         return self

@@ -1,10 +1,12 @@
-"""The module sets of the v8, YOLO11 and YOLO12 families and of the classifiers as PyTorch modules (NCHW, OIHW).
+"""The module sets of the v3, v5, v6, v8 (P2, P6, Ghost), v9 (GELAN), YOLO11 and YOLO12 families and of the
+classifiers as PyTorch modules (NCHW, OIHW).
 
 Counterpart of `drone_yolo_tpu/nn/modules.py`. Parameter names follow the
 reference torch `state_dict` (`conv.weight`, `bn.running_mean`, `rbr_dense`, ...),
 so `drone_yolo_tpu/utils/torch_convert.py:convert_state_dict` reads them. The JAX
-package's `Conv2dRaw` (the head's output layers) is `nn.Conv2d` here, and its
-`max_pool2d` is `F.max_pool2d`, whose padding never wins the max either.
+package's `Conv2dRaw` (the head's output layers, CBLinear's conv) is `nn.Conv2d` here, its `ConvTranspose2dRaw`
+`nn.ConvTranspose2d`, its `Identity`, `MaxPool2d` and `ZeroPad2d` torch's, its `_Seq` and `_RepeatSeq`
+`nn.Sequential`, and its `max_pool2d` is `F.max_pool2d`, whose padding never wins the max either.
 
 Precision follows the JAX package: activations flow in the parameters' dtype
 (bfloat16 on the card after `fuse()` and a cast, or under bf16 autocast in
@@ -139,11 +141,17 @@ def conv_forward(mod: nn.Conv2d, x: torch.Tensor, s2grad: str | None) -> torch.T
     return mod(x)
 
 
+ACTIVATIONS = {True: F.silu, "relu": F.relu}  # a Conv's `act`: True is the default, SiLU; False is none
+
+
 class Conv(nn.Module):
-    """Conv2d + BN + SiLU; after `fuse()` a conv with bias + SiLU. `s2grad` picks the backward of its stride-2 sites."""
+    """Conv2d + BN + activation; after `fuse()` a conv with bias + activation. `act` is True (SiLU), "relu" (a yaml's
+    `activation:` ReLU, set by the build) or False. `s2grad` picks the backward of its stride-2 sites."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act=True):
         super().__init__()
+        if act not in (False, *ACTIVATIONS):
+            raise ValueError(f"Conv activation {act!r} is not ported; True (SiLU), 'relu' and False are")
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = BatchNorm2d(c2)
         self.act = act
@@ -153,7 +161,7 @@ class Conv(nn.Module):
         y = conv_forward(self.conv, x, self.s2grad)
         if self.bn is not None:
             y = self.bn(y)
-        return F.silu(y) if self.act else y
+        return ACTIVATIONS[self.act](y) if self.act else y
 
     def fuse(self) -> None:
         if self.bn is not None:
@@ -255,6 +263,71 @@ class C3(nn.Module):
         return self.cv3(torch.cat((self.m(self.cv1(x)), self.cv2(x)), 1))
 
 
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs: cv2(cat(m(a), b)) for the halves a, b of cv1(x)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)))
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, 1)
+        return self.cv2(torch.cat((self.m(a), b), 1))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: cv1, then max pools of each size in `k` (stride 1, same size) beside it, into cv2."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(k) + 1), c2, 1, 1)
+        self.k = tuple(k)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x] + [F.max_pool2d(x, k, 1, k // 2) for k in self.k], 1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: a primary Conv `cv1` to half the width, then a 5x5 depthwise Conv `cv2` of it beside it."""
+
+    def __init__(self, c1, c2, k=1, s=1, g=1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat((y, self.cv2(y)), 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck under the reference's torch names: `conv` is GhostConv, (with s=2) a depthwise k x k stride-2
+    DWConv, GhostConv without activation; with s=2 `shortcut` is DWConv then a 1x1 Conv, added to the path, else the
+    input is added when the widths agree (the JAX package's `g1`, `dw`, `g2`, `sc_dw`, `sc_pw`)."""
+
+    def __init__(self, c1, c2, k=3, s=1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(GhostConv(c1, c_, 1, 1), DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+                                  GhostConv(c_, c2, 1, 1, act=False))
+        self.shortcut = (nn.Sequential(DWConv(c1, c1, k, s, act=False), Conv(c1, c2, 1, 1, act=False)) if s == 2
+                         else None)
+        self.add = s == 1 and c1 == c2
+
+    def forward(self, x):
+        y = self.conv(x)
+        if self.shortcut is not None:
+            return y + self.shortcut(x)
+        return x + y if self.add else y
+
+
 class C3k(C3):
     """C3 whose bottlenecks are k x k on both convs."""
 
@@ -271,6 +344,15 @@ class C3k2(C2f):
         super().__init__(c1, c2, n, shortcut, g, e)
         c = self.c
         self.m = nn.ModuleList(C3k(c, c, 2, shortcut, g) if c3k else Bottleneck(c, c, shortcut, g, e=0.5) for _ in range(n))
+
+
+class C3Ghost(C3):
+    """C3 whose blocks are GhostBottlenecks."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
 
 
 def float32_region(device_type: str):
@@ -420,6 +502,14 @@ class A2C2f(nn.Module):
         return out if self.gamma is None else x + self.gamma.to(out.dtype)[:, None, None] * out
 
 
+def fold_rep_branches(conv3: Conv, conv1: Conv) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3x3 kernel and bias of bn(conv3(x)) + bn(conv1(x)) in eval mode: each BN folded, the 1x1 padded into the
+    3x3's centre."""
+    w3, b3 = bn_fold(conv3.bn, conv3.conv.weight)
+    w1, b1 = bn_fold(conv1.bn, conv1.conv.weight)
+    return w3 + F.pad(w1, (1, 1, 1, 1)), b3 + b1
+
+
 class RepVGGBlock(nn.Module):
     """3x3 + 1x1 (+ identity BN) branches, summed, then SiLU; `fuse()` collapses them into one 3x3 conv."""
 
@@ -446,11 +536,9 @@ class RepVGGBlock(nn.Module):
         """Fold each branch's BN, pad the 1x1 to 3x3, add identity as a centred delta kernel."""
         if self.rbr_reparam is not None:
             return
-        w3, b3 = bn_fold(self.rbr_dense.bn, self.rbr_dense.conv.weight)
-        w1, b1 = bn_fold(self.rbr_1x1.bn, self.rbr_1x1.conv.weight)
-        w, b = w3 + F.pad(w1, (1, 1, 1, 1)), b3 + b1
+        w, b = fold_rep_branches(self.rbr_dense, self.rbr_1x1)
         if self.rbr_identity is not None:
-            ident = torch.zeros_like(w3)
+            ident = torch.zeros_like(w)
             ident[torch.arange(self.c2), torch.arange(self.c2), 1, 1] = 1.0
             wid, bid = bn_fold(self.rbr_identity, ident)
             w, b = w + wid, b + bid
@@ -458,6 +546,158 @@ class RepVGGBlock(nn.Module):
         self.rbr_reparam.weight.copy_(w)
         self.rbr_reparam.bias.copy_(b)
         self.rbr_dense = self.rbr_1x1 = self.rbr_identity = None
+
+
+class RepConv(nn.Module):
+    """YOLOv9's re-parameterisable conv: a 3x3 Conv `conv1` and a 1x1 Conv `conv2` (each with BN, no activation)
+    summed, then SiLU (`act` True) or nothing; `fuse()` collapses them into one 3x3 conv held as the block's own
+    `weight` and `bias` (the JAX package's fused `kernel` and `bias`). The identity branch of `bn=True` is refused: no
+    model yaml builds it."""
+
+    def __init__(self, c1, c2, k=3, s=1, p=1, g=1, d=1, act=True, bn=False):
+        super().__init__()
+        if k != 3 or p != 1 or d != 1:
+            raise ValueError(f"RepConv is a 3x3 block with padding 1, got k={k} p={p} d={d}")
+        if bn:
+            raise NotImplementedError("RepConv(bn=True), the identity branch, is not ported")
+        self.s, self.g, self.act = s, g, act
+        self.conv1 = Conv(c1, c2, 3, s, p=p, g=g, act=False)
+        self.conv2 = Conv(c1, c2, 1, s, p=p - 1, g=g, act=False)
+        self.register_parameter("weight", None)
+        self.register_parameter("bias", None)
+
+    def forward(self, x):
+        if self.weight is not None:
+            y = F.conv2d(x, self.weight, self.bias, self.s, 1, 1, self.g)
+        else:
+            y = self.conv1(x) + self.conv2(x)
+        return F.silu(y) if self.act is True else y
+
+    @torch.no_grad()
+    def fuse(self) -> None:
+        if self.weight is None:
+            w, b = fold_rep_branches(self.conv1, self.conv2)
+            self.weight, self.bias = nn.Parameter(w), nn.Parameter(b)
+            self.conv1 = self.conv2 = None
+
+
+class RepBottleneck(Bottleneck):
+    """Bottleneck whose first conv is a RepConv."""
+
+    def __init__(self, c1, c2, shortcut=True, g=1, k=(3, 3), e=0.5):
+        super().__init__(c1, c2, shortcut, g, k, e)
+        self.cv1 = RepConv(c1, int(c2 * e), k[0], 1)
+
+
+class RepCSP(C3):
+    """C3 whose blocks are RepBottlenecks."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(RepBottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+
+class RepNCSPELAN4(nn.Module):
+    """YOLOv9's GELAN block: the halves of cv1(x), then cv2 (RepCSP, 3x3 Conv) of the second half and cv3 (the same)
+    of that, all four concatenated into cv4. cv2 and cv3 are sequences (the JAX package's `_Seq`)."""
+
+    def __init__(self, c1, c2, c3, c4, n=1):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = nn.Sequential(RepCSP(c3 // 2, c4, n), Conv(c4, c4, 3, 1))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n), Conv(c4, c4, 3, 1))
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x):
+        y = list(self.cv1(x).chunk(2, 1))
+        y.append(self.cv2(y[-1]))
+        y.append(self.cv3(y[-1]))
+        return self.cv4(torch.cat(y, 1))
+
+
+class ELAN1(RepNCSPELAN4):
+    """RepNCSPELAN4 with a plain 3x3 Conv for cv2 and for cv3 (yolov9t's and -s's first block)."""
+
+    def __init__(self, c1, c2, c3, c4):
+        super().__init__(c1, c2, c3, c4)
+        self.cv2 = Conv(c3 // 2, c4, 3, 1)
+        self.cv3 = Conv(c4, c4, 3, 1)
+
+
+def avg_pool2d_2x1(x: torch.Tensor) -> torch.Tensor:
+    """2x2 mean at stride 1, no padding (H-1 x W-1 out), summed in float32 (or wider) and cast back."""
+    return F.avg_pool2d(wide(x), 2, 1, 0).to(x.dtype)
+
+
+class AConv(nn.Module):
+    """Downsample: a 2x2 mean at stride 1, then a 3x3 stride-2 Conv (on an odd map: not a stride-2 kernel site)."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3, 2, 1)
+
+    def forward(self, x):
+        return self.cv1(avg_pool2d_2x1(x))
+
+
+class ADown(nn.Module):
+    """Downsample: a 2x2 mean at stride 1, then of its halves a 3x3 stride-2 Conv `cv1` and a 3x3 stride-2 max pool
+    (pad 1) with a 1x1 Conv `cv2`, concatenated."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.c = c2 // 2
+        self.cv1 = Conv(c1 // 2, self.c, 3, 2, 1)
+        self.cv2 = Conv(c1 // 2, self.c, 1, 1, 0)
+
+    def forward(self, x):
+        x1, x2 = avg_pool2d_2x1(x).chunk(2, 1)
+        return torch.cat((self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))), 1)
+
+
+class SPPELAN(nn.Module):
+    """SPP-ELAN: cv1, three chained k x k max pools (stride 1, same size), all four concatenated into cv5."""
+
+    def __init__(self, c1, c2, c3, k=5):
+        super().__init__()
+        self.c = c3
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv5 = Conv(4 * c3, c2, 1, 1)
+        self.k = k
+
+    def forward(self, x):
+        y = [self.cv1(x)]
+        for _ in range(3):
+            y.append(F.max_pool2d(y[-1], self.k, 1, self.k // 2))
+        return self.cv5(torch.cat(y, 1))
+
+
+class CBLinear(nn.Module):
+    """YOLOv9-E's projection: one conv with bias to sum(c2s) channels, split into a tuple of c2s widths."""
+
+    def __init__(self, c1, c2s, k=1, s=1, p=None, g=1):
+        super().__init__()
+        self.c2s = list(c2s)
+        self.conv = nn.Conv2d(c1, sum(self.c2s), k, s, autopad(k, p), groups=g, bias=True)
+
+    def forward(self, x):
+        return self.conv(x).split(self.c2s, 1)
+
+
+class CBFuse(nn.Module):
+    """YOLOv9-E's fusion: from each earlier CBLinear tuple its `idx[i]`-th map, resized to the last input's size by
+    half-pixel nearest neighbour ("nearest-exact", as `jax.image.resize`), summed in order, plus the last input."""
+
+    def __init__(self, idx):
+        super().__init__()
+        self.idx = list(idx)
+
+    def forward(self, xs):
+        size = xs[-1].shape[2:]
+        outs = [F.interpolate(x[self.idx[i]], size=size, mode="nearest-exact") for i, x in enumerate(xs[:-1])]
+        return sum(outs) + xs[-1]
 
 
 def dfl_expectation(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_sites, bn_stats_errors, clustered_boxes, s2_site_inputs, s2_sites,
-                        spread_weights, synthetic_batch, synthetic_obb_batch, synthetic_pose_batch, synthetic_seg_batch)
+from chip_smoke import (S2_SUM_FLOOR, S2_TOL, bn_sites, bn_stats_errors, clustered_boxes, float64_grad_errors,
+                        s2_site_inputs, s2_sites, spread_weights, synthetic_batch, synthetic_obb_batch,
+                        synthetic_pose_batch, synthetic_seg_batch)
 from drone_yolo_tpu_torch.engine.trainer import BaseTrainer
 from drone_yolo_tpu_torch.models.yolo.classify import ClassificationTrainer
 from drone_yolo_tpu_torch.models.yolo.obb import OBBTrainer
@@ -736,3 +737,87 @@ def test_tiled_merge_on_the_card_matches_the_cpu(cuda_device):
     want = tiling.tiled_inference(forward, None, img, crop_size=256, gap=64, max_crop_batch=6, iou=0.5, device="cpu")
     assert 0 < len(got) < 25 * 20
     np.testing.assert_array_equal(got, want)
+
+
+# the new yamls' stride-2 sites: GhostConv's cv1 (k=3, s=2) in yolov8s-ghost-p2 at 640 px and the P6 level's downsample
+# (layer 9, 512 -> 768 at 40 px) and its head row (layer 27) in yolov8s-p6 at 1280 px
+ZOO_S2 = {"yolov8s-ghost-p2.yaml": (["0", "1", "3", "5", "7", "19", "22", "25"], 640),
+          "yolov8s-p6.yaml": (["0", "1", "3", "5", "7", "9", "21", "24", "27"], 1280)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", list(ZOO_S2))
+def test_s2_kernel_at_the_zoo_sites(cuda_device, model, dtype):
+    """Every dense k=3 stride-2 site of yolov8s-ghost-p2 (GhostConv's cv1s) and of yolov8s-p6 (its P6 downsample
+    among them), batch 8, against the plain version at chip_smoke's tolerance."""
+    layers, imgsz = ZOO_S2[model]
+    sites = s2_sites(DetectionModel(model), 8, imgsz)
+    assert [s["name"].split(".")[1] for s in sites] == layers and all(s["k"] == 3 for s in sites)
+    dt = getattr(torch, dtype)
+    for i, site in enumerate(sites):
+        x, w, dy = s2_site_inputs(site, dt, seed=700 + i)
+        dx, dw = cuda_s2bwd.s2_bwd_cuda(x, w, dy, 3, site["need_dx"])
+        torch.cuda.synchronize()
+        dx_p, dw_p = conv_s2.s2_bwd_reference(x, w, dy, 3, site["need_dx"])
+        pairs = [("dw", dw, dw_p)] + ([("dx", dx.float(), dx_p.float())] if site["need_dx"] else [])
+        for what, got, want in pairs:
+            tol = dict(S2_TOL[dtype][what])
+            tol["atol"] += S2_SUM_FLOOR * float(want.abs().max())
+            torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{site['name']} {what}: {m}")
+        del x, w, dy, dx, dw, dx_p, dw_p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_stats_kernel_at_the_repconv_inputs(cuda_device, dtype):
+    """The BN inputs of yolov9c's RepConvs (both branches, `conv1.bn` and `conv2.bn`) at batch 8, 640 px against
+    `bn_stats_reference` at chip_smoke's tolerance."""
+    sites = [s for s in bn_sites(DetectionModel("yolov9c.yaml"), 8, 640)
+             if ".conv1.bn" in s["name"] or ".conv2.bn" in s["name"]]
+    assert len(sites) == 2 * sum(isinstance(m, M.RepConv) for m in DetectionModel("yolov9c.yaml").modules()) > 0
+    for i, site in enumerate(sites):
+        g = torch.Generator(device=cuda_device).manual_seed(900 + i)
+        x = (torch.randn(site["x"], generator=g, device=cuda_device) * 2 + 0.5).to(getattr(torch, dtype))
+        s, q = bn_stats(x)
+        errs = bn_stats_errors(x, s, q)
+        assert errs["sum_err_over_tol"] <= 1 and errs["sumsq_err_over_tol"] <= 1, (site, errs)
+        del x, s, q
+
+
+def test_nms_over_a_p6_models_candidates(cuda_device):
+    """The NMS step with the kernel against the step with the plain keep on a P6 model's predictions at 1280 px
+    (yolov8n-p6, 4 levels to stride 64: 34,000 anchors a frame), multi-label at K = 4096 and single-label at 1024."""
+    model = DetectionModel("yolov8n-p6.yaml", nc=80)
+    model.init(0, imgsz=1280)
+    model = model.to(cuda_device).eval()
+    x = torch.rand(2, 3, 1280, 1280, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        preds = model(x)[0]
+    assert preds.shape == (2, sum((1280 // s) ** 2 for s in (8, 16, 32, 64)), 84)
+    for multi_label, pre_topk in ((True, 4096), (False, 1024)):
+        cuda_nms.reset_counts()
+        dets, n = non_max_suppression(preds, conf_thres=0.0, iou_thres=0.7, pre_topk=pre_topk, multi_label=multi_label)
+        assert cuda_nms.greedy_keep_cuda.calls == 1
+        cand_boxes, top_scores, cls_idx, valid, off_boxes, extra = select_candidates(preds, 0.0, pre_topk,
+                                                                                     multi_label=multi_label)
+        keep = greedy_keep_reference(off_boxes, valid, 0.7)
+        dets_ref, n_ref = compact(keep, cand_boxes, top_scores, cls_idx, 300, extra)
+        assert torch.equal(n, n_ref) and torch.equal(dets, dets_ref)
+
+
+@pytest.mark.parametrize("model", ["yolov9t.yaml", "yolov8s-ghost-p2.yaml", "yolov6n.yaml"])
+def test_zoo_gradients_with_both_kernels_as_close_to_float64_as_stock(cuda_device, model):
+    """yolov9t (RepConv, ADown/AConv, whose stride-2 convs are not sites), yolov8s-ghost-p2 (GhostConv sites) and
+    yolov6n (ReLU, transposed convs), nc 2, imgsz 160, batch 2: one float32 backward (TF32 off) with both kernels and
+    one stock from the same init, each parameter's gradient against a float64 stock backward. Through these deep
+    stacks the two float32 runs part by their sums' order alone (stock is ~1e-3 of the largest entry from float64 in
+    yolov9t, ~3e-2 in yolov6n), so the kernels' run is held to stock's distance from float64, not to stock's run: its
+    largest error over the tensors within 2x stock's plus 1e-6, and the kernels called at every site and BN input."""
+    imgsz = 160
+    base = DetectionModel(model, nc=2)
+    base.init(0, imgsz=imgsz)
+    n_bn, n_s2 = len(bn_sites(base, 2, imgsz)), len(s2_sites(base, 2, imgsz))
+    assert n_s2 > 0 and n_bn > 0
+    out = float64_grad_errors(base, synthetic_batch(np.random.default_rng(10), 2, imgsz, 2))
+    assert out["calls"]["kernels"] == {"s2": {"s2_bwd_k3": n_s2, "s2_bwd_k1": 0}, "bn": n_bn}
+    assert out["calls"]["stock"] == {"s2": {"s2_bwd_k3": 0, "s2_bwd_k1": 0}, "bn": 0}
+    assert out["kernels_within_stock"], out["max_rel_err_vs_float64"]

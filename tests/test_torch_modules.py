@@ -100,7 +100,8 @@ def test_module_matches_jax(name, fused):
         variables = jax.tree_util.tree_map(np.asarray, jm.fuse_vars(variables))
         fuse_port(tm)
         # the fold is the same float32 arithmetic in both packages
-        want = {k.removeprefix("model.0."): v for k, v in from_jax_variables({"0": variables}).items()}
+        layer0 = torch.nn.ModuleDict({"model": torch.nn.ModuleList([tm])})  # `tm` as a model's layer 0
+        want = {k.removeprefix("model.0."): v for k, v in from_jax_variables({"0": variables}, layer0).items()}
         got = tm.state_dict()
         assert got.keys() == want.keys()
         for k in got:

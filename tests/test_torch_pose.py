@@ -75,7 +75,7 @@ def test_pose_fuse_covers_cv4(pose_pair):
     fused.model.load_state_dict(port.model.state_dict())
     fused.initialized = True
     fused.fuse()
-    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, ref.model.fuse(ref.variables)))
+    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, ref.model.fuse(ref.variables)), fused.model)
     got = fused.model.state_dict()
     assert got.keys() == want.keys() and any(".cv4." in k for k in got)
     for k in got:

@@ -136,7 +136,8 @@ def test_segment_bridge_fuse_and_npz(seg_pair, tmp_path):
     fused.model.load_state_dict(port.model.state_dict())
     fused.initialized = True
     fused.fuse()
-    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, jax.jit(ref.model.fuse)(ref.variables)))
+    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, jax.jit(ref.model.fuse)(ref.variables)),
+                              fused.model)
     got = fused.model.state_dict()
     assert got.keys() == want.keys()
     for k in got:
