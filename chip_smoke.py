@@ -4,7 +4,9 @@ clip with BoT-SORT and its camera-motion compensation, tiles a 4K frame, drives 
 command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model,
 predicts with, trains and validates an instance segmentation model and an oriented box model, does the same
 with the YOLO11 and YOLO12 families, and with the classifiers (yolov8s-cls, yolo11s-cls, yolo12s-cls and the
-ResNet-50 and ResNet-18 trunks), and predicts with and trains the YOLOv3, v5, v6, P6, Ghost and YOLOv9 yamls.
+ResNet-50 and ResNet-18 trunks), predicts with and trains the YOLOv3, v5, v6, P6, Ghost and YOLOv9 yamls, and runs
+the analytics apps over tracks (counting, regions, queues, speed, distance, heatmap, parking, alarm, zone, workout
+counting, a mask overlay, the browser app) and the gait study.
 
     python3 chip_smoke.py
 
@@ -235,9 +237,30 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    stride-2 (k=3, k=1) and BN calls of every step exactly as the model's sites and BN inputs, one NMS call a predict
    or val batch, every keep mask equal to `greedy_keep_reference`; the bf16 loss of the 5- and 10-step runs falling
    below its first value;
-20. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn or matplotlib was imported, with the
-   modules of every path (apps, trackers, the pose, segment, obb and classify predictors, trainers and validators,
-   the loaders, `ops/rotated.py`) loaded.
+20. solutions: the analytics layer over tracks (`drone_yolo_tpu_torch/solutions/`, `SOLUTIONS_CELL`). The flagship
+   at full width (fused, bf16, 640 px, batch 1, `calibrated_weights`: 1.5% of frame 0's anchors above conf 0.25)
+   over the track cell's 1080x1920 `moving_frames` cut to their first 4 (the cut is printed), ByteTrack (named in the
+   facade's overrides, as in the track cell) anew for each app: `ObjectCounter` with a line across the middle and with a central polygon,
+   `RegionCounter` with the two halves, `QueueManager`, `SpeedEstimator` and `DistanceCalculation` (metres per pixel
+   from the track cell's `GeoConverter` GSD at 80 m), `Heatmap` (PARULA), `ParkingManagement` with a 4x8 grid of
+   slots, `SecurityAlarm` (more than 50 tracks), `TrackZone` and `Analytics`; `AIGym` on `yolov8s-pose.yaml` and
+   `InstanceSegmentation` on `yolov8s-seg.yaml` (calibrated as in the draw phase) over the same frames; `Inference`
+   under a fake UI (`fake_streamlit`: video upload, tracking on, the flagship saved as an npz) over an MJPEG AVI of 4
+   720x1280 crops that the phase writes, read by the port's `FrameCapture`; then `GaitStudy` over 28 synthetic
+   walkers (`make_walker`, a copy of the gait test's) on the host. Every NMS keep mask is held against
+   `greedy_keep_reference` (inside the track ms: ~1.4 ms a frame), counts set to 0 before each app and read after
+   it. Checks: one NMS call (two launches) a frame for every app; every returned frame at its source's shape; a
+   line or polygon counter's IN + OUT at most the tracks it saw; each frame's region counts summing to at most its
+   boxes; the heatmap finite and not all zero; the speeds finite; the analytics series one entry a frame, summing
+   to the last frame's tracks; the app showing every frame of the AVI in both panes; the gait report with every
+   `FEATURE_NAMES` key for every walker. Printed: each app's frames/s and its ms a frame split into track (the
+   facade's track or predict), drawing (the Annotator, `Results.plot`, the colormap and blend) and the app's own
+   logic (the rest), its counts; the host's drawing costs alone (`drawing_cost`: a box label, a 30-point history,
+   the heatmap's colormap and blend of a 1080p frame); the gait study's seconds, cross-validated accuracy and the
+   forest's fit seconds;
+21. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn, matplotlib or streamlit was imported,
+   with the modules of every path (apps, solutions, trackers, the pose, segment, obb and classify predictors,
+   trainers and validators, the loaders, `ops/rotated.py`) loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -438,6 +461,22 @@ IMAGENET_WNIDS = ("n01440764", "n01443537", "n01484850", "n01491361", "n01494475
 # float32 probabilities, card (TF32 off) vs CPU: the two sum in different orders (~1e-6 relative a layer); a
 # probability's relative error is about its logit's absolute error, here logits of a few units
 CLS_PROB_RTOL, CLS_PROB_ATOL = 1e-3, 1e-7
+
+# the solutions phase: the analytics apps over tracks (`drone_yolo_tpu_torch/solutions/`) on the track cell's 1080p
+# frames, cut from 64 to `frames` to fit the phase's 90 s: every app draws every box on the host (~7 ms a box label on
+# the host of an H100 machine, where 6 frames with BoT-SORT took 87.5 s alone and 5 frames 104 s in a whole script).
+# The flagship's weights are calibrated so that a share of 0.015 of frame 0's anchors pass conf 0.25 (~60 boxes a
+# frame, a VisDrone frame's density; the track cell's 0.05 gives ~300); the pose and segment models as in the draw
+# phase. ByteTrack tracks every app, as in the track cell: with BoT-SORT, the facade's default, each app's new tracker
+# captures its optical flow's CUDA graphs anew (a frame shape and point-count bucket each), so over a few frames the
+# captures, not the apps, set the track time (the botsort phase measures BoT-SORT over 64 frames). The GSD at 80 m
+# gives metres per pixel. The browser app runs under a fake UI over an MJPEG AVI of `app_frames` 720x1280 crops of the
+# frames; the gait study over 28 synthetic walkers in two groups
+SOLUTIONS_CELL = dict(frames=4, tracker="bytetrack.yaml", share_above_conf=0.015, line_width=2, fps=30.0,
+                      parking_grid=(4, 8), alarm_records=50,
+                      task_models={"AIGym": ("yolov8s-pose.yaml", 0.01),
+                                   "InstanceSegmentation": ("yolov8s-seg.yaml", 0.004)}, app_frames=4,
+                      app_hw=(720, 1280), walkers=28, gait_seed=2)
 
 T0 = time.perf_counter()
 
@@ -3635,6 +3674,353 @@ def run_zoo(smi: str) -> dict:
     return out
 
 
+def make_walker(rng: np.random.Generator, n_frames: int = 120, fps: float = 30.0, cadence: float = 1.8,
+                speed: float = 80.0, noise: float = 1.0) -> np.ndarray:
+    """A synthetic COCO-17 walking track (T, 17, 2): hips advance at `speed` px/s, ankles swing fore and aft at
+    `cadence` steps/s (a copy of `tests/test_gait.py:make_walker`)."""
+    t = np.arange(n_frames) / fps
+    kpts = np.zeros((n_frames, 17, 2))
+    hip_x = speed * t + rng.normal(0, noise, n_frames).cumsum() * 0.01
+    hip_y = 200 + 2 * np.sin(2 * np.pi * cadence * t)
+    stride_hz = cadence / 2
+    phase = 2 * np.pi * stride_hz * t
+    amp = speed / (2 * np.pi * stride_hz) * 0.9
+    for hip, knee, ankle, sgn, ph in ((11, 13, 15, -1, 0.0), (12, 14, 16, 1, np.pi)):
+        kpts[:, hip] = np.stack([hip_x + sgn * 8, hip_y], 1)
+        kpts[:, ankle] = np.stack([hip_x + amp * np.sin(phase + ph) + sgn * 10, hip_y + 80], 1)
+        kpts[:, knee] = (kpts[:, hip] + kpts[:, ankle]) / 2 + np.stack([10 * np.cos(phase + ph), np.zeros(n_frames)], 1)
+    kpts[:, 5] = kpts[:, 11] + [0, -60]
+    kpts[:, 6] = kpts[:, 12] + [0, -60]
+    kpts += rng.normal(0, noise, kpts.shape)
+    return kpts
+
+
+def fake_streamlit(choices: dict, upload=None):
+    """A stand-in for the streamlit module that `solutions.Inference` drives: the sidebar answers each widget from
+    `choices` ({label: value}), `upload` is the uploaded file, Start is pressed, Stop is not; the two frame panes keep
+    what they are shown."""
+
+    class Pane:
+        def __init__(self):
+            self.frames = []
+
+        def image(self, img, **kw):
+            self.frames.append(np.asarray(img))
+
+        def empty(self):
+            return self
+
+    class Sidebar:
+        def title(self, *a):
+            pass
+
+        def selectbox(self, label, options):
+            return choices.get(label, options[0])
+
+        def radio(self, label, options):
+            return choices.get(label, options[0])
+
+        def slider(self, label, lo, hi, val, step):
+            return choices.get(label, val)
+
+        def multiselect(self, label, options, default=None):
+            return choices.get(label, default or [])
+
+        def file_uploader(self, *a, **k):
+            return upload
+
+        def button(self, label):
+            return True
+
+    class St:
+        sidebar = Sidebar()
+        panes = (Pane(), Pane())
+        messages = []
+
+        def set_page_config(self, **kw):
+            pass
+
+        def markdown(self, *a, **k):
+            pass
+
+        def columns(self, n):
+            return self.panes
+
+        def spinner(self, msg):
+            return contextlib.nullcontext()
+
+        def success(self, msg):
+            pass
+
+        def error(self, msg):
+            self.messages.append(("error", msg))
+
+        def warning(self, msg):
+            self.messages.append(("warning", msg))
+
+        def button(self, label):
+            return False
+
+        def stop(self):
+            raise SystemExit
+
+    return St()
+
+
+def drawing_cost(frame: np.ndarray, n: int = 50) -> dict:
+    """Host ms of the apps' drawing on a copy of `frame`: a box label (`Annotator.box_label`, boxes of 24-120 px), a
+    30-point track history (`draw_centroid_and_tracks`), each the mean of `n`; the heatmap's colormap and blend of
+    the whole frame."""
+    from drone_yolo_tpu_torch.ops.draw import add_weighted, apply_color_map
+    from drone_yolo_tpu_torch.utils.plotting import Annotator, colors
+
+    rng = np.random.default_rng(0)
+    h, w = frame.shape[:2]
+    ann = Annotator(frame.copy(), line_width=SOLUTIONS_CELL["line_width"])
+    xy, wh = rng.uniform(0, [w - 120, h - 120], (n, 2)), rng.uniform(24, 120, (n, 2))
+    t = time.perf_counter()
+    for i, (p, s) in enumerate(zip(xy, wh)):
+        ann.box_label([*p, *(p + s)], f"class{i % 80} #{i}", color=colors(i, True))
+    label = (time.perf_counter() - t) * 1e3 / n
+    track = [(float(x), float(y)) for x, y in np.cumsum(rng.normal(0, 8, (30, 2)), 0) + [w / 2, h / 2]]
+    t = time.perf_counter()
+    for i in range(n):
+        ann.draw_centroid_and_tracks(track, color=colors(i, True), track_thickness=SOLUTIONS_CELL["line_width"])
+    history = (time.perf_counter() - t) * 1e3 / n
+    gray = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    t = time.perf_counter()
+    add_weighted(frame, 0.5, apply_color_map(gray, 12), 0.5, 0)
+    return {"box_label": label, "track_history_30": history, "colormap_and_blend": (time.perf_counter() - t) * 1e3}
+
+
+def run_solutions(smi: str) -> dict:
+    """Phase 20: the analytics layer over tracks on the card (see the module docstring), its checks and its numbers."""
+    import drone_yolo_tpu_torch.solutions.heatmap as heatmap_mod
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch import solutions as S
+    from drone_yolo_tpu_torch.apps import GeoConverter
+    from drone_yolo_tpu_torch.apps.forest import RandomForestClassifier
+    from drone_yolo_tpu_torch.apps.gait import FEATURE_NAMES, GaitStudy
+    from drone_yolo_tpu_torch.data.avi import AviWriter
+    from drone_yolo_tpu_torch.engine.results import Results
+    from drone_yolo_tpu_torch.ops import cuda_nms
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+    from drone_yolo_tpu_torch.trackers.byte_tracker import STrack
+    from drone_yolo_tpu_torch.utils.plotting import Annotator
+
+    c, tc = SOLUTIONS_CELL, TRACK_CELL
+    t_phase = time.perf_counter()
+    h, w = tc["hw"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_solutions_"))
+    frames = moving_frames(np.random.default_rng(tc["seed"]), tc["frames"], tc["hw"], tc["objects"], tc["obj_px"])
+    frames = frames[:c["frames"]]
+    det = YOLO(FLAGSHIP)
+    biases = {FLAGSHIP: calibrated_weights(det, frames[0], 0, tc["cls_gain"], c["share_above_conf"], tc["conf"],
+                                           tc["imgsz"])}
+    det.overrides.update(imgsz=tc["imgsz"], tracker=c["tracker"])
+    det.save(tmp / "flagship.npz")  # the browser app's model, before the predictor fuses it
+    task_models = {}
+    for seed, (app, (name, share)) in enumerate(c["task_models"].items(), 1):
+        m = YOLO(name)
+        biases[name] = calibrated_weights(m, frames[0], seed, tc["cls_gain"], share, tc["conf"], tc["imgsz"])
+        m.overrides.update(imgsz=tc["imgsz"])
+        task_models[app] = m
+    geo = GeoConverter(**tc["geo"], image_width_px=w, image_height_px=h)
+    mid = [(w // 4, h // 4), (3 * w // 4, h // 4), (3 * w // 4, 3 * h // 4), (w // 4, 3 * h // 4)]
+    halves = {"left": [(0, 0), (w // 2, 0), (w // 2, h), (0, h)], "right": [(w // 2, 0), (w, 0), (w, h), (w // 2, h)]}
+    sw, sh = w // c["parking_grid"][1], h // c["parking_grid"][0]
+    slots = [[(x, y), (x + sw, y), (x + sw, y + sh), (x, y + sh)] for y in range(0, sh * c["parking_grid"][0], sh)
+             for x in range(0, sw * c["parking_grid"][1], sw)]
+    common = dict(conf=tc["conf"], line_width=c["line_width"])
+    solutions = {
+        "ObjectCounter_line": lambda: S.ObjectCounter(model=det, region=[(0, h // 2), (w, h // 2)], **common),
+        "ObjectCounter_polygon": lambda: S.ObjectCounter(model=det, region=mid, **common),
+        "RegionCounter": lambda: S.RegionCounter(model=det, regions=halves, **common),
+        "QueueManager": lambda: S.QueueManager(model=det, region=mid, **common),
+        "SpeedEstimator": lambda: S.SpeedEstimator(model=det, meters_per_pixel=geo.gsd, fps=c["fps"], **common),
+        "DistanceCalculation": lambda: S.DistanceCalculation(model=det, meters_per_pixel=geo.gsd, **common),
+        "Heatmap": lambda: S.Heatmap(model=det, **common),
+        "ParkingManagement": lambda: S.ParkingManagement(model=det, parking_regions=slots, **common),
+        "SecurityAlarm": lambda: S.SecurityAlarm(model=det, records=c["alarm_records"], on_alarm=lambda n: None,
+                                                 **common),
+        "TrackZone": lambda: S.TrackZone(model=det, region=mid, **common),
+        "Analytics": lambda: S.Analytics(model=det, **common),
+        "AIGym": lambda: S.AIGym(model=task_models["AIGym"], **common),
+        "InstanceSegmentation": lambda: S.InstanceSegmentation(model=task_models["InstanceSegmentation"], **common),
+    }
+
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):
+        keep = kernel_keep(boxes, valid, iou_thres)
+        checks.append(bool(torch.equal(keep, nms_ops.greedy_keep_reference(boxes, valid, iou_thres))))
+        return keep
+
+    spent, depth = defaultdict(float), [0]
+
+    def timed(key, fn):
+        """fn timed into spent[key], the outermost call only (drawing calls nest)."""
+        def run(*a, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    spent[key] += time.perf_counter() - t0
+        return run
+
+    drawing = [(Annotator, n) for n in ("box_label", "draw_region", "draw_centroid_and_tracks", "_label_box",
+                                        "display_analytics", "plot_angle_and_count_and_stage",
+                                        "plot_distance_and_line", "kpts", "masks")]
+    drawing += [(Results, "plot"), (heatmap_mod, "apply_color_map"), (heatmap_mod, "add_weighted")]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in drawing]
+    results, nms_ok = {}, True
+    nms_ops.greedy_keep = checked_keep
+    try:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, timed("draw", fn))
+        for name, make in solutions.items():
+            model = task_models.get(name, det)
+            if model.predictor is not None:
+                model.predictor.__dict__.pop("trackers", None)  # a new tracker, as for a new video
+            STrack.reset_id()
+            sol = make()
+            for mth in ("track", "predict"):
+                setattr(model, mth, timed("track", getattr(model, mth)))
+            spent.clear()
+            first = len(checks)
+            seen, per_frame, track_ms, tracked = set(), [], [], name not in ("AIGym", "InstanceSegmentation")
+            cuda_nms.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                for f in frames:
+                    before = spent["track"]
+                    out = sol.process(f)
+                    track_ms.append((spent["track"] - before) * 1e3)
+                    seen.update(sol.track_ids)
+                    per_frame.append({"boxes": len(sol.boxes) if tracked else out["n"] if "n" in out else
+                                      len(out["stages"]), **{k: v for k, v in out.items()
+                                                                  if k in ("region_counts", "n", "queue_count")}})
+                    if out["im0"].shape != f.shape or out["im0"].dtype != np.uint8:
+                        raise AssertionError(f"solutions: {name} returned a frame of {out['im0'].shape}")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                del model.track, model.predict
+            calls, launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
+            nms_ok &= calls == len(frames) == len(checks) - first and launches == 2 * calls
+            n = len(frames)
+            row = {"fps": n / wall, "ms_per_frame": {"track": spent["track"] * 1e3 / n, "draw": spent["draw"] * 1e3 / n,
+                                                     "logic": (wall - spent["track"] - spent["draw"]) * 1e3 / n},
+                   "track_ms_first_frame": track_ms[0], "track_ms_median_after": float(np.median(track_ms[1:])),
+                   "nms_calls": calls, "nms_launches": launches, "tracks_seen": len(seen),
+                   ("boxes_per_frame" if tracked else "instances_per_frame"): float(np.mean([p["boxes"] for p in per_frame]))}
+            if name.startswith("ObjectCounter"):
+                row.update(in_count=out["in_count"], out_count=out["out_count"], classwise=out["classwise"])
+                if out["in_count"] + out["out_count"] > len(seen):
+                    raise AssertionError(f"solutions: {name} counted {out['in_count']} + {out['out_count']} of "
+                                         f"{len(seen)} tracks")
+            elif name == "RegionCounter":
+                row["region_counts_last"] = out["region_counts"]
+                if any(sum(p["region_counts"].values()) > p["boxes"] for p in per_frame):
+                    raise AssertionError(f"solutions: region counts {per_frame} above the boxes")
+            elif name == "QueueManager":
+                row["queue_counts"] = [p["queue_count"] for p in per_frame]
+            elif name == "SpeedEstimator":
+                v = np.array(list(out["speeds"].values()))
+                if not len(v) or not np.isfinite(v).all():
+                    raise AssertionError(f"solutions: speeds {out['speeds']}")
+                row.update(meters_per_pixel=geo.gsd, speeds_kmh={"tracks": len(v), "median": float(np.median(v)),
+                                                                 "max": float(v.max())})
+            elif name == "DistanceCalculation":
+                row.update(distance_m=out["distance_m"], pair=out["pair"])
+            elif name == "Heatmap":
+                heat = out["heatmap"]
+                if not np.isfinite(heat).all() or heat.max() <= 0:
+                    raise AssertionError(f"solutions: heatmap max {heat.max()}")
+                row.update(heat_max=float(heat.max()), heat_nonzero_share=float((heat > 0).mean()))
+            elif name == "ParkingManagement":
+                row.update(occupied=out["occupied"], available=out["available"], slots=len(slots))
+            elif name == "SecurityAlarm":
+                row.update(triggered=out["triggered"], records=c["alarm_records"], n_last=out["n"])
+            elif name == "TrackZone":
+                row["n_tracks_last"] = out["n_tracks"]
+            elif name == "Analytics":
+                row["series_last"] = out["series"][-1]
+                if len(out["series"]) != n or sum(out["series"][-1].values()) != per_frame[-1]["boxes"]:
+                    raise AssertionError(f"solutions: analytics series {out['series'][-1]}")
+            elif name == "AIGym":
+                row.update(counts=out["counts"], people_last=len(out["stages"]))
+            results[name] = row
+
+        # the browser app under a fake UI, tracking over an MJPEG AVI that the phase writes
+        ah, aw = c["app_hw"]
+        with AviWriter(tmp / "clip.avi", fps=c["fps"]) as writer:
+            for f in frames[:c["app_frames"]]:
+                writer.write(np.ascontiguousarray(f[:ah, :aw]))
+
+        class Upload:
+            name = "clip.avi"
+
+            def read(self):
+                return (tmp / "clip.avi").read_bytes()
+
+        st = fake_streamlit({"Video": "video", "Enable Tracking": "Yes", "Model": str(tmp / "flagship.npz")}, Upload())
+        app = S.Inference(st_module=st, model=str(tmp / "flagship.npz"))
+        first = len(checks)
+        cuda_nms.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.chdir(tmp):
+            app.inference()
+        wall = time.perf_counter() - t0
+        calls, launches = cuda_nms.greedy_keep_cuda.calls, cuda_nms.greedy_keep_cuda.launches
+        shown = [len(p.frames) for p in st.panes]
+        if shown != [c["app_frames"]] * 2 or st.panes[1].frames[0].shape != (ah, aw, 3) or \
+                not (tmp / "drone_yolo_upload.avi").exists():
+            raise AssertionError(f"solutions: the app showed {shown} frames, {st.messages}")
+        nms_ok &= calls == c["app_frames"] == len(checks) - first and launches == 2 * calls
+        results["Inference"] = {"fps": c["app_frames"] / wall, "frames": c["app_frames"], "frame_hw": [ah, aw],
+                                "nms_calls": calls, "nms_launches": launches, "messages": st.messages}
+    finally:
+        nms_ops.greedy_keep = kernel_keep
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(checks) or not nms_ok:
+        raise AssertionError(f"solutions: {checks.count(False)} of {len(checks)} keep masks differ from the plain "
+                             f"keep, or an app's NMS calls are not one a frame with two launches each: {results}")
+
+    # the gait study on the host: 28 synthetic walkers of two groups
+    rng = np.random.default_rng(c["gait_seed"])
+    tracks, groups = {}, {}
+    for i in range(c["walkers"]):
+        old = i < c["walkers"] // 2
+        tracks[i] = make_walker(rng, cadence=rng.normal(1.6 if old else 2.2, 0.08),
+                                speed=rng.normal(70 if old else 100, 4))
+        groups[i] = "old" if old else "young"
+    t0 = time.perf_counter()
+    report = GaitStudy(fps=c["fps"]).run(tracks, groups)
+    gait_s = time.perf_counter() - t0
+    if any(set(f) != set(FEATURE_NAMES) for f in report["features"].values()) or \
+            set(report["classifier"]["importances"]) != set(FEATURE_NAMES) or len(report["features"]) != len(tracks):
+        raise AssertionError(f"solutions: the gait report lacks features: {report}")
+    x = np.array([[f[k] for k in FEATURE_NAMES] for f in report["features"].values()])
+    t0 = time.perf_counter()
+    RandomForestClassifier(200, 0).fit(x, [groups[i] for i in report["features"]])
+    fit_s = time.perf_counter() - t0
+    gait = {"walkers": len(tracks), "seconds": gait_s, "forest_fit_s": fit_s, "classifier": report["classifier"],
+            "significant_anova": sorted(k for k, v in report["stats"].items() if v["anova_p"] < 0.05)}
+    nms_calls = sum(r["nms_calls"] for r in results.values())
+    return {"nvidia_smi": smi, "cell": c, "class_bias": biases, "frames": len(frames),
+            "host_drawing_ms": drawing_cost(frames[0]),
+            "frames_cut": f"{len(frames)} of the track cell's {tc['frames']} frames ({h}x{w})", "solutions": results,
+            "nms_keep_checks": {"calls": len(checks), "all_equal_plain": True}, "nms_calls": nms_calls,
+            "nms_launches": 2 * nms_calls, "gait": gait, "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4176,7 +4562,15 @@ def main() -> None:
         kern["launches_by_path"]["zoo"] = n
     emit("zoo", t, **zoo)
 
-    # 20. imports ---------------------------------------------------------------
+    # 20. solutions: the analytics apps over tracks and the gait study ---------------------------
+    t = time.perf_counter()
+    sol = run_solutions(smi)
+    nms_row["launches"] += sol["nms_launches"]
+    nms_row["calls"] += sol["nms_calls"]
+    nms_row["launches_by_path"]["solutions"] = sol["nms_launches"]
+    emit("solutions", t, **sol)
+
+    # 21. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401
@@ -4186,6 +4580,7 @@ def main() -> None:
     import drone_yolo_tpu_torch.models.yolo.obb  # noqa: F401  (the obb predictor, trainer and validator)
     import drone_yolo_tpu_torch.models.yolo.classify  # noqa: F401  (the classify predictor, trainer and validator)
     import drone_yolo_tpu_torch.ops.rotated  # noqa: F401  (min_area_rect, OpenCV's without cv2)
+    import drone_yolo_tpu_torch.solutions  # noqa: F401  (the analytics apps and the browser app)
     import drone_yolo_tpu_torch.trackers  # noqa: F401
     from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
@@ -4200,7 +4595,7 @@ def main() -> None:
                                                                 "ClassificationPredictor"]:
         raise AssertionError(f"TASK_MAP['classify'] = {TASK_MAP['classify']}")
 
-    absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib"]
+    absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib", "streamlit"]
     loaded = sorted(m for m in absent if m in sys.modules)
     if loaded:
         raise AssertionError(f"the port imported {loaded}")

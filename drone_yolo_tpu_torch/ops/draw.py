@@ -20,7 +20,10 @@ draws the same pixels as OpenCV 5.0 with these functions, on (H, W, 3) or (H, W)
   character's cell of the box and blended by its coverage: their pixels differ from OpenCV's outline glyphs, which
   are not reproduced. The port's strokes stay inside the box; OpenCV's ink reaches up to lw / 2 + 1 px left of it;
 - `add_weighted` (`cv2.addWeighted` on uint8: float32 b * beta, then a * alpha added in one rounding, as a fused
-  multiply-add, rounded half to even and saturated). INTER_NEAREST is `ops/letterbox.py:resize_nearest`.
+  multiply-add, rounded half to even and saturated). INTER_NEAREST is `ops/letterbox.py:resize_nearest`;
+- `apply_color_map` (`cv2.applyColorMap` on a one-channel uint8 image) for OpenCV 5.0's 22 colormaps, their constants
+  cv2's (`COLORMAP_PARULA` = 12, ...): each a table of 256 BGR colors, read from OpenCV 5.0 at every level and stored
+  as per-channel differences, zlib-compressed (`_COLORMAPS`).
 
 Every shape is bit-equal to the installed OpenCV on the seeded cases of `tests/test_torch_plotting.py`. Circles are
 drawn filled only, as every cv2.circle call of the JAX package draws them.
@@ -28,7 +31,9 @@ drawn filled only, as every cv2.circle call of the JAX package draws them.
 
 from __future__ import annotations
 
+import base64
 import math
+import zlib
 
 import numpy as np
 
@@ -597,3 +602,49 @@ def put_text(img: np.ndarray, text: str, org, font_scale: float, color, thicknes
             img[ys, xs] = v + (((c if img.ndim == 3 else c[0]) - v) * a + 127 >> 8)
         x += adv[k]
     return img
+
+
+# -- colormaps ---------------------------------------------------------------------------------------------------------
+(COLORMAP_AUTUMN, COLORMAP_BONE, COLORMAP_JET, COLORMAP_WINTER, COLORMAP_RAINBOW, COLORMAP_OCEAN, COLORMAP_SUMMER,
+ COLORMAP_SPRING, COLORMAP_COOL, COLORMAP_HSV, COLORMAP_PINK, COLORMAP_HOT, COLORMAP_PARULA, COLORMAP_MAGMA,
+ COLORMAP_INFERNO, COLORMAP_PLASMA, COLORMAP_VIRIDIS, COLORMAP_CIVIDIS, COLORMAP_TWILIGHT, COLORMAP_TWILIGHT_SHIFTED,
+ COLORMAP_TURBO, COLORMAP_DEEPGREEN) = range(22)
+# the 22 tables (colormap, channel B G R, level) as differences from the level below, modulo 256, zlib, base64
+_COLORMAPS = (
+    "eNrtWzmSGzcUBdAkR+UqJy6fwKEjJS4HShU78hl8DmU6o1Mdw2Lji2jgr/joYQ+Hs5hEY+0hie39FZgQbjzE2w5w3/9U1oEy3XrSe24tOUEsqOLZ"
+    "2rbc9PdwhYHpcsNaPr6gXvbG59+Xz9lfXZ5EmVOu/v3Lbj1MF5IXHC8K31+dP+0uC5eu33zZ+h1fe/nShesXr7x+cALYxWnteY7fv2K6df0n3MMb"
+    "1crTfmOYUkrb9zNNp+8tqTxeXabR+z6Vh8oiq7eJTYD8fWOYc86bxeXLyNfChTfN5fT5eTNmUlnw3bZ4539Xkfon8q06ZlUzr5cu+f3yvCOeOF0j"
+    "/HPjguZLkTU3nG7e/3Xj4e7/vO1w8/O/0/9d/332cDgznEyQKT1353me5+N/Z4b3NNRX5X+vP9Tr7NTh4fBQnRolsEklTl58wjG5SFzoqEqZ+ZVz"
+    "nnYIpAdsz4fkLOyErjv/1qU9jlkdoXgRBr3KnpdHRt0av2vxp1OoJxUFNtXJVRwpZSloRWhdupnYw85uMjzCKMai62uZ2xi+2j7//084bd602+o0"
+    "faGhVUid5zl9cnqSOH+b/t8XC18Xop9Url4sp1jtMMvLbGErubiylzhKGDN4UWjoftX8VJfWw++pMrqYREW2PPa8qSlkmifqGhPirGuDVFS6hpGt"
+    "VswixzbXAKj4Iy8rn92iVLS4DV2z33jVbp2lYTGAHWaLNGoSyVSqyF6R8MQQwNP3am1XvdTtx1ISnUzIsrAgecjSWctfJVCi1zPUpAloOSUWsaIb"
+    "sxbrF8SP0w5b7CWx6bjKLQqIt5J/KnTampwV4w54ehIVDvx6wLtIMj13F4foIIFnwHPoK+oDg5yrrCKItWRQye5jkoNgpUivdF/pM78qvkdKlmIm"
+    "3c7Enm+cZ+twreDfgb0APeGexoKDGGlQiHSD8pohxmHsesk2d4QFFVDpol2Gals74VSQnxTVqDwt7NvlnHI9J0oSYFiKmYFCvgB+8I2ZgUXTUZiG"
+    "u2ZgRMiGlA0lRA/6HKLTxjO52hdOXw5CMRBaUwv/lWz1hQv0kUmhzZ3wKA14rBaM9oKsc+nuq71FGGK0hqq0IXrAg8R6x8UNzg3oQ1cz5VrhviXS"
+    "QnpDwQFKt4jN9zl/AKNTmNJRPuQPCTPcit/UMdO1UjdT9C+BJmPuO1qNehyua3D886JokPg3SI/K9h3ANzl3LB1fRPTdCcHzKASLRE+q9qYtozMG"
+    "u2/2nloDyN+GBI3CqwcSrL4Te+ETtzneOq2IiFWMU5IT9Jo/GxCounJsqTSquCi/TQpG6mAjIKYcNb2bY8Wp5O3u8E1Ya1t0WJAoj1OIA/eZ6wSp"
+    "xedgjZAQztNZVy49euaiKGU1gIQCYilKhQyvOCeW7zJMSessE1rpTfp3Ea3y5Rt/GQm30LZWeAf80b2CpCvakqM1V/LEtRVC1z/4G+HSNFgrApQq"
+    "VcnhFIp1+JvLaKySYj9xTmP0C1L3CZ3vVKVBpa+ObuArYvKOukZ+8lh0QxYKyie8Ru8uzfr/gBBWhvXotYx0xusU10RxM46/BYJKFjhp2GH9ASyT"
+    "1qhDnFWOnBvA8lyeEo4lLlkNuVxWXIBYCUF6y6M1rsfUZjRXqf8rzb9GuvbXnHLl+beRGc09gyNAaEI6zJjNHFuG9SVVqYRLyoRehg4gdDNp1tOi"
+    "EP8zzK832JJgbKIi3SUCzktX3ypLwN1SIddE0yDHUPkOIcSwcKFwMDrsqgKuBwSeXFJGm+DhbRJ8KCE1MAV6oalYn4ZmCmTC/oldI1x2hJXmiKor"
+    "F9kCTsYaMdLVHluos6DubCQgN66Lz3SiiKXRS9sCJlE2aYZKFgTX0q6SIsCvACCdSjhSvSMKTZMQuQSrybE6Y6dL834F8tUT61A0RlRF9KSqHHFl"
+    "ZiZTxFdmw4jUSW0LxfhRHNKpkcZFDxBMyKjW2v8V2VxPHZRVoCO2+vnAuq41B6UKHHq7Umq/DUSgV689mPHKZabjTx8elnA4PBz2h1Pc7/e7/R7d"
+    "I0gC6GmtmhFySt4j6oE2B5nJkeNxRkyXP5dPIR/QTNFY3IRkPXXtChKu/iC3W/In6HW1+IvcGPI5e8riZPVL7RieWImMLmMiXiGMM1DkSboZ9PJm"
+    "zryl82w5teQTs5VSmulmvVwfk9U7KqKNRQmCUjNpkMCyLTcvdaWK6tlvPLU53ibxT3ELtnaTUcuNp13KKnWUzIyDBYxSP8CsoAAprVwF45X+P+4d"
+    "3X+/3/+66fv/PwDVgfqu"
+)
+_COLORMAP_TABLES = np.cumsum(np.frombuffer(zlib.decompress(base64.b64decode("".join(_COLORMAPS))), np.uint8)
+                             .reshape(22, 3, 256), axis=2, dtype=np.uint8).transpose(0, 2, 1).copy()  # (22, 256, 3)
+
+
+def apply_color_map(gray: np.ndarray, colormap: int) -> np.ndarray:
+    """`cv2.applyColorMap(gray, colormap)` for a (H, W) or (H, W, 1) uint8 image: (H, W, 3) BGR, each level its
+    colormap's color."""
+    gray = np.asarray(gray)
+    if gray.ndim == 3 and gray.shape[2] == 1:
+        gray = gray[..., 0]
+    if gray.dtype != np.uint8 or gray.ndim != 2:
+        raise ValueError(f"apply_color_map takes a one-channel uint8 image, got {gray.dtype} {gray.shape}")
+    if not 0 <= int(colormap) < 22:
+        raise ValueError(f"colormap {colormap}: OpenCV 5.0 has colormaps 0..21")
+    return _COLORMAP_TABLES[int(colormap)][gray]

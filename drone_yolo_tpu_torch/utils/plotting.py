@@ -7,9 +7,10 @@ text box). `plot_images` writes its mosaic with the port's JPEG encoder at quali
 runs in a daemon thread unless called with `threaded=False`; a mosaic larger than `max_size` is shrunk with
 `ops/letterbox.py:resize_linear_u8` (INTER_LINEAR; equal to cv2 at integer factors, within 1 at others).
 
-The solution primitives of the JAX Annotator (`draw_region`, `display_analytics`, ...) are not ported yet
-(ROADMAP.md queue 1 item 5), nor `plot_results`, `plot_labels` and `feature_visualization`, which draw with
-matplotlib.
+The solution primitives of the JAX Annotator (`draw_region`, `draw_centroid_and_tracks`, `queue_counts_display`,
+`display_objects_labels`, `display_analytics`, `estimate_pose_angle`, `plot_angle_and_count_and_stage`,
+`plot_distance_and_line`, `visioneye`) draw the same shapes through `ops/draw.py`. `plot_results`, `plot_labels` and
+`feature_visualization`, which draw with matplotlib, are not ported.
 """
 
 from __future__ import annotations
@@ -128,6 +129,86 @@ class Annotator:
         """Lines of text, the i-th (from 1) with its baseline 20 i pixels below xy."""
         for i, line in enumerate(text.split("\n")):
             draw.put_text(self.im, line, (xy[0], xy[1] + 20 * (i + 1)), self.sf, txt_color, self.tf, draw.LINE_AA)
+
+    # -- solution primitives -------------------------------------------------------------------------------------
+    def draw_region(self, reg_pts, color=(0, 255, 0), thickness: int = 5):
+        """The region's closed polygon and a filled pin of radius 2 x thickness at each vertex."""
+        pts = np.asarray(reg_pts, np.int32).reshape(-1, 1, 2)
+        draw.polylines(self.im, [pts], True, color, thickness)
+        for p in pts[:, 0]:
+            draw.circle(self.im, (int(p[0]), int(p[1])), thickness * 2, color, -1)
+
+    def draw_centroid_and_tracks(self, track, color=(255, 0, 255), track_thickness: int = 2):
+        """A track's open polyline and a dot of radius 2 x thickness at its last point."""
+        pts = np.asarray(track, np.int32).reshape(-1, 1, 2)
+        draw.polylines(self.im, [pts], False, color, track_thickness)
+        draw.circle(self.im, (int(track[-1][0]), int(track[-1][1])), track_thickness * 2, color, -1)
+
+    def _label_box(self, center, label, bg_color, txt_color, margin: int = 5):
+        """`label` on a filled box centred at `center`, `margin` px around the text."""
+        (tw, th), _ = draw.get_text_size(label, self.sf, self.tf)
+        x, y = int(center[0] - tw / 2), int(center[1] + th / 2)
+        draw.rectangle(self.im, (x - margin, y - th - margin), (x + tw + margin, y + margin), bg_color, -1)
+        draw.put_text(self.im, label, (x, y), self.sf, txt_color, self.tf, draw.LINE_AA)
+
+    def queue_counts_display(self, label, points=None, region_color=(255, 255, 255), txt_color=(0, 0, 0)):
+        """The queue count on a box at the mean of the region's points."""
+        pts = np.asarray(points, np.float32)
+        self._label_box((pts[:, 0].mean(), pts[:, 1].mean()), label, region_color, txt_color, margin=10)
+
+    def display_objects_labels(self, im0, text, txt_color, bg_color, x_center, y_center, margin: int = 5):
+        """A region's count label centred at (x_center, y_center), drawn on im0."""
+        self.im = im0
+        self._label_box((x_center, y_center), text, bg_color, txt_color, margin)
+
+    def display_analytics(self, im0, text: dict, txt_color=(255, 255, 255), bg_color=(104, 31, 17), margin: int = 10):
+        """`key: value` lines on filled boxes down the top-right corner of im0."""
+        self.im = im0
+        offset = 0
+        for k, v in text.items():
+            line = f"{k}: {v}"
+            (tw, th), _ = draw.get_text_size(line, self.sf, self.tf)
+            x, y = im0.shape[1] - tw - 2 * margin, th + 2 * margin + offset
+            draw.rectangle(self.im, (x - margin, y - th - margin), (x + tw + margin, y + margin), bg_color, -1)
+            draw.put_text(self.im, line, (x, y), self.sf, txt_color, self.tf, draw.LINE_AA)
+            offset += th + 3 * margin
+
+    @staticmethod
+    def estimate_pose_angle(a, b, c):
+        """The inner angle ABC in degrees (float32 points)."""
+        a, b, c = (np.asarray(p, np.float32) for p in (a, b, c))
+        ang = abs(np.degrees(np.arctan2(c[1] - b[1], c[0] - b[0]) - np.arctan2(a[1] - b[1], a[0] - b[0])))
+        return 360.0 - ang if ang > 180.0 else ang
+
+    def plot_angle_and_count_and_stage(self, angle_text, count_text, stage_text, center_kpt, color=(104, 31, 17),
+                                       txt_color=(255, 255, 255)):
+        """Angle, reps and stage, each on a filled box, stacked down from a joint."""
+        x, y = int(center_kpt[0]), int(center_kpt[1])
+        for i, line in enumerate((f"Angle: {angle_text}", f"Reps: {count_text}", f"Stage: {stage_text}")):
+            (tw, th), _ = draw.get_text_size(line, self.sf, self.tf)
+            yy = y + i * (th + 12)
+            draw.rectangle(self.im, (x - 5, yy - th - 5), (x + tw + 5, yy + 5), color, -1)
+            draw.put_text(self.im, line, (x, yy), self.sf, txt_color, self.tf, draw.LINE_AA)
+
+    def plot_distance_and_line(self, pixels_distance, centroids, line_color=(104, 31, 17),
+                               centroid_color=(255, 0, 255)):
+        """The pixel distance on a box at the top left; a line between the two centroids and a dot on each."""
+        label = f"Pixels Distance: {pixels_distance:.2f}"
+        (tw, th), _ = draw.get_text_size(label, self.sf, self.tf)
+        draw.rectangle(self.im, (15, 25), (15 + tw + 20, 25 + th + 20), line_color, -1)
+        draw.put_text(self.im, label, (25, 25 + th + 10), self.sf, (255, 255, 255), self.tf, draw.LINE_AA)
+        c0 = (int(centroids[0][0]), int(centroids[0][1]))
+        c1 = (int(centroids[1][0]), int(centroids[1][1]))
+        draw.line(self.im, c0, c1, line_color, 3)
+        draw.circle(self.im, c0, 6, centroid_color, -1)
+        draw.circle(self.im, c1, 6, centroid_color, -1)
+
+    def visioneye(self, box, center_point, color=(235, 219, 11), pin_color=(255, 0, 255)):
+        """A dot at the box's centre, a pin at `center_point` and a line between them."""
+        cx, cy = int((box[0] + box[2]) / 2), int((box[1] + box[3]) / 2)
+        draw.circle(self.im, (cx, cy), 6, color, -1)
+        draw.circle(self.im, (int(center_point[0]), int(center_point[1])), 6, pin_color, -1)
+        draw.line(self.im, (int(center_point[0]), int(center_point[1])), (cx, cy), color, 2)
 
     def result(self):
         return self.im

@@ -8,9 +8,9 @@ float32 with NMS at IoU 0.3 (set through each facade's `overrides`; see
 tests/test_torch_track.py for why): the same track ids and smoothed centres each step, the
 same pose detections, and the same CSV rows within the CSV's own rounding. `run` over a
 printf-pattern JPEG sequence equals `step` over the decoded frames, and the port runs
-the whole path with jax, the JAX package, cv2, PIL, yaml, sklearn and matplotlib blocked: tracking,
-pose, the pipeline over a JPEG sequence and over an MJPEG AVI, and the command line (predict over a
-directory of JPEG, PNG and AVI, track, both with save=True, which draws; val).
+the whole path with jax, the JAX package, cv2, PIL, yaml, sklearn, matplotlib and streamlit blocked: tracking,
+pose, the pipeline over a JPEG sequence and over an MJPEG AVI, the command line (predict over a
+directory of JPEG, PNG and AVI, track, both with save=True, which draws; val), the gait study and two analytics apps.
 """
 
 import csv
@@ -216,11 +216,21 @@ def test_run_refuses_video_files_and_missing_sequences(tmp_path):
 
 
 # a None entry in sys.modules makes `import name` fail and importlib.util.find_spec(name) return None (torch's own
-# optional-import probes ask for sklearn's spec)
+# optional-import probes ask for sklearn's spec); jax is blocked by a finder instead, as scipy.stats looks jax up in
+# sys.modules (for its array checks) and takes an entry there for the module
 BLOCKER = """
 import sys
-BLOCKED = {"jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib"}
-sys.modules.update(dict.fromkeys(BLOCKED))
+BLOCKED = {"jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib", "streamlit"}
+
+
+class JaxBlocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ModuleNotFoundError(f"{name} is blocked", name=name)
+
+
+sys.meta_path.insert(0, JaxBlocker())
+sys.modules.update(dict.fromkeys(BLOCKED - {"jax", "jaxlib"}))
 """
 
 RUN_APPS = BLOCKER + """
@@ -272,6 +282,20 @@ from drone_yolo_tpu_torch.data.avi import AviReader
 cli("val", f"data={src / 'ds' / 'data.yaml'}", "batch=2", "workers=1", *common)
 models[0].predictor = None  # a new tracker
 video = DroneVideoPipeline(models[0], imgsz=128).run(str(src / "media" / "clip.avi"), csv_path=src / "v.csv")
+# the gait study (its forest in numpy) and two analytics apps; the browser app without streamlit
+from drone_yolo_tpu_torch.apps import GaitStudy
+from drone_yolo_tpu_torch import solutions
+rng = np.random.default_rng(2)
+walkers = {i: chip_smoke.make_walker(rng, cadence=1.6 + 0.6 * (i % 2), speed=70 + 30 * (i % 2)) for i in range(12)}
+gait = GaitStudy().run(walkers, {i: i % 2 for i in walkers})["classifier"]["cv_accuracy"]
+models[0].predictor = None
+apps = [solutions.ObjectCounter(model=models[0], region=[(0, 64), (128, 64)]), solutions.Heatmap(model=models[0])]
+apps = [[sorted(k for k in app.process(f) if k != "im0") for f in frames][-1] for app in apps]
+try:
+    solutions.Inference(model="yolov8n.yaml")
+    no_streamlit = "no error"
+except ImportError as e:
+    no_streamlit = str(e)
 print(json.dumps({"modules": mods, "tracks": tracks, "tracker": tracker, "frames": out["frames"],
                   "n_tracks": out["n_tracks"],
                   "stats": len(stats), "density_finite": bool(np.isfinite(dens).all()),
@@ -279,6 +303,7 @@ print(json.dumps({"modules": mods, "tracks": tracks, "tracker": tracker, "frames
                   "saved": [sorted(p.name for p in (src / "runs" / d).iterdir()) for d in ("p", "t")],
                   "avi_frames": [len(AviReader(src / "runs" / d / "clip.avi")) for d in ("p", "t")],
                   "video": [video["frames"], video["fps"], (src / "v.csv").read_text().splitlines()[0]],
+                  "gait": gait, "apps": apps, "no_streamlit": no_streamlit,
                   "loaded": sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)}))
 """
 
@@ -313,3 +338,7 @@ def test_track_pose_and_pipeline_run_without_jax_cv2_pil_yaml_sklearn(tmp_path):
     assert out["saved"] == [["a.jpg", "b.png", "c.jpg", "clip.avi", "labels"], ["clip.avi"]]  # save=True, drawn
     assert out["avi_frames"] == [4, 4]
     assert out["video"][:2] == [4, 12.5] and out["video"][2].startswith("frame,track_id")
+    assert {"drone_yolo_tpu_torch.apps.gait", "drone_yolo_tpu_torch.apps.forest", "drone_yolo_tpu_torch.solutions",
+            "drone_yolo_tpu_torch.solutions.inference_app"} <= set(out["modules"])
+    assert out["gait"] == 1.0 and out["apps"] == [["classwise", "in_count", "out_count"], ["heatmap"]]
+    assert "needs streamlit" in out["no_streamlit"]
