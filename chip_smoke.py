@@ -4,9 +4,9 @@ clip with BoT-SORT and its camera-motion compensation, tiles a 4K frame, drives 
 command line over image files, an MJPEG AVI and a rect-validated dataset, trains and validates a pose model,
 predicts with, trains and validates an instance segmentation model and an oriented box model, does the same
 with the YOLO11 and YOLO12 families, and with the classifiers (yolov8s-cls, yolo11s-cls, yolo12s-cls and the
-ResNet-50 and ResNet-18 trunks), predicts with and trains the YOLOv3, v5, v6, P6, Ghost and YOLOv9 yamls, and runs
-the analytics apps over tracks (counting, regions, queues, speed, distance, heatmap, parking, alarm, zone, workout
-counting, a mask overlay, the browser app) and the gait study.
+ResNet-50 and ResNet-18 trunks), predicts with and trains the YOLOv3, v5, v6, P6, Ghost and YOLOv9 yamls and YOLOv10,
+the NMS-free end-to-end detector, and runs the analytics apps over tracks (counting, regions, queues, speed, distance,
+heatmap, parking, alarm, zone, workout counting, a mask overlay, the browser app) and the gait study.
 
     python3 chip_smoke.py
 
@@ -68,12 +68,12 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    4-12 px, 6 classes, seed 1) written as JPEG by the port's encoder at quality 95, with labels
    and data.yaml, in a temporary directory. Run A: `YOLO("yolov8s-p2-repvgg-sf.yaml").train(...)`
    at full width and depth, imgsz 320, batch 8, nbs 8, SGD, default augmentation, close_mosaic 1,
-   cache="ram", 4 loader threads, s2grad="cuda", bnstats="cuda", bf16 autocast, 3 epochs, EMA
-   validation each epoch. Run B: a trainer that resumes A's resume_state.npz with epochs 4.
+   cache="ram", 4 loader threads, s2grad="cuda", bnstats="cuda", bf16 autocast, 2 epochs, EMA
+   validation each epoch. Run B: a trainer that resumes A's resume_state.npz with epochs 3.
    Counts are set to 0 before each run and read after it. Checks: finite losses; 12 stride-2
    calls (8 k=3, 4 k=1) and 77 BN-statistics calls a step, one NMS call (two launches) a val
    batch; P, R, mAP50, mAP50-95 in [0, 1]; results.csv, last.npz, best.npz and
-   resume_state.npz written, and `YOLO(last.npz)` predicting on the card; B starting at epoch 3
+   resume_state.npz written, and `YOLO(last.npz)` predicting on the card; B starting at epoch 2
    with params, SGD momentum and EMA bitwise equal to A's final state, and running one epoch;
    the JPEG round trip of the dataset within `JPEG_MEAN_ERR`. Printed: seconds per epoch, train
    img/s, the share of the epoch spent waiting on the loader, decode ms per 320 and 640 px
@@ -114,7 +114,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    and 6 launches; ms a frame split into crop and upload, forward and NMS, and merge (the median of 5 after one);
 12. entry: the normal entry points. Inputs written by the port's encoders in a temp dir: a directory of 6
    frames (`moving_frames`, seed 5: JPEG at 1920x1080, 1080x1920 and 1280x720, PNG at 1280x720), one MJPEG
-   AVI of 8 1080p frames at 30000/1001 frames/s (`data/avi.py:AviWriter`, quality 95), and
+   AVI of 6 1080p frames at 30000/1001 frames/s (`data/avi.py:AviWriter`, quality 95), and
    16 dense-proxy images cropped to 8 aspect ratios (`write_mixed_val`). The flagship's weights are
    `calibrated_weights` saved by `YOLO.save` with train_args imgsz 640. Through `cfg.entrypoint` strings, with no
    imgsz: (a) predict over the directory with save_txt and save_crop (max_det 4), (b) track over clip.avi (the
@@ -228,7 +228,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    yolov8s-ghost, yolov8s-ghost-p6, yolov8s-pose-p6, yolov8s-seg-p6, yolov9t, s, m, e, yolov9c-seg, yolov9e-seg;
    1280 px for the P6 yamls): both train kernels against their plain versions at their sites and BN inputs as
    above (`kernel_site_checks`; a shape checked at an earlier model's site is not checked again), predict at batch 8
-   on the random init at conf 0 (32 detections an image) and 3 bf16 steps with both kernels, their stride-2 calls
+   on the random init at conf 0 (32 detections an image) and 2 bf16 steps with both kernels, their stride-2 calls
    timed against the plain version and cuDNN. Every detection model also takes one float32 backward (TF32 off, batch
    2) with both kernels and one stock against a float64 one (`float64_grad_errors`): the first losses within
    `TRAIN_LOSS_RTOL`, the kernels' largest gradient error within 2x stock's (two bf16 runs part at the first step,
@@ -237,15 +237,29 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    stride-2 (k=3, k=1) and BN calls of every step exactly as the model's sites and BN inputs, one NMS call a predict
    or val batch, every keep mask equal to `greedy_keep_reference`; the bf16 loss of the 5- and 10-step runs falling
    below its first value;
-20. solutions: the analytics layer over tracks (`drone_yolo_tpu_torch/solutions/`, `SOLUTIONS_CELL`). The flagship
+20. v10: YOLOv10, the NMS-free end-to-end detector (`V10_CELL`; nc 80, 640 px, batch 8, published widths and depths,
+   random weights from a seed). `yolov10s.yaml`: both train kernels against their plain versions at its 4 dense k=3
+   stride-2 sites (layers 0, 1, 3, 17; SCDown's stride-2 convs are depthwise and stay with cuDNN) and its 99 BN
+   inputs, bf16 and float32, each kind's calls timed against cuDNN's `convolution_backward` and
+   `torch.batch_norm_stats` and each site alone against cuDNN; predict with `calibrated_weights` (the one-to-one
+   head's class logits) on 720x1280 frames at batch 1 and 8, fused and bf16; the float32 one-to-one decoded maps on
+   the card against the CPU's (TF32 off, `spread_weights`, fused: `BOX_ATOL_PX`, `SCORE_RTOL`) and the top-300
+   detections row by row where the scores are untied (`v10_fp32_checks`); 10 fixed-batch bf16 steps with both kernels
+   and 10 stock (SGD at a constant lr): the E2E loss finite and falling in both, step ms, img/s, the idle share of
+   profiled steps; one epoch from disk over 8 + 8 dense-proxy JPEGs with both kernels, then rect val of `last.npz`
+   (P, R, mAP50, mAP50-95 in [0, 1]). Then `yolov10n`, `m`, `b`, `l` and `x`: both kernels at their site and BN shapes
+   not checked at an earlier v10 model, predict at batch 8 and 3 fixed-batch steps with both kernels, losses finite.
+   Counts are set to 0 before each run and read after it: 4 k=3 stride-2 calls and one BN-statistics call per BN
+   input a step, and no greedy-NMS call anywhere (the head's top-k takes its place: `ops/nms.py:end2end_detections`);
+21. solutions: the analytics layer over tracks (`drone_yolo_tpu_torch/solutions/`, `SOLUTIONS_CELL`). The flagship
    at full width (fused, bf16, 640 px, batch 1, `calibrated_weights`: 1.5% of frame 0's anchors above conf 0.25)
-   over the track cell's 1080x1920 `moving_frames` cut to their first 4 (the cut is printed), ByteTrack (named in the
+   over the track cell's 1080x1920 `moving_frames` cut to their first 2 (the cut is printed), ByteTrack (named in the
    facade's overrides, as in the track cell) anew for each app: `ObjectCounter` with a line across the middle and with a central polygon,
    `RegionCounter` with the two halves, `QueueManager`, `SpeedEstimator` and `DistanceCalculation` (metres per pixel
    from the track cell's `GeoConverter` GSD at 80 m), `Heatmap` (PARULA), `ParkingManagement` with a 4x8 grid of
    slots, `SecurityAlarm` (more than 50 tracks), `TrackZone` and `Analytics`; `AIGym` on `yolov8s-pose.yaml` and
    `InstanceSegmentation` on `yolov8s-seg.yaml` (calibrated as in the draw phase) over the same frames; `Inference`
-   under a fake UI (`fake_streamlit`: video upload, tracking on, the flagship saved as an npz) over an MJPEG AVI of 4
+   under a fake UI (`fake_streamlit`: video upload, tracking on, the flagship saved as an npz) over an MJPEG AVI of 2
    720x1280 crops that the phase writes, read by the port's `FrameCapture`; then `GaitStudy` over 28 synthetic
    walkers (`make_walker`, a copy of the gait test's) on the host. Every NMS keep mask is held against
    `greedy_keep_reference` (inside the track ms: ~1.4 ms a frame), counts set to 0 before each app and read after
@@ -258,7 +272,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    logic (the rest), its counts; the host's drawing costs alone (`drawing_cost`: a box label, a 30-point history,
    the heatmap's colormap and blend of a 1080p frame); the gait study's seconds, cross-validated accuracy and the
    forest's fit seconds;
-21. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn, matplotlib or streamlit was imported,
+22. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn, matplotlib or streamlit was imported,
    with the modules of every path (apps, solutions, trackers, the pose, segment, obb and classify predictors,
    trainers and validators, the loaders, `ops/rotated.py`) loaded.
 
@@ -338,7 +352,7 @@ VAL = dict(batches=4, batch=8, imgsz=640, nc=80, pre_nms_topk=4096)
 BOX_ATOL_PX = 1e-2
 SCORE_RTOL = 1e-4
 # the loop phase: the dense small-object proxy of the JAX package's ablation (tools/flagship_parity.py:216)
-LOOP = dict(n_train=32, n_val=16, imgsz=320, batch=8, epochs=3, nc=6, seed=1, obj_px=(4, 12), workers=4)
+LOOP = dict(n_train=32, n_val=16, imgsz=320, batch=8, epochs=2, nc=6, seed=1, obj_px=(4, 12), workers=4)  # 3 before v10
 # mean absolute error of the dataset's JPEG round trip (quality 95, 4:2:0) per channel value: chroma subsampling
 # of 4-12 px saturated objects on a noisy background costs ~6.5 (the same for cv2's encoder at quality 95)
 JPEG_MEAN_ERR = 10.0
@@ -371,13 +385,13 @@ GMC_CORNER_SHARE, GMC_STATUS_SHARE, GMC_LIN_TOL, GMC_T_TOL = 0.995, 0.99, 1e-3, 
 # (cv2, on the CPU) misses this clip's translation by up to 0.274 px (27 of 64 frames above 0.1 px; its centre by up
 # to 0.120 px) and its rotation by up to 1.38e-4 rad, so translations are held to 0.5 px, rotations to 2e-4 rad
 KNOWN_T_TOL, KNOWN_ROT_TOL = 0.5, 2e-4
-# the entry phase: one MJPEG AVI of 8 1080p frames (16 before the pose phase) at 30000/1001 frames/s; a directory of
-# 6 frames (12 before the families phase): the AVI's first 2 (JPEG 1920x1080), then JPEG 1080x1920 and 1280x720 and
-# PNG 1280x720; a mixed-aspect val set of 16 dense-proxy images (32 before) at 640 px. The predict over the directory
-# keeps 4 detections an image (10 before; max_det), whose crops it writes: the port's numpy JPEG encoder writes each
-# crop on the host, and the crops of 1080p frames are large
+# the entry phase: one MJPEG AVI of 6 1080p frames (16 before the pose phase, 8 before the v10 phase) at 30000/1001
+# frames/s; a directory of 6 frames (12 before the families phase): the AVI's first 2 (JPEG 1920x1080), then JPEG
+# 1080x1920 and 1280x720 and PNG 1280x720; a mixed-aspect val set of 16 dense-proxy images (32 before) at 640 px. The
+# predict over the directory keeps 4 detections an image (10 before; max_det), whose crops it writes: the port's numpy
+# JPEG encoder writes each crop on the host, and the crops of 1080p frames are large
 ENTRY_CELL = dict(dir_from_avi=2, frames=(("jpg", (1920, 1080), 2), ("jpg", (720, 1280), 1), ("png", (720, 1280), 1)),
-                  avi_frames=8, avi_hw=(1080, 1920), avi_rate=(30000, 1001), objects=40, obj_px=(24, 120), seed=5,
+                  avi_frames=6, avi_hw=(1080, 1920), avi_rate=(30000, 1001), objects=40, obj_px=(24, 120), seed=5,
                   imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.05, crop_max_det=4, val_images=16,
                   val_batch=8, val_nc=6)
 # the pose phase: yolov8s-pose (nc 1, 17 keypoints) trained and validated at full width on a seeded dataset of figures
@@ -416,9 +430,9 @@ FAMILY_S2_LAYERS = {"yolo11s.yaml": ["0", "1", "3", "5", "7", "17", "20"],
 # the card against the CPU's and fused against unfused, 10 bf16 steps with both kernels and 10 stock, one epoch over
 # 8 + 8 dense-proxy JPEGs and rect val of last.npz. yolov8s-p6 at 1280 px (predict on 1080x1920 frames at batch 1 and
 # 8) and yolov8s-ghost-p2 (batch 8): the kernel and float32 checks and 5 bf16 steps. The 16 others: predict at batch 8
-# and 3 bf16 steps, their stride-2 calls timed against the plain version and cuDNN. Every model: both train kernels
-# against their plain versions at each site and BN input shape not checked at an earlier model. Every detection
-# model: one float32 backward with both kernels and one stock, each against a float64 one
+# and 2 bf16 steps (3 before the v10 phase), their stride-2 calls timed against the plain version and cuDNN. Every
+# model: both train kernels against their plain versions at each site and BN input shape not checked at an earlier
+# model. Every detection model: one float32 backward with both kernels and one stock, each against a float64 one
 ZOO_CELL = dict(nc=80, batch=8, seed=31, conf=0.25, cls_gain=30.0, share_above_conf=0.002, task_share_above_conf=0.02,
                 workers=4,
                 main=("yolov9c.yaml", 640, FRAME_HW, (1, 8), 10), n_train=8, n_val=8, data_nc=6, obj_px=(6, 24),
@@ -428,10 +442,22 @@ ZOO_CELL = dict(nc=80, batch=8, seed=31, conf=0.25, cls_gain=30.0, share_above_c
                     "yolov3-tiny.yaml", "yolov3.yaml", "yolov3-spp.yaml", "yolov5s.yaml", "yolov5s-p6.yaml",
                     "yolov6s.yaml", "yolov8s-ghost.yaml", "yolov8s-ghost-p6.yaml", "yolov8s-pose-p6.yaml",
                     "yolov8s-seg-p6.yaml", "yolov9t.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9e.yaml",
-                    "yolov9c-seg.yaml", "yolov9e-seg.yaml")), other_steps=3, frames=8)
+                    "yolov9c-seg.yaml", "yolov9e-seg.yaml")), other_steps=2, frames=8)
+# the v10 phase: YOLOv10, the NMS-free end-to-end detector (nc 80, 640 px, published widths and depths, random
+# weights from a seed). yolov10s: both train kernels against their plain versions at its 4 dense k=3 stride-2 sites
+# (layers 0, 1, 3, 17; SCDown's stride-2 convs are depthwise: cuDNN's) and its 99 BN inputs; predict with calibrated
+# weights on 720x1280 frames at batch 1 and 8 (fused, bf16), the float32 one-to-one maps and detections on the card
+# against the CPU's, 10 fixed-batch steps with both kernels and 10 stock (SGD at a constant lr), one epoch from disk
+# over 8 + 8 dense-proxy JPEGs with val of last.npz. Then yolov10n, m, b, l and x: their new site and BN shapes
+# against the plain versions, predict at batch 8 and 3 fixed-batch steps with both kernels. No NMS call anywhere
+V10_CELL = dict(model="yolov10s.yaml", others=("yolov10n.yaml", "yolov10m.yaml", "yolov10b.yaml", "yolov10l.yaml",
+                                               "yolov10x.yaml"),
+                nc=80, imgsz=640, batch=8, frames=8, fixed_steps=10, other_steps=3, n_train=8, n_val=8, data_nc=6,
+                obj_px=(6, 24), seed=37, workers=4, cls_gain=30.0, share_above_conf=0.002, other_share=0.02, conf=0.25)
+V10_S2_LAYERS = ["0", "1", "3", "17"]  # every v10 scale's dense k=3 stride-2 convs
 # the draw phase: the flagship (640 px, bf16, weights calibrated so that a share of 0.004 of the anchors of the clip's
 # first frame pass conf 0.25) predicts with save=True over the entry phase's directory (JPEG 1920x1080 x2, 1080x1920,
-# 1280x720, PNG 1280x720) and its 8-frame 1080p MJPEG AVI, and again without save over the AVI; then yolov8s-seg,
+# 1280x720, PNG 1280x720) and its 6-frame 1080p MJPEG AVI, and again without save over the AVI; then yolov8s-seg,
 # -pose (on the AVI's first 2 frames) and -obb (2 frames of rotated rectangles at 1024 px) one batch of 2 each with
 # save=True and without. The pose model's one class spreads its logits little: at a share of 0.004 its best scores
 # sit within bf16 rounding of conf and none passes, so it takes 0.01
@@ -464,7 +490,8 @@ CLS_PROB_RTOL, CLS_PROB_ATOL = 1e-3, 1e-7
 
 # the solutions phase: the analytics apps over tracks (`drone_yolo_tpu_torch/solutions/`) on the track cell's 1080p
 # frames, cut from 64 to `frames` to fit the phase's 90 s: every app draws every box on the host (~7 ms a box label on
-# the host of an H100 machine, where 6 frames with BoT-SORT took 87.5 s alone and 5 frames 104 s in a whole script).
+# the host of an H100 machine, where 6 frames with BoT-SORT took 87.5 s alone and 5 frames 104 s in a whole script;
+# 4 frames with ByteTrack 46.7 s, then 2 to make room for the v10 phase).
 # The flagship's weights are calibrated so that a share of 0.015 of frame 0's anchors pass conf 0.25 (~60 boxes a
 # frame, a VisDrone frame's density; the track cell's 0.05 gives ~300); the pose and segment models as in the draw
 # phase. ByteTrack tracks every app, as in the track cell: with BoT-SORT, the facade's default, each app's new tracker
@@ -472,10 +499,10 @@ CLS_PROB_RTOL, CLS_PROB_ATOL = 1e-3, 1e-7
 # captures, not the apps, set the track time (the botsort phase measures BoT-SORT over 64 frames). The GSD at 80 m
 # gives metres per pixel. The browser app runs under a fake UI over an MJPEG AVI of `app_frames` 720x1280 crops of the
 # frames; the gait study over 28 synthetic walkers in two groups
-SOLUTIONS_CELL = dict(frames=4, tracker="bytetrack.yaml", share_above_conf=0.015, line_width=2, fps=30.0,
+SOLUTIONS_CELL = dict(frames=2, tracker="bytetrack.yaml", share_above_conf=0.015, line_width=2, fps=30.0,
                       parking_grid=(4, 8), alarm_records=50,
                       task_models={"AIGym": ("yolov8s-pose.yaml", 0.01),
-                                   "InstanceSegmentation": ("yolov8s-seg.yaml", 0.004)}, app_frames=4,
+                                   "InstanceSegmentation": ("yolov8s-seg.yaml", 0.004)}, app_frames=2,
                       app_hw=(720, 1280), walkers=28, gait_seed=2)
 
 T0 = time.perf_counter()
@@ -907,14 +934,15 @@ def spread_weights(state_dict: dict, rng: np.random.Generator) -> dict:
 
 
 def scored_weights(state_dict: dict, rng: np.random.Generator, cls_bias: float, cls_gain: float) -> dict:
-    """`spread_weights`, then the last conv of each level's class branch (`cv3.<i>.2`) with its weights scaled by
+    """`spread_weights`, then the last conv of each level's class branch (`cv3.<i>.2`, and a v10 head's
+    `one2one_cv3.<i>.2`) with its weights scaled by
     `cls_gain` and its biases set to `cls_bias`: class logits that follow the image, spread around `cls_bias`, instead of
     scores near sigmoid(-13). A random model whose detections a tracker follows. Shared with the tests."""
     out = spread_weights(state_dict, rng)
     for name, t in out.items():
-        if re.search(r"\.cv3\.\d+\.2\.bias$", name):
+        if re.search(r"\.(one2one_)?cv3\.\d+\.2\.bias$", name):
             out[name] = torch.full_like(t, cls_bias)
-        elif re.search(r"\.cv3\.\d+\.2\.weight$", name):
+        elif re.search(r"\.(one2one_)?cv3\.\d+\.2\.weight$", name):
             out[name] = t * cls_gain
     return out
 
@@ -1339,8 +1367,9 @@ def calibrated_weights(facade, frame: np.ndarray, seed: int, gain: float, share:
     model.load_state_dict(scored_weights(base, np.random.default_rng(seed), 0.0, gain))
     x = letterbox(torch.from_numpy(frame).to(facade.device).flip(-1).permute(2, 0, 1)[None].float() / 255.0,
                   (imgsz, imgsz))
-    with torch.inference_mode():
-        maps = model(x, raw=True)
+    with torch.inference_mode():  # the maps the predictor decodes: a v10 head's one-to-one ones
+        head = model.head
+        maps = head.one2one_maps(model.head_input(x)) if hasattr(head, "one2one_maps") else model(x, raw=True)
     reg = 4 * model.head.reg_max
     best = torch.cat([m[:, reg:reg + model.nc].flatten(2) for m in maps], 2).amax(1).flatten().float()
     bias = math.log(conf / (1.0 - conf)) - float(torch.quantile(best, 1.0 - share))
@@ -3674,6 +3703,242 @@ def run_zoo(smi: str) -> dict:
     return out
 
 
+def v10_fp32_checks(model, frame: np.ndarray) -> dict:
+    """A v10 model's float32 forward (TF32 off, `spread_weights`, fused) on the card against the CPU's on one
+    letterboxed frame: the decoded one-to-one maps (boxes within BOX_ATOL_PX, scores within SCORE_RTOL), and the
+    top-k detections row by row wherever the CPU's scores are untied (apart by more than twice the measured relative
+    score error from the scores before and after them in the sorted (anchor, class) list, so that no error can swap
+    them): the same class, the box within BOX_ATOL_PX; at least one such row."""
+    net = copy.deepcopy(model.model)
+    net.load_state_dict(spread_weights(net.state_dict(), np.random.default_rng(1)))
+    with torch.inference_mode():
+        net = net.fuse().float()
+        x = model.predictor.preprocess([frame]).float()
+        dets_card, aux = net(x)
+        dec_card = net.head.decode(aux["one2one"]).cpu()
+        dets_card = dets_card.cpu()
+        net, x = net.cpu(), x.cpu()
+        dets_cpu, aux = net(x)
+        dec_cpu = net.head.decode(aux["one2one"])
+    del net
+    box_err = float((dec_card[..., :4] - dec_cpu[..., :4]).abs().max())
+    score_rel_err = float(((dec_card[..., 4:] - dec_cpu[..., 4:]).abs() / dec_cpu[..., 4:]).max())
+    if not (box_err <= BOX_ATOL_PX and score_rel_err <= SCORE_RTOL):
+        raise AssertionError(f"v10 float32 one-to-one maps card vs CPU: box err {box_err} px, score rel err "
+                             f"{score_rel_err}")
+    k = dets_cpu.shape[1]
+    ranked = dec_cpu[0, :, 4:].flatten().sort(descending=True).values[:k + 1]
+    margin = 2 * score_rel_err * ranked[:k]
+    gap_before = torch.cat((torch.full((1,), float("inf")), ranked[:k - 1] - ranked[1:k]))
+    untied = (gap_before > margin) & (ranked[:k] - ranked[1:k + 1] > margin)
+    a, b = dets_card[0][untied], dets_cpu[0][untied]
+    det_box_err = float((a[:, :4] - b[:, :4]).abs().max()) if len(a) else 0.0
+    if not (torch.equal(a[:, 5], b[:, 5]) and det_box_err <= BOX_ATOL_PX and bool(untied.any())):
+        raise AssertionError(f"v10 float32 top-{k} card vs CPU: {int(untied.sum())} untied rows, classes equal "
+                             f"{torch.equal(a[:, 5], b[:, 5])}, box err {det_box_err} px")
+    return {"box_err_px": box_err, "score_rel_err": score_rel_err, "box_atol_px": BOX_ATOL_PX, "score_rtol": SCORE_RTOL,
+            "top_k": k, "untied_rows": int(untied.sum()), "untied_classes_equal": True,
+            "untied_box_err_px": det_box_err}
+
+
+def run_v10(smi: str) -> dict:
+    """Phase 20: YOLOv10 on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.models.yolo import TASK_MAP
+    from drone_yolo_tpu_torch.nn.model import DetectionModel
+    from drone_yolo_tpu_torch.ops import cuda_bnstats, cuda_nms, cuda_s2bwd
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+
+    c = V10_CELL
+    k3, k1 = cuda_s2bwd.NAMES[3], cuda_s2bwd.NAMES[1]
+    launches = defaultdict(int)
+    keep_calls = [0]  # greedy-NMS keep masks asked for on any device: a v10 path asks for none
+    kernel_keep = nms_ops.greedy_keep
+
+    def counted_keep(boxes, valid, iou_thres):
+        keep_calls[0] += 1
+        return kernel_keep(boxes, valid, iou_thres)
+
+    def reset():
+        cuda_s2bwd.reset_counts()
+        cuda_bnstats.reset_counts()
+        cuda_nms.reset_counts()
+        keep_calls[0] = 0
+
+    def counts() -> dict:
+        cnt = {"s2_calls": dict(cuda_s2bwd.s2_bwd_cuda.calls), "bn_calls": cuda_bnstats.bn_stats_cuda.calls,
+               "nms_calls": cuda_nms.greedy_keep_cuda.calls + keep_calls[0],
+               "launches": {"greedy_nms": cuda_nms.greedy_keep_cuda.launches,
+                            "bn_stats": cuda_bnstats.bn_stats_cuda.launches,
+                            **{n: cuda_s2bwd.s2_bwd_cuda.launches.get(n, 0) for n in (k3, k1)}}}
+        for key, v in cnt["launches"].items():
+            launches[key] += v
+        return cnt
+
+    def probe_sites(name: str) -> tuple:
+        with torch.device("meta"):  # the sites' shapes only
+            probe = DetectionModel(name, nc=c["nc"])
+        sites, bn = s2_sites(probe, c["batch"], c["imgsz"]), bn_sites(probe, c["batch"], c["imgsz"])
+        if [st["name"].split(".")[1] for st in sites] != V10_S2_LAYERS or any(st["k"] != 3 for st in sites):
+            raise AssertionError(f"{name}: stride-2 sites {[(st['name'], st['k']) for st in sites]}")
+        return probe, sites, bn
+
+    def predict(name: str, frames, batches, share: float, seed: int) -> tuple:
+        """Calibrated weights, then predict at each batch size after a warm-up: detections finite, sorted by score,
+        above conf, and no NMS call."""
+        model = YOLO(name)
+        bias = calibrated_weights(model, frames[0], seed, c["cls_gain"], share, c["conf"], c["imgsz"])
+        out = {"cls_bias": bias}
+        reset()
+        for b in batches:
+            model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = model.predict(frames[:b], imgsz=c["imgsz"], conf=c["conf"], batch=b, verbose=False)
+            wall = time.perf_counter() - t0
+            n_det = [len(r.boxes) for r in res]
+            conf = [r.boxes.conf for r in res]
+            ok = all(np.isfinite(r.boxes.data).all() for r in res) and all(
+                (cf > c["conf"]).all() and (np.diff(cf) <= 0).all() for cf in conf)
+            if not (sum(n_det) and ok):
+                raise AssertionError(f"{name} predict at batch {b}: {n_det} detections, finite, sorted and above conf "
+                                     f"{ok}")
+            out[f"batch{b}"] = {"img_per_s": b / wall, "n_det": n_det, "speed_ms_per_img": res[0].speed}
+        out["counts"] = counts()
+        if out["counts"]["nms_calls"]:
+            raise AssertionError(f"{name} predict: {out['counts']['nms_calls']} NMS calls, expected none")
+        return model, out
+
+    def fixed_run(name: str, batch: dict, steps: int, kern) -> tuple:
+        trainer = TASK_MAP["detect"]["trainer"](
+            overrides=dict(model=name, batch=c["batch"], imgsz=c["imgsz"], nbs=c["batch"], optimizer="SGD", amp=True,
+                           s2grad=kern, bnstats=kern, warmup_epochs=0.0), train_loader=[batch] * steps,
+            data={"nc": c["nc"]})
+        reset()
+        run = trainer.run_steps()
+        return trainer, run, counts()
+
+    def check_steps(name: str, mode: str, run, cnt, steps: int, n_bn: int, falling: bool) -> list:
+        want = ({k3: 4 * steps, k1: 0}, n_bn * steps, 0) if mode == "both" else ({k3: 0, k1: 0}, 0, 0)
+        if (cnt["s2_calls"], cnt["bn_calls"], cnt["nms_calls"]) != want:
+            raise AssertionError(f"{name} {mode} steps: {cnt}, expected stride-2, BN and NMS calls {want}")
+        loss = [r["loss"] for r in run]
+        if not (np.isfinite(loss).all() and np.isfinite([r["items"] for r in run]).all()
+                and (loss[-1] < loss[0] or not falling)):
+            raise AssertionError(f"{name} {mode} steps: the E2E loss is not finite{' or did not fall' * falling}: "
+                                 f"{loss}")
+        return loss
+
+    out = {"cell": dict(c), "nvidia_smi": smi, "models": {}, "stage_s": {}}
+    t_stage = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["stage_s"][name] = now - t_stage[0]
+        t_stage[0] = now
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_v10_"))
+    # the epoch's JPEGs are encoded in a process of their own while the model's kernels, predict and steps run
+    writer = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    nms_ops.greedy_keep = counted_keep
+    try:
+        dense = writer.submit(write_dense_dataset, tmp / "dense", c["n_train"], c["n_val"], c["imgsz"], c["seed"],
+                              c["data_nc"], c["obj_px"])
+        frames = moving_frames(np.random.default_rng(c["seed"]), c["frames"], FRAME_HW, 60)
+        lap("inputs")
+        name, stem = c["model"], Path(c["model"]).stem
+        seen = set()  # the site and BN shapes checked already: each once across the v10 models
+        probe, sites, bn = probe_sites(name)
+        row = train_kernel_checks(probe, c["batch"], c["imgsz"], seed=9000, seen=seen)
+        n_bn = row["bn_inputs"]
+        del probe
+        lap(f"{stem}.kernels")
+
+        model, row["predict"] = predict(name, frames, (1, 8), c["share_above_conf"], c["seed"])
+        row["fp32_card_vs_cpu"] = v10_fp32_checks(model, frames[0])
+        del model
+        lap(f"{stem}.predict_and_fp32")
+
+        batch = synthetic_batch(np.random.default_rng(c["seed"] + 1), c["batch"], c["imgsz"], c["nc"])
+        runs = {}
+        for mode, kern in (("both", "cuda"), ("stock", None)):
+            torch.cuda.reset_peak_memory_stats()
+            trainer, run, cnt = fixed_run(name, batch, c["fixed_steps"], kern)
+            loss = check_steps(name, mode, run, cnt, c["fixed_steps"], n_bn, falling=True)
+            ms = float(np.median([r["ms"] for r in run[1:]]))
+            runs[mode] = {"loss": loss, "items": [r["items"] for r in run], "step_ms_median": ms,
+                          "img_per_s": c["batch"] / ms * 1e3, "first_step_ms": run[0]["ms"],
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "counts": cnt}
+            if mode == "both":
+                hyp = trainer._warmup_hyp(trainer.ni, 0)
+                runs[mode]["profile"] = profile_device(lambda: trainer.train_step(batch, *hyp)[0].item(), steps=3)
+            del trainer
+        row["fixed_batch"] = runs
+        lap(f"{stem}.fixed_batch")
+
+        data = dense.result()[0]
+        lap("dataset_wait")
+        reset()
+        model = YOLO(name)
+        t0 = time.perf_counter()
+        metrics = model.train(data=str(data), epochs=1, imgsz=c["imgsz"], batch=c["batch"], nbs=c["batch"],
+                              optimizer="SGD", amp=True, s2grad="cuda", bnstats="cuda", cache="ram",
+                              workers=c["workers"], project=str(tmp / "runs"), name=stem, exist_ok=True, plots=False)
+        train_wall = time.perf_counter() - t0
+        train_counts = counts()
+        tr = model.trainer
+        reset()
+        last = YOLO(tr.wdir / "last.npz")
+        t0 = time.perf_counter()
+        val_metrics = last.val(data=str(data))  # rect batches: the facade's default
+        val_wall = time.perf_counter() - t0
+        val_counts = counts()
+        steps = tr.nb
+        if (train_counts["s2_calls"] != {k3: 4 * steps, k1: 0} or train_counts["bn_calls"] != n_bn * steps
+                or train_counts["nms_calls"] + val_counts["nms_calls"]):
+            raise AssertionError(f"{name} epoch: {train_counts}, val {val_counts}: expected {4 * steps} stride-2, "
+                                 f"{n_bn * steps} BN and no NMS calls for {steps} steps")
+        for what, m in (("train", metrics), ("val", val_metrics)):
+            if len(m) != 5 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()):
+                raise AssertionError(f"{name} {what} metrics: {m}")
+        ep = tr.epoch_stats[0]
+        if not np.isfinite(ep["loss_items"]).all():
+            raise AssertionError(f"{name} epoch loss items {ep['loss_items']}")
+        row["epoch"] = {"epoch_s": ep["train_s"], "train_wall_s": train_wall,
+                        "data_wait_share": ep["data_wait_s"] / ep["train_s"], "loss_items": ep["loss_items"],
+                        "metrics_train": metrics, "metrics_val_rect": val_metrics,
+                        "val_img_per_s": last.validator.seen / val_wall,
+                        "counts": {"train": train_counts, "val": val_counts}}
+        row["per_step"] = {"s2_calls": 4, "bn_calls": n_bn}
+        out["models"][name] = row
+        del model, last, tr
+        lap(f"{stem}.epoch_and_val")
+
+        for mi, other in enumerate(c["others"]):  # the other scales: predict at batch 8, 3 steps with both kernels
+            ostem = Path(other).stem
+            probe, sites, bn = probe_sites(other)
+            orow = {"s2_sites": [(s["name"], s["k"], s["x"], s["w"][0]) for s in sites], "bn_inputs": len(bn),
+                    **kernel_site_checks(other, sites, bn, 9100 + 100 * mi, seen)}
+            del probe
+            model, orow["predict"] = predict(other, frames, (c["batch"],), c["other_share"], c["seed"] + 10 + mi)
+            del model
+            obatch = synthetic_batch(np.random.default_rng(c["seed"] + 20 + mi), c["batch"], c["imgsz"], c["nc"])
+            _, run, cnt = fixed_run(other, obatch, c["other_steps"], "cuda")
+            orow["loss"] = check_steps(other, "both", run, cnt, c["other_steps"], len(bn), falling=False)
+            orow["step_ms_median"] = float(np.median([r["ms"] for r in run[1:]]))
+            orow["counts"] = cnt
+            out["models"][other] = orow
+            lap(ostem)
+    finally:
+        nms_ops.greedy_keep = kernel_keep
+        writer.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = dict(launches)
+    out["shapes_checked"] = len(seen)
+    return out
+
+
 def make_walker(rng: np.random.Generator, n_frames: int = 120, fps: float = 30.0, cadence: float = 1.8,
                 speed: float = 80.0, noise: float = 1.0) -> np.ndarray:
     """A synthetic COCO-17 walking track (T, 17, 2): hips advance at `speed` px/s, ankles swing fore and aft at
@@ -3794,7 +4059,7 @@ def drawing_cost(frame: np.ndarray, n: int = 50) -> dict:
 
 
 def run_solutions(smi: str) -> dict:
-    """Phase 20: the analytics layer over tracks on the card (see the module docstring), its checks and its numbers."""
+    """Phase 21: the analytics layer over tracks on the card (see the module docstring), its checks and its numbers."""
     import drone_yolo_tpu_torch.solutions.heatmap as heatmap_mod
     from drone_yolo_tpu_torch import YOLO
     from drone_yolo_tpu_torch import solutions as S
@@ -4562,7 +4827,16 @@ def main() -> None:
         kern["launches_by_path"]["zoo"] = n
     emit("zoo", t, **zoo)
 
-    # 20. solutions: the analytics apps over tracks and the gait study ---------------------------
+    # 20. v10: YOLOv10, the NMS-free end-to-end detector -----------------------------------------
+    t = time.perf_counter()
+    v10 = run_v10(smi)
+    for kern in kernels:
+        n = v10["launches"].get(kern["name"], 0)
+        kern["launches"] += n
+        kern["launches_by_path"]["v10"] = n
+    emit("v10", t, **v10)
+
+    # 21. solutions: the analytics apps over tracks and the gait study ---------------------------
     t = time.perf_counter()
     sol = run_solutions(smi)
     nms_row["launches"] += sol["nms_launches"]
@@ -4570,7 +4844,7 @@ def main() -> None:
     nms_row["launches_by_path"]["solutions"] = sol["nms_launches"]
     emit("solutions", t, **sol)
 
-    # 21. imports ---------------------------------------------------------------
+    # 22. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401

@@ -11,13 +11,15 @@ HWIO kernels become OIHW, BN `scale/bias/mean/var` become
 `upsample` (the torch (in, out, 2, 2) weight, the same transpose as a conv's; so does a yolov6
 `nn.ConvTranspose2d` layer's), A2C2f's `gamma` keeps its name, GhostBottleneck's `g1/dw/g2/sc_dw/sc_pw`
 become the reference's `conv.0/conv.1/conv.2/shortcut.0/shortcut.1`, a fused RepConv's `kernel/bias` its
-own `weight/bias`, a fused RepVGGBlock's (where the port model has one) its `rbr_reparam`, Classify's
+own `weight/bias` (so does a fused RepVGGDW's; unfused, its `conv` and `conv1` keep their names), a fused
+RepVGGBlock's (where the port model has one) its `rbr_reparam`, Classify's
 `linear/kernel` (1280, nc) becomes the torch (nc, 1280) `linear.weight`, a TorchVision trunk's
 `stem` and flat `blocks/<i>/cv1|cv2|down` become the reference's `m.0`, `m.1` and `m.<4 + layer>.<j>.conv1|bn1|
 conv2|bn2|downsample` (a block with `down` after the first starts the next layer), and the sequences drop the JAX
 `m` level under which a JAX `_Seq` (or `_RepeatSeq`) keeps its children: a node of the tree whose only key is `m`.
-Those are the head's branches (Detect's `cv2.<i>`, `cv3.<i>`, Pose's, Segment's and OBB's `cv4.<i>`), the sequences
-nested in them (the YOLO11/12 `cv3.<i>.<j>`), PSABlock's `ffn`, ABlock's `mlp`, A2C2f's pairs of ABlocks
+Those are the head's branches (Detect's `cv2.<i>`, `cv3.<i>`, v10Detect's `one2one_cv2.<i>` and `one2one_cv3.<i>`,
+Pose's, Segment's and OBB's `cv4.<i>`), the sequences nested in them (the YOLO11/12 and v10 `cv3.<i>.<j>`), PSABlock's
+and PSA's `ffn`, CIB's `cv1`, ABlock's `mlp`, A2C2f's pairs of ABlocks
 (`m.<i>`), RepNCSPELAN4's `cv2` and `cv3`, and a repeated row of a module that does not count its repeats
 (`model.<i>.<j>`: yolov3's Bottlenecks, yolov6's Convs). `_jax_path` puts the level back from the torch name
 alone. Names are the reference torch names (`model.<i>....`), which
@@ -51,7 +53,7 @@ _BRANCH = {"dense": "rbr_dense", "one": "rbr_1x1", "idbn": "rbr_identity", "up":
            "g1": "conv.0", "dw": "conv.1", "g2": "conv.2", "sc_dw": "shortcut.0", "sc_pw": "shortcut.1"}
 _BRANCH_JAX = {v: k for k, v in _BRANCH.items()}
 _LEAF_JAX = {"running_mean": "mean", "running_var": "var", "bias": "bias", "gamma": "gamma"}
-_NAMED_SEQS = ("ffn", "mlp")  # PSABlock's and ABlock's feed-forward sequences
+_NAMED_SEQS = ("ffn", "mlp", "cv1")  # PSABlock's, PSA's and ABlock's feed-forward sequences; CIB's cv1
 _ELAN_SEQS = ("cv2", "cv3")  # RepNCSPELAN4's sequences; Detect's branch lists of the same names hold sequences
 
 
@@ -179,7 +181,7 @@ def from_jax_variables(variables: dict, model=None) -> dict:
 def _jax_path(name: str, ndim: int) -> list[str]:
     """Reference torch parameter name -> JAX variable path; the inverse of `_torch_names`. A torch index is a child of a
     JAX sequence, under its `m`, when it follows the layer's index (a repeated row), another index (a head branch's
-    sequence, A2C2f's pair of ABlocks), `ffn` or `mlp`, or `cv2`/`cv3` without a second index after it
+    sequence, A2C2f's pair of ABlocks), `ffn`, `mlp` or `cv1` (CIB's), or `cv2`/`cv3` without a second index after it
     (RepNCSPELAN4's; Detect's `cv2.<i>` is a list of sequences)."""
     parts = name.split(".")
     if parts[0] != "model" or len(parts) < 3:

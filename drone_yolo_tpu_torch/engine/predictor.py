@@ -39,7 +39,8 @@ from drone_yolo_tpu_torch.data.loaders import load_inference_source
 from drone_yolo_tpu_torch.engine.results import Results, write_image
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
 from drone_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_u8
-from drone_yolo_tpu_torch.ops.nms import non_max_suppression
+from drone_yolo_tpu_torch.nn.modules import v10Detect
+from drone_yolo_tpu_torch.ops.nms import end2end_detections, non_max_suppression
 from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_callbacks
 
 LOGGER = logging.getLogger("drone_yolo_tpu_torch")
@@ -117,8 +118,11 @@ class DetectionPredictor(CallbackMixin):
 
     @torch.inference_mode()
     def inference(self, x: torch.Tensor):
-        """The step on the device: forward, DFL decode, NMS -> (dets (B, max_det, 6 + extra), n_valid (B,))."""
+        """The step on the device: forward, DFL decode, NMS -> (dets (B, max_det, 6 + extra), n_valid (B,)). YOLOv10's
+        NMS-free head gives its detections sorted: `end2end_detections` cuts them, and no NMS runs."""
         preds, _ = self.model(x)
+        if isinstance(self.model.head, v10Detect):
+            return end2end_detections(preds, self.args.conf, self.args.max_det, self.args.classes)
         return non_max_suppression(
             preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
             pre_topk=min(self.args.pre_nms_topk, 1024), classes=self.args.classes, agnostic=self.args.agnostic_nms,

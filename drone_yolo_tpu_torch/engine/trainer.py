@@ -62,7 +62,7 @@ from drone_yolo_tpu_torch.nn.model import DetectionModel
 from drone_yolo_tpu_torch.nn.modules import collect_bn_stats
 from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_callbacks
 from drone_yolo_tpu_torch.utils.ema import EarlyStopping, ModelEMA
-from drone_yolo_tpu_torch.utils.loss import v8DetectionLoss
+from drone_yolo_tpu_torch.utils.loss import E2EDetectLoss, v8DetectionLoss
 from drone_yolo_tpu_torch.utils.optimizer import auto_optimizer, build_lr_fn, build_optimizer, set_hyp
 from drone_yolo_tpu_torch.utils.plotting import plot_images
 
@@ -125,7 +125,9 @@ class BaseTrainer(CallbackMixin):
         return not nc or model.nc == nc
 
     def get_criterion(self):
-        return v8DetectionLoss(self.model, box=self.args.box, cls=self.args.cls, dfl=self.args.dfl)
+        """The detection loss; for YOLOv10's NMS-free head (`v10Detect`) the dual-assignment `E2EDetectLoss`."""
+        loss = E2EDetectLoss if isinstance(self.model.head, M.v10Detect) else v8DetectionLoss
+        return loss(self.model, box=self.args.box, cls=self.args.cls, dfl=self.args.dfl)
 
     def setup_model(self) -> None:
         """The model to train, with the data's class count and names, on the device, in train mode: the facade's,

@@ -41,8 +41,9 @@ from drone_yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
 from drone_yolo_tpu_torch.data.utils import check_det_dataset
 from drone_yolo_tpu_torch.engine.model import select_device
 from drone_yolo_tpu_torch.engine.predictor import LOGGER, Profile
+from drone_yolo_tpu_torch.nn.modules import v10Detect
 from drone_yolo_tpu_torch.ops.boxes import scale_boxes
-from drone_yolo_tpu_torch.ops.nms import non_max_suppression
+from drone_yolo_tpu_torch.ops.nms import end2end_detections, non_max_suppression
 from drone_yolo_tpu_torch.utils.callbacks import CallbackMixin, get_default_callbacks
 from drone_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
 
@@ -110,7 +111,10 @@ class BaseValidator(CallbackMixin):
     @torch.inference_mode()
     def postprocess(self, preds: torch.Tensor):
         """Multi-label NMS over the top `pre_nms_topk` candidates -> (dets (B, max_det, 6 + extra), n_valid (B,)); the
-        columns after the nc scores (a pose model's keypoints) ride with their candidates."""
+        columns after the nc scores (a pose model's keypoints) ride with their candidates. YOLOv10's NMS-free head
+        gives its detections sorted (`v10Detect`): they are cut to `max_det` and `conf`, with no NMS."""
+        if isinstance(self.model.head, v10Detect):
+            return end2end_detections(preds, self.args.conf, self.args.max_det)
         return non_max_suppression(preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
                                    pre_topk=self.args.pre_nms_topk, multi_label=True, nc=self.nc)
 

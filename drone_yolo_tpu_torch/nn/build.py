@@ -1,10 +1,10 @@
 """Model YAML -> list of layers: the `[from, repeats, module, args]` row grammar of the v3, v5, v6, v8 (P2, P6, Ghost),
-v9 (GELAN), YOLO11 and YOLO12 families and their classifiers.
+v9 (GELAN), v10, YOLO11 and YOLO12 families and their classifiers.
 
 Counterpart of `drone_yolo_tpu/nn/build.py`: the same depth gain
 `max(round(n * depth), 1)`, width gain `make_divisible(min(c2, max_channels) * width, 8)`
 and n/s/m/l/x scale resolution. A `C3k2` or `A2C2f` row builds the head with
-`legacy=False` (the depthwise class branch); at scales m, l and x `C3k2` takes
+`legacy=False` (the depthwise class branch; `v10Detect` has it always); at scales m, l and x `C3k2` takes
 C3k blocks, and at l and x `A2C2f` takes `residual` (its gamma) and mlp_ratio 1.2. A
 `Classify` row's width is nc, unscaled (a layer whose width equals nc is never scaled, as
 in the JAX package and Ultralytics); `ResNetLayer` rows pass unscaled, and a `TorchVision`
@@ -41,6 +41,11 @@ REGISTRY = {
     "C3Ghost": M.C3Ghost,
     "C3k2": M.C3k2,
     "C2PSA": M.C2PSA,
+    "PSA": M.PSA,
+    "SCDown": M.SCDown,
+    "CIB": M.CIB,
+    "C2fCIB": M.C2fCIB,
+    "RepVGGDW": M.RepVGGDW,
     "A2C2f": M.A2C2f,
     "SPP": M.SPP,
     "SPPF": M.SPPF,
@@ -65,6 +70,7 @@ REGISTRY = {
     "nn.ConvTranspose2d": nn.ConvTranspose2d,
     "ConvTranspose2d": nn.ConvTranspose2d,
     "Detect": M.Detect,
+    "v10Detect": M.v10Detect,
     "Pose": M.Pose,
     "Segment": M.Segment,
     "OBB": M.OBB,
@@ -72,11 +78,11 @@ REGISTRY = {
     "ResNetLayer": M.ResNetLayer,
     "TorchVision": M.TorchVision,
 }
-HEAD_MODULES = {M.Detect, M.Pose, M.Segment, M.OBB}  # take the input widths of their levels as their last argument
+HEAD_MODULES = {M.Detect, M.v10Detect, M.Pose, M.Segment, M.OBB}  # take their levels' input widths as the last argument
 BASE_MODULES = {M.Conv, M.DWConv, M.GhostConv, M.Bottleneck, M.GhostBottleneck, M.C2, M.C2f, M.C3, M.C3Ghost, M.C3k2,
-                M.C2PSA, M.A2C2f, M.SPP, M.SPPF, M.RepVGGBlock, M.RepConv, M.RepCSP, M.RepNCSPELAN4, M.ELAN1, M.AConv,
-                M.ADown, M.SPPELAN, M.Classify, nn.ConvTranspose2d}  # (c1, c2, ...)
-REPEAT_MODULES = {M.C2, M.C2f, M.C3, M.C3Ghost, M.C3k2, M.C2PSA, M.A2C2f, M.RepCSP}  # the repeat count is 3rd argument
+                M.C2PSA, M.PSA, M.SCDown, M.CIB, M.C2fCIB, M.A2C2f, M.SPP, M.SPPF, M.RepVGGBlock, M.RepConv, M.RepCSP,
+                M.RepNCSPELAN4, M.ELAN1, M.AConv, M.ADown, M.SPPELAN, M.Classify, nn.ConvTranspose2d}  # (c1, c2, ...)
+REPEAT_MODULES = {M.C2, M.C2f, M.C3, M.C3Ghost, M.C3k2, M.C2PSA, M.C2fCIB, M.A2C2f, M.RepCSP}  # the repeat count is 3rd
 
 
 # ---------------------------------------------------------------------------

@@ -132,8 +132,8 @@ class DetectionModel(nn.Module):
 
     @torch.no_grad()
     def fuse(self) -> DetectionModel:
-        """Fold BN into convs and collapse RepVGG and RepConv branches, in place."""
-        for kind in (M.RepVGGBlock, M.RepConv, M.Conv, M.TorchVision):  # the first two fold their own Convs' BNs
+        """Fold BN into convs and collapse the RepVGGBlock, RepConv and RepVGGDW branches, in place."""
+        for kind in (M.RepVGGBlock, M.RepConv, M.RepVGGDW, M.Conv, M.TorchVision):  # the first 3 fold their Convs' BNs
             for mod in [m for m in self.modules() if isinstance(m, kind)]:
                 mod.fuse()
         return self

@@ -1,4 +1,4 @@
-"""The module sets of the v3, v5, v6, v8 (P2, P6, Ghost), v9 (GELAN), YOLO11 and YOLO12 families and of the
+"""The module sets of the v3, v5, v6, v8 (P2, P6, Ghost), v9 (GELAN), v10, YOLO11 and YOLO12 families and of the
 classifiers as PyTorch modules (NCHW, OIHW).
 
 Counterpart of `drone_yolo_tpu/nn/modules.py`. Parameter names follow the
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import math
 import warnings
 
@@ -40,6 +41,7 @@ from torch import nn
 
 from drone_yolo_tpu_torch.ops.anchors import dist2bbox, dist2rbox, make_anchors
 from drone_yolo_tpu_torch.ops.bn_stats import BNSTATS_MODES, bn_stats, bn_stats_reference
+from drone_yolo_tpu_torch.ops.boxes import xywh2xyxy
 from drone_yolo_tpu_torch.ops.conv_s2 import conv2d_s2, covers
 
 BN_EPS = 1e-3  # reference initialize_weights sets BatchNorm2d eps=1e-3
@@ -502,12 +504,73 @@ class A2C2f(nn.Module):
         return out if self.gamma is None else x + self.gamma.to(out.dtype)[:, None, None] * out
 
 
-def fold_rep_branches(conv3: Conv, conv1: Conv) -> tuple[torch.Tensor, torch.Tensor]:
-    """The 3x3 kernel and bias of bn(conv3(x)) + bn(conv1(x)) in eval mode: each BN folded, the 1x1 padded into the
-    3x3's centre."""
-    w3, b3 = bn_fold(conv3.bn, conv3.conv.weight)
-    w1, b1 = bn_fold(conv1.bn, conv1.conv.weight)
-    return w3 + F.pad(w1, (1, 1, 1, 1)), b3 + b1
+class PSA(nn.Module):
+    """YOLOv10's partial self-attention: of the halves a, b of cv1(x), b goes through `attn` and the feed-forward `ffn`,
+    each residual, and cv2 takes both back to the input width."""
+
+    def __init__(self, c1, c2, e=0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"PSA keeps its width, got c1={c1} c2={c2}")
+        self.c = int(c1 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c1, 1)
+        self.attn = Attention(self.c, attn_ratio=0.5, num_heads=max(self.c // 64, 1))
+        self.ffn = nn.Sequential(Conv(self.c, self.c * 2, 1), Conv(self.c * 2, self.c, 1, act=False))
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, 1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat((a, b), 1))
+
+
+class SCDown(nn.Module):
+    """YOLOv10's separable downsample: a 1x1 Conv, then a k x k stride-s depthwise Conv without activation (a depthwise
+    conv: not a stride-2 kernel site)."""
+
+    def __init__(self, c1, c2, k=3, s=2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class CIB(nn.Module):
+    """YOLOv10's conditional identity block: the sequence `cv1` of a 3x3 depthwise Conv, a 1x1 Conv to 2 c_, a 3x3
+    depthwise Conv (a RepVGGDW with `lk`), a 1x1 Conv to c2 and a 3x3 depthwise Conv; the input is added when
+    `shortcut` and the widths agree."""
+
+    def __init__(self, c1, c2, shortcut=True, e=0.5, lk=False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(Conv(c1, c1, 3, g=c1), Conv(c1, 2 * c_, 1),
+                                 RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+                                 Conv(2 * c_, c2, 1), Conv(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f whose blocks are CIB(c, c, shortcut, e=1.0, lk)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=False, lk=False, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(CIB(self.c, self.c, shortcut, e=1.0, lk=lk) for _ in range(n))
+
+
+def fold_rep_branches(big: Conv, small: Conv) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel and bias of bn(big(x)) + bn(small(x)) in eval mode: each BN folded, the smaller kernel (a 1x1 into a
+    3x3, a 3x3 into a 7x7) padded into the larger's centre."""
+    wb, bb = bn_fold(big.bn, big.conv.weight)
+    ws, bs = bn_fold(small.bn, small.conv.weight)
+    p = (wb.shape[-1] - ws.shape[-1]) // 2
+    return wb + F.pad(ws, (p, p, p, p)), bb + bs
 
 
 class RepVGGBlock(nn.Module):
@@ -579,6 +642,32 @@ class RepConv(nn.Module):
             w, b = fold_rep_branches(self.conv1, self.conv2)
             self.weight, self.bias = nn.Parameter(w), nn.Parameter(b)
             self.conv1 = self.conv2 = None
+
+
+class RepVGGDW(nn.Module):
+    """YOLOv10's depthwise RepVGG block: a 7x7 depthwise Conv `conv` and a 3x3 one `conv1` (each with BN, no
+    activation) summed, then SiLU; `fuse()` collapses them into one 7x7 depthwise conv held as the block's own
+    `weight` and `bias` (the JAX package's fused `kernel` and `bias`), the 3x3 padded by 2."""
+
+    def __init__(self, c):
+        super().__init__()
+        self.c = c
+        self.conv = DWConv(c, c, 7, 1, act=False)
+        self.conv1 = DWConv(c, c, 3, 1, act=False)
+        self.register_parameter("weight", None)
+        self.register_parameter("bias", None)
+
+    def forward(self, x):
+        if self.weight is not None:
+            return F.silu(F.conv2d(x, self.weight, self.bias, 1, 3, 1, self.c))
+        return F.silu(self.conv(x) + self.conv1(x))
+
+    @torch.no_grad()
+    def fuse(self) -> None:
+        if self.weight is None:
+            w, b = fold_rep_branches(self.conv, self.conv1)
+            self.weight, self.bias = nn.Parameter(w), nn.Parameter(b)
+            self.conv = self.conv1 = None
 
 
 class RepBottleneck(Bottleneck):
@@ -757,6 +846,53 @@ class Detect(nn.Module):
     def forward(self, xs):
         maps = self.raw_maps(xs)
         return self.decode(maps), maps
+
+
+class v10Detect(Detect):
+    """YOLOv10's NMS-free end-to-end head: Detect with the depthwise class branch (the one-to-many head, trained with
+    TAL's top 10) and a second pair of the same branches, `one2one_cv2` and `one2one_cv3` (the one-to-one head, TAL's
+    top 1, the one served), which take the features detached, so that their loss moves no layer before the head.
+
+    Counterpart of `drone_yolo_tpu/nn/modules.py` `v10Detect`. Train mode (`train_out`) gives {"one2many": maps,
+    "one2one": maps}. Eval mode decodes the one-to-one maps and takes the top k = min(max_det, A) of the A * nc
+    (anchor, class) scores, ties to the lower flat index as `jax.lax.top_k` (a stable descending sort): (dets (B, k,
+    6): xyxy pixels, score, class, by score; {"one2one": maps}). No NMS follows.
+    """
+
+    max_det = 300
+
+    def __init__(self, nc=80, ch=(), reg_max=16, legacy=False):
+        super().__init__(nc, ch, reg_max, legacy=False)  # the head's `legacy` is the depthwise class branch always
+        self.one2one_cv2 = copy.deepcopy(self.cv2)
+        self.one2one_cv3 = copy.deepcopy(self.cv3)
+
+    @torch.no_grad()
+    def bias_init(self, imgsz: int = 640) -> None:
+        """Detect's priors on both heads."""
+        super().bias_init(imgsz)
+        for box, cls, s in zip(self.one2one_cv2, self.one2one_cv3, self.stride):
+            box[-1].bias.fill_(1.0)
+            cls[-1].bias.fill_(math.log(5 / self.nc / (imgsz / s) ** 2))
+
+    def one2one_maps(self, xs):
+        """The one-to-one head's per-level (B, 4 * reg_max + nc, H, W) maps, on the features detached."""
+        return [torch.cat((box(x), cls(x)), 1)
+                for box, cls, x in zip(self.one2one_cv2, self.one2one_cv3, [x.detach() for x in xs])]
+
+    def train_out(self, xs):
+        one2one = self.one2one_maps(xs)
+        return {"one2many": self.raw_maps(xs), "one2one": one2one}
+
+    def forward(self, xs):
+        one2one = self.one2one_maps(xs)
+        preds = self.decode(one2one)  # (B, A, 4 + nc) xywh pixels and scores, float32
+        b, a, _ = preds.shape
+        k = min(self.max_det, a)
+        top, idx = preds[..., 4:].reshape(b, -1).sort(dim=-1, descending=True, stable=True)
+        top, idx = top[:, :k], idx[:, :k]
+        boxes = preds[..., :4].gather(1, (idx // self.nc)[..., None].expand(-1, -1, 4))
+        dets = torch.cat((xywh2xyxy(boxes), top[..., None], (idx % self.nc).to(top.dtype)[..., None]), -1)
+        return dets, {"one2one": one2one}
 
 
 class Pose(Detect):

@@ -16,9 +16,10 @@ draws the same pixels as OpenCV 5.0 with these functions, on (H, W, 3) or (H, W)
   plus one wide, 9 lw high above the baseline and the largest per-character descent below it. Those advances and
   descents are tabulated here (`_ADVANCE`, `_DESCENT`; read from OpenCV 5.0's `getTextSize`), so the box, and the
   label rectangle placed from it, are exact.
-  The glyphs are the port's own stroke font (`_GLYPHS`), each drawn once per size with the thickness inside its
-  character's cell of the box and blended by its coverage: their pixels differ from OpenCV's outline glyphs, which
-  are not reproduced. The port's strokes stay inside the box; OpenCV's ink reaches up to lw / 2 + 1 px left of it;
+  The glyphs are the port's own stroke font (`_GLYPHS`), each drawn once per size inside its character's cell of the
+  box, at the stroke width, side bearings, baseline and ink that fit OpenCV's (`_style`), and blended by its
+  coverage: their pixels differ from OpenCV's outline glyphs, which are not reproduced. The port's strokes stay
+  inside the box; OpenCV's ink reaches up to lw / 2 + 1 px left of it;
 - `add_weighted` (`cv2.addWeighted` on uint8: float32 b * beta, then a * alpha added in one rounding, as a fused
   multiply-add, rounded half to even and saturated). INTER_NEAREST is `ops/letterbox.py:resize_nearest`;
 - `apply_color_map` (`cv2.applyColorMap` on a one-channel uint8 image) for OpenCV 5.0's 22 colormaps, their constants
@@ -544,31 +545,49 @@ def get_text_size(text: str, font_scale: float, thickness: int) -> tuple[tuple[i
     return (sum(adv[k] for k in codes) + 1, 9 * lw), max(desc.get(chr(k + 32), 0) for k in codes)
 
 
+# How a glyph's strokes sit in its cell, per line width lw: (stroke width in px, side bearing / lw, baseline drop / lw,
+# cap height / box height, ink gain). Fitted to `cv2.putText`'s Rubik (OpenCV 5.0) on labels at lw 1 and 2; from lw 3
+# on (thickness >= 2) the line fitted at lw 3, 4, 5, 6 and 9. Rubik keeps side bearings of ~lw/2, sits its strokes on
+# the baseline and inks more than a stroke of the text's thickness does.
+_STYLE = {1: (0.575, 0.525, -0.3, 0.72, 0.925), 2: (1.6, 0.538, -0.1, 0.748, 0.963)}
+_SS = 4  # the strokes are drawn at 4x and each 4x4 block's mean is a pixel's coverage: sub-pixel widths and places
+
+
+def _style(lw: int) -> tuple:
+    return _STYLE.get(lw) or (0.554 * lw + 1.49, 0.63, -0.16, 0.725, 1.56)
+
+
 def _glyph(ch: str, lw: int, thickness: int) -> tuple[np.ndarray, int, int]:
     """Character `ch`'s strokes drawn once, anti-aliased, in white on black for line width lw: (coverage (h, w) uint8,
-    left, top) of the drawing relative to the left end of its baseline; kept in `_GLYPH_CACHE`."""
+    left, top) of the drawing relative to the left end of its baseline; kept in `_GLYPH_CACHE`. The strokes (`_GLYPHS`)
+    span the cell between its side bearings, from the baseline to the cap height (`_style`), descenders down to the
+    character's descent; drawn at `_SS` times the size, averaged down and scaled by the ink gain."""
     key = (ch, lw, thickness)
     if key not in _GLYPH_CACHE:
         adv, desc = _metrics(lw)
+        width, bearing, drop, cap, gain = _style(lw)
         k = ord(ch) - 32
         h = 9 * lw
-        m = thickness // 2 + 2  # the strokes' half width and their anti-aliased edge, kept inside the cell
-        pad = m + 2
-        canvas = np.zeros((h + desc.get(ch, 0) + 2 * pad, adv[k] + 2 * pad), np.uint8)
-        x, base = pad, pad + h  # the cell's left end of the baseline on the canvas
-        base_in = base - m  # grid row 2, the lowest the strokes sit without a descent
-        unit = (h * 0.75 - m) / 6  # one grid step above it: row 8 at the cap height, 3/4 of the box
-        left, span = x + min(m, adv[k] / 2), max(adv[k] - 1 - 2 * m, 0) / 4  # a narrow cell: its middle
+        pad = math.ceil(width) + 3
+        rows, cols = h + desc.get(ch, 0) + 2 * pad, adv[k] + 2 * pad
+        canvas = np.zeros((rows * _SS, cols * _SS), np.uint8)
+        base = pad + h + drop * lw  # the baseline on the canvas, in pixels
+        y_base, y_cap = base - width / 2, base - cap * h + width / 2  # the strokes' centre lines at grid rows 2 and 8
+        unit = (y_base - y_cap) / 6
+        side = min(bearing * lw + width / 2, adv[k] / 2)
+        left, span = pad + side, max(adv[k] - 2 * side, 0) / 4
         down = desc.get(ch, 0) / 2
         white = np.array([255], np.int64)
+        scale = _SS * XY_ONE
         for stroke in _GLYPHS.get(ch, "").split("|") if ch != " " else ():
             v = []
             for p in stroke.split():
                 gx, gy = int(p[0]), int(p[1]) - 2
-                py = base_in - gy * unit if gy >= 0 else base_in - gy * down
-                v.append((int(round((left + gx * span) * XY_ONE)), int(round(py * XY_ONE))))
-            _poly_line(canvas, v if len(v) > 1 else v * 2, False, white, thickness, True, XY_SHIFT)
-        _GLYPH_CACHE[key] = (canvas, -pad, -base)
+                py = y_base - gy * (unit if gy >= 0 else down)
+                v.append((int(round((left + gx * span) * scale)), int(round(py * scale))))
+            _poly_line(canvas, v if len(v) > 1 else v * 2, False, white, max(round(width * _SS), 1), True, XY_SHIFT)
+        cover = canvas.reshape(rows, _SS, cols, _SS).mean((1, 3)) * gain
+        _GLYPH_CACHE[key] = (np.clip(np.round(cover), 0, 255).astype(np.uint8), -pad, -(pad + h))
     return _GLYPH_CACHE[key]
 
 
@@ -578,9 +597,8 @@ _GLYPH_CACHE: dict = {}
 def put_text(img: np.ndarray, text: str, org, font_scale: float, color, thickness: int = 1,
              line_type: int = LINE_AA) -> np.ndarray:
     """`cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, font_scale, color, thickness, line_type)` in place, org the
-    left end of the baseline: each character's strokes (`_GLYPHS`), drawn once per size with the thickness inside its
-    cell of the `get_text_size` box (cap height at 3/4 of the box's height, descenders down to the character's
-    descent), blended in the color by their coverage."""
+    left end of the baseline: each character's strokes (`_GLYPHS`), drawn once per size inside its cell of the
+    `get_text_size` box (`_glyph`), blended in the color by their coverage."""
     if line_type != LINE_AA:
         raise ValueError(f"put_text draws LINE_AA ({LINE_AA}) text only, not line type {line_type}")
     lw = _line_width(font_scale, thickness)

@@ -15,6 +15,11 @@ Counterpart of `drone_yolo_tpu/ops/nms.py:non_max_suppression`:
 3. compact the kept candidates, with their extra columns, into `max_det` slots,
    zero-padded, with a count.
 
+`end2end_detections` takes the place of NMS for YOLOv10's NMS-free head (`v10Detect`), whose detections come sorted
+from the model: it cuts them to `max_det` and keeps those above `conf_thres`, as the JAX package's end-to-end branch
+(`drone_yolo_tpu/engine/predictor.py:147-152`), and with `classes` those of the classes given, as Ultralytics 8.3
+(the JAX package ignores `classes` there).
+
 `nms_rotated` is the oriented boxes' NMS (`drone_yolo_tpu/ops/nms.py:nms_rotated`): fast (matrix) suppression by
 probiou, in plain tensor operations on the device, as the JAX package computes it outside any Pallas kernel.
 """
@@ -163,6 +168,17 @@ def non_max_suppression(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres
         preds, conf_thres, pre_topk, classes, agnostic, multi_label, nc)
     keep = greedy_keep(off_boxes, valid, iou_thres)
     return compact(keep, cand_boxes, top_scores, cls_idx, max_det, cand_extra)
+
+
+def end2end_detections(dets: torch.Tensor, conf_thres: float = 0.25, max_det: int = 300, classes=None):
+    """An NMS-free head's detections (B, k, 6) [x1, y1, x2, y2, conf, cls], sorted by score -> (dets (B, min(k,
+    max_det), 6), n_valid (B,) int32): the first `max_det` rows, those above `conf_thres` (of `classes`, when given)
+    first and in order, the others zeroed. No NMS runs."""
+    dets = dets[:, :max_det]
+    keep = dets[..., 4] > conf_thres
+    if classes is not None:
+        keep &= torch.isin(dets[..., 5], torch.as_tensor(classes, dtype=dets.dtype, device=dets.device).reshape(-1))
+    return compact(keep, dets[..., :4], dets[..., 4], dets[..., 5], max_det, dets[..., 6:])
 
 
 def _fast_suppress(scores: torch.Tensor, over: torch.Tensor, conf_thres: float, same_cls=None) -> torch.Tensor:

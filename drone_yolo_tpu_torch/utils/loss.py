@@ -2,8 +2,9 @@
 DFL on task-aligned targets, mask BCE, keypoint OKS and visibility; and the classifier's cross-entropy.
 
 Counterpart of `drone_yolo_tpu/utils/loss.py` (`bce_with_logits`, `df_loss`, `v8DetectionLoss`, `v8SegmentationLoss`,
-`v8PoseLoss`, `v8OBBLoss`, `v8ClassificationLoss`). Targets arrive padded to M slots per image with a validity mask, in the collate format
-(`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels, `mask` (B, M)); padded slots are zeroed so that they catch no anchor.
+`v8PoseLoss`, `v8OBBLoss`, `E2EDetectLoss`, `v8ClassificationLoss`). Targets arrive padded to M slots per image with a
+validity mask, in the collate format (`cls` (B, M), `bboxes` (B, M, 4) xyxy pixels, `mask` (B, M)); padded slots are
+zeroed so that they catch no anchor.
 """
 
 from __future__ import annotations
@@ -83,6 +84,21 @@ class v8DetectionLoss:
         p = self._detect_parts(feats, targets)
         items = torch.stack([p["loss_box"] * self.gains[0], p["loss_cls"] * self.gains[1], p["loss_dfl"] * self.gains[2]])
         return items.sum() * feats[0].shape[0], items.detach()
+
+
+class E2EDetectLoss:
+    """YOLOv10's dual-assignment criterion over `v10Detect`'s train output {"one2many": maps, "one2one": maps}: the
+    detection loss with TAL's top 10 on the one-to-many maps plus the one with TAL's top 1 on the one-to-one maps,
+    losses and items both summed."""
+
+    def __init__(self, model, box: float = 7.5, cls: float = 0.5, dfl: float = 1.5):
+        self.one2many = v8DetectionLoss(model, tal_topk=10, box=box, cls=cls, dfl=dfl)
+        self.one2one = v8DetectionLoss(model, tal_topk=1, box=box, cls=cls, dfl=dfl)
+
+    def __call__(self, outs: dict, targets: dict):
+        l_many, i_many = self.one2many(outs["one2many"], targets)
+        l_one, i_one = self.one2one(outs["one2one"], targets)
+        return l_many + l_one, i_many + i_one
 
 
 def top_foreground(weight: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -436,7 +436,7 @@ def test_activation_override_and_refusals():
         with pytest.raises(ValueError, match="activation"):
             parse_model({**d, "activation": bad})
     with pytest.raises(KeyError, match="not ported"):
-        parse_model({**d, "head": d["head"][:-1] + [[[19, 23, 27], 1, "v10Detect", ["nc"]]]})
+        parse_model({**d, "head": d["head"][:-1] + [[[19, 23, 27], 1, "WorldDetect", ["nc"]]]})
     with pytest.raises(NotImplementedError, match="RepConv"):
         TM.RepConv(16, 16, bn=True)
 
