@@ -5,8 +5,9 @@ command line over image files, an MJPEG AVI and a rect-validated dataset, trains
 predicts with, trains and validates an instance segmentation model and an oriented box model, does the same
 with the YOLO11 and YOLO12 families, and with the classifiers (yolov8s-cls, yolo11s-cls, yolo12s-cls and the
 ResNet-50 and ResNet-18 trunks), predicts with and trains the YOLOv3, v5, v6, P6, Ghost and YOLOv9 yamls and YOLOv10,
-the NMS-free end-to-end detector, and runs the analytics apps over tracks (counting, regions, queues, speed, distance,
-heatmap, parking, alarm, zone, workout counting, a mask overlay, the browser app) and the gait study.
+the NMS-free end-to-end detector, runs the analytics apps over tracks (counting, regions, queues, speed, distance,
+heatmap, parking, alarm, zone, workout counting, a mask overlay, the browser app) and the gait study, and exports the
+flagship to TorchScript and ONNX, then predicts, validates and serves through those artifacts.
 
     python3 chip_smoke.py
 
@@ -63,7 +64,7 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    share of the bound;
 8. profile: the device busy share and the device time by kernel of batch-8 predicts, of
    train steps with the stride-2 kernel, and of train steps with both kernels (torch.profiler);
-9. loop: the epoch loop over a dataset on disk. 32 train and 16 val images of the dense
+9. loop: the epoch loop over a dataset on disk. 16 train and 16 val images of the dense
    small-object proxy (`tools/dense_dataset.py:make_dense_image`, 320 px, 90-140 objects of
    4-12 px, 6 classes, seed 1) written as JPEG by the port's encoder at quality 95, with labels
    and data.yaml, in a temporary directory. Run A: `YOLO("yolov8s-p2-repvgg-sf.yaml").train(...)`
@@ -146,7 +147,8 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    validated each epoch, and `YOLO(last.npz).val(...)` in rect batches. Every NMS keep mask of those validations is
    held against `greedy_keep_reference`. Counts are set to 0 before each run and read after it. Checks: 7 stride-2
    calls (k=3) and 63 BN-statistics calls a step, one NMS call (two launches) a val batch at K = 4096, the loss
-   items finite, `pose_loss` and `kobj_loss` in results.csv, the metrics in [0, 1]; then 30 steps on one fixed
+   items finite, `pose_loss` and `kobj_loss` in results.csv, the metrics in [0, 1]; then 15 steps (30 before the
+   export phase) on one fixed
    batch (the val split's first 8 images, letterboxed) at a constant lr, whose `pose_loss` must end below its first
    value. Printed: step ms and img/s of the fixed batch, its device idle share (torch.profiler), epoch seconds and
    the data-wait share, validation img/s, peak card memory, each beside the nvidia-smi line;
@@ -162,7 +164,8 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    mask (predict K = 1024 and validation K = 4096, 32 coefficient columns riding) is held against
    `greedy_keep_reference`. Counts are set to 0 before each run and read after it. Checks: 7 stride-2 calls (k=3)
    and 66 BN-statistics calls a step (57 of the detect part, cv4's 6, Proto's 3), one NMS call (two launches) a
-   val batch, the loss items finite, box and mask metrics in [0, 1]; then 30 steps on one fixed batch (the val
+   val batch, the loss items finite, box and mask metrics in [0, 1]; then 15 steps (30 before the export phase) on
+   one fixed batch (the val
    split's 8 images, letterboxed) at a constant lr, whose `seg_loss` must end below its first value. Printed:
    predict img/s and masks per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and
    the data-wait share, validation img/s, box and mask mAP, peak card memory, each beside the nvidia-smi line;
@@ -179,7 +182,8 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    both kernels, with the EMA validated, and `YOLO(last.npz).val(...)` in rect batches. Rotated NMS is the JAX
    package's fast NMS by probiou in plain tensor operations, so the greedy-NMS kernel must not be called. Counts are
    set to 0 before each run and read after it. Checks: 7 stride-2 calls (k=3) and 63 BN-statistics calls a step, no
-   NMS kernel call, the loss items finite, the metrics in [0, 1]; then 30 steps on one fixed batch (the val split's
+   NMS kernel call, the loss items finite, the metrics in [0, 1]; then 15 steps (30 before the export phase) on one
+   fixed batch (the val split's
    8 images, letterboxed) at a constant lr, whose `box_loss` must end below its first value. Printed: predict img/s
    and oriented boxes per image, step ms and img/s of the fixed batch, its device idle share, epoch seconds and the
    data-wait share, validation img/s, peak card memory, the kernels' errors against the tolerance and their times,
@@ -190,8 +194,9 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    every train-mode BN input (81 and 113), bf16 and float32, batch 8, 640 px, then one bf16 step's calls timed
    against the plain versions, cuDNN's `convolution_backward` (each of yolo11s's sites alone too) and
    `torch.batch_norm_stats`; predict with `calibrated_weights` on 720x1280 frames (`moving_frames`) at batch 1 and 8;
-   the float32 forward on the card against the CPU (TF32 off, `spread_weights`); 10 steps on one synthetic batch with
-   both kernels and 10 stock from the same init (batch 8, 640 px, bf16 autocast, SGD at a constant lr): the loss
+   the float32 forward on the card against the CPU (TF32 off, `spread_weights`); 5 steps (10 before the export phase)
+   on one synthetic batch with both kernels and 5 stock from the same init (batch 8, 640 px, bf16 autocast, SGD at a
+   constant lr): the loss
    falling in both, the first 3 within `TRAIN_LOSS_RTOL`, step ms, img/s and the device idle share of a profiled
    step; one epoch from disk over 8 + 8 dense-proxy JPEGs at 640 px (`write_dense_dataset`) with both kernels and
    rect val of `last.npz`. Then `yolo11s-pose`, `yolo11s-seg`, `yolo11s-obb` (1024 px) and `yolo12s-seg`: predict at
@@ -219,8 +224,9 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    (layers 0 and 1; ADown's stride-2 convs see the odd map of their 2x2 mean and are not sites) and its 154 BN inputs
    (RepConv's two branches among them), bf16 and float32, each kind's calls timed against cuDNN and
    `torch.batch_norm_stats`; predict with `calibrated_weights` on 720x1280 frames at batch 1 and 8; the float32
-   forward on the card against the CPU's and fused against unfused (`BOX_ATOL_PX`, `SCORE_RTOL`); 10 fixed-batch
-   bf16 steps (SGD at a constant lr of 0.01) with both kernels and 10 stock (ms, img/s, the idle share of a profiled
+   forward on the card against the CPU's and fused against unfused (`BOX_ATOL_PX`, `SCORE_RTOL`); 5 fixed-batch
+   bf16 steps (10 before the export phase; SGD at a constant lr of 0.01) with both kernels and 5 stock (ms, img/s, the
+   idle share of a profiled
    step); one epoch over 8 + 8 dense-proxy JPEGs with both kernels, then rect val of `last.npz`. `yolov8s-p6.yaml`
    at 1280 px (predict on 1080x1920 frames at batch 1 and 8; 9 sites, the P6 level's downsample among them) and
    `yolov8s-ghost-p2.yaml` (predict at batch 8; GhostConv's cv1 sites): the same kernel and float32 checks, 5 bf16
@@ -228,7 +234,8 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    yolov8s-ghost, yolov8s-ghost-p6, yolov8s-pose-p6, yolov8s-seg-p6, yolov9t, s, m, e, yolov9c-seg, yolov9e-seg;
    1280 px for the P6 yamls): both train kernels against their plain versions at their sites and BN inputs as
    above (`kernel_site_checks`; a shape checked at an earlier model's site is not checked again), predict at batch 8
-   on the random init at conf 0 (32 detections an image) and 2 bf16 steps with both kernels, their stride-2 calls
+   on the random init at conf 0 (32 detections an image) and 1 bf16 step with both kernels (2 before the export
+   phase), their stride-2 calls
    timed against the plain version and cuDNN. Every detection model also takes one float32 backward (TF32 off, batch
    2) with both kernels and one stock against a float64 one (`float64_grad_errors`): the first losses within
    `TRAIN_LOSS_RTOL`, the kernels' largest gradient error within 2x stock's (two bf16 runs part at the first step,
@@ -248,7 +255,8 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    and 10 stock (SGD at a constant lr): the E2E loss finite and falling in both, step ms, img/s, the idle share of
    profiled steps; one epoch from disk over 8 + 8 dense-proxy JPEGs with both kernels, then rect val of `last.npz`
    (P, R, mAP50, mAP50-95 in [0, 1]). Then `yolov10n`, `m`, `b`, `l` and `x`: both kernels at their site and BN shapes
-   not checked at an earlier v10 model, predict at batch 8 and 3 fixed-batch steps with both kernels, losses finite.
+   not checked at an earlier v10 model, predict at batch 8 and 2 fixed-batch steps with both kernels (3 before the
+   export phase), losses finite.
    Counts are set to 0 before each run and read after it: 4 k=3 stride-2 calls and one BN-statistics call per BN
    input a step, and no greedy-NMS call anywhere (the head's top-k takes its place: `ops/nms.py:end2end_detections`);
 21. solutions: the analytics layer over tracks (`drone_yolo_tpu_torch/solutions/`, `SOLUTIONS_CELL`). The flagship
@@ -272,9 +280,25 @@ Phases, one JSON line each (with the seconds it took), flushed as they end:
    logic (the rest), its counts; the host's drawing costs alone (`drawing_cost`: a box label, a 30-point history,
    the heatmap's colormap and blend of a 1080p frame); the gait study's seconds, cross-validated accuracy and the
    forest's fit seconds;
-22. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn, matplotlib or streamlit was imported,
-   with the modules of every path (apps, solutions, trackers, the pose, segment, obb and classify predictors,
-   trainers and validators, the loaders, `ops/rotated.py`) loaded.
+22. export: export and AutoBackend (`EXPORT_CELL`). The flagship at full width (nc 80), 640 px, batch 8,
+   `calibrated_weights` on the first of 8 720x1280 frames (0.2% of its anchors above conf 0.25): `YOLO.export` to
+   torchscript in bfloat16 (`half=True`) and in float32 and to onnx (each with its npz and `.json` sidecar); each
+   reloaded by `AutoBackend` on the card (the ONNX file by the port's graph runner, `nn/onnx_graph.py`); the float32
+   artifacts' raw predictions against the eager fused float32 forward (TF32 off: boxes within `BOX_ATOL_PX`, scores
+   within `EXPORT_SCORE_ATOL`); `YOLO(path).predict` at batch 8 for each, counts set to 0 before and read after: one
+   greedy-NMS call (two launches) each; a local KServe-v2 REST server (`kserve_server`, stdlib `http.server`) serving
+   the float32 torchscript module on the card, and `YOLO("http://127.0.0.1:<port>/flagship").predict` equal to the
+   direct call's detections with one NMS call; `YOLO(float32 torchscript).val` (square batches at the artifact's batch
+   and size) on 8 dense-proxy JPEGs against the eager model's val in float32 with rect=False: the metrics within
+   `EXPORT_MAP_ATOL` and every detection's class equal and score within `EXPORT_SCORE_ATOL` (the random weights
+   score no true positive).
+   Every keep mask of the phase is held against `greedy_keep_reference`. Printed: ms per image at batch 8 of the
+   eager bf16 forward, the bf16 and float32 torchscript, the ONNX runner in float32 and the served round trip, each
+   beside the nvidia-smi line, export seconds and artifact bytes;
+23. imports: neither JAX, nor the JAX package, nor cv2, PIL, yaml, sklearn, matplotlib, streamlit, google.protobuf,
+   onnx or grpc was imported, with the modules of every path (apps, solutions, trackers, the pose, segment, obb and
+   classify predictors, trainers and validators, the loaders, `ops/rotated.py`, the ONNX writer and runner, the
+   KServe-v2 client) loaded.
 
 Then the nvidia-smi line, the `kernels` JSON line, and last `{"ok": true, "device": ...}`.
 
@@ -305,6 +329,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -352,7 +377,8 @@ VAL = dict(batches=4, batch=8, imgsz=640, nc=80, pre_nms_topk=4096)
 BOX_ATOL_PX = 1e-2
 SCORE_RTOL = 1e-4
 # the loop phase: the dense small-object proxy of the JAX package's ablation (tools/flagship_parity.py:216)
-LOOP = dict(n_train=32, n_val=16, imgsz=320, batch=8, epochs=2, nc=6, seed=1, obj_px=(4, 12), workers=4)  # 3 before v10
+# 3 epochs before the v10 phase; 32 train images before the export phase
+LOOP = dict(n_train=16, n_val=16, imgsz=320, batch=8, epochs=2, nc=6, seed=1, obj_px=(4, 12), workers=4)
 # mean absolute error of the dataset's JPEG round trip (quality 95, 4:2:0) per channel value: chroma subsampling
 # of 4-12 px saturated objects on a noisy background costs ~6.5 (the same for cv2's encoder at quality 95)
 JPEG_MEAN_ERR = 10.0
@@ -395,29 +421,29 @@ ENTRY_CELL = dict(dir_from_avi=2, frames=(("jpg", (1920, 1080), 2), ("jpg", (720
                   imgsz=640, conf=0.25, cls_gain=30.0, share_above_conf=0.05, crop_max_det=4, val_images=16,
                   val_batch=8, val_nc=6)
 # the pose phase: yolov8s-pose (nc 1, 17 keypoints) trained and validated at full width on a seeded dataset of figures
-# (`write_pose_dataset`), batch 8, 640 px, bf16 autocast, SGD, both kernels, default augmentation; then 30 steps on one
+# (`write_pose_dataset`), batch 8, 640 px, bf16 autocast, SGD, both kernels, default augmentation; then 15 steps on one
 # fixed batch at a constant lr (warmup_epochs 0), whose pose loss must fall
 POSE_CELL = dict(model="yolov8s-pose.yaml", n_train=16, n_val=8, imgsz=640, batch=8, epochs=2, seed=7, workers=4,
-                 fixed_steps=30)
+                 fixed_steps=15)
 # the segment phase: yolov8s-seg (nc 80, 32 prototypes) at full width on a seeded dataset of polygons
 # (`write_seg_dataset`): predict on 1080p frames at batch 1 and 8 with calibrated weights, one epoch from disk at
-# batch 8, 640 px, bf16 autocast, SGD, both kernels, rect val of last.npz; then 30 steps on one fixed batch at a
+# batch 8, 640 px, bf16 autocast, SGD, both kernels, rect val of last.npz; then 15 steps on one fixed batch at a
 # constant lr, whose mask loss must fall
 SEG_CELL = dict(model="yolov8s-seg.yaml", nc=80, n_train=8, n_val=8, imgsz=640, batch=8, seed=11, workers=4,
-                fixed_steps=30, frames_hw=(1080, 1920), cls_gain=30.0, share_above_conf=0.002, conf=0.25)
+                fixed_steps=15, frames_hw=(1080, 1920), cls_gain=30.0, share_above_conf=0.002, conf=0.25)
 # the obb phase: yolov8s-obb (nc 15, DOTA-v1's class count) at full width and DOTA's training size, 1024 px, on a seeded
 # dataset of rotated rectangles (`write_obb_dataset`): predict on 1024x1024 frames at batch 1 and 8 with calibrated
-# weights, one epoch from disk at batch 8, bf16 autocast, SGD, both kernels, rect val of last.npz; then 30 steps on
+# weights, one epoch from disk at batch 8, bf16 autocast, SGD, both kernels, rect val of last.npz; then 15 steps on
 # one fixed batch at a constant lr, whose box loss must fall
 OBB_CELL = dict(model="yolov8s-obb.yaml", nc=15, n_train=8, n_val=8, imgsz=1024, batch=8, seed=13, workers=4,
-                fixed_steps=30, objects=(8, 40), obj_px=(12, 160), frames=8, cls_gain=30.0, share_above_conf=0.02,
+                fixed_steps=15, objects=(8, 40), obj_px=(12, 160), frames=8, cls_gain=30.0, share_above_conf=0.02,
                 conf=0.25)
 # the families phase: yolo11s and yolo12s (nc 80, 640 px) with calibrated weights: predict on 720x1280 frames at batch
-# 1 and 8, the float32 forward on the card against the CPU, 10 fixed-batch steps with both kernels and 10 stock (30
-# before the classify phase, which took their time), one epoch from disk over dense-proxy JPEGs with rect val of
-# last.npz; then yolo11s-pose, -seg, -obb (1024 px) and yolo12s-seg: predict at batch 8 and 5 fixed-batch steps with
+# 1 and 8, the float32 forward on the card against the CPU, 5 fixed-batch steps with both kernels and 5 stock (30
+# before the classify phase, 10 before the export phase, which took their time), one epoch from disk over dense-proxy
+# JPEGs with rect val of last.npz; then yolo11s-pose, -seg, -obb (1024 px) and yolo12s-seg: predict at batch 8 and 5 fixed-batch steps with
 # both kernels, each task's loss falling
-FAMILY_CELL = dict(models=("yolo11s.yaml", "yolo12s.yaml"), nc=80, imgsz=640, batch=8, frames=8, fixed_steps=10,
+FAMILY_CELL = dict(models=("yolo11s.yaml", "yolo12s.yaml"), nc=80, imgsz=640, batch=8, frames=8, fixed_steps=5,
                    n_train=8, n_val=8, data_nc=6, obj_px=(6, 24), seed=17, workers=4, cls_gain=30.0,
                    share_above_conf=0.002, conf=0.25,
                    tasks=(("yolo11s-pose.yaml", 640), ("yolo11s-seg.yaml", 640), ("yolo11s-obb.yaml", 1024),
@@ -427,32 +453,34 @@ FAMILY_S2_LAYERS = {"yolo11s.yaml": ["0", "1", "3", "5", "7", "17", "20"],
 # the zoo phase: the v3, v5, v6, P6, Ghost and YOLOv9 yamls (nc 80, or 1 for the pose model), batch 8, fixed-batch
 # steps by SGD at a constant lr of 0.01, epochs at the default schedule. yolov9c at 640 px: both train kernels against
 # their plain versions at its sites and BN inputs, predict on 720x1280 frames at batch 1 and 8, the float32 forward on
-# the card against the CPU's and fused against unfused, 10 bf16 steps with both kernels and 10 stock, one epoch over
+# the card against the CPU's and fused against unfused, 5 bf16 steps with both kernels and 5 stock, one epoch over
 # 8 + 8 dense-proxy JPEGs and rect val of last.npz. yolov8s-p6 at 1280 px (predict on 1080x1920 frames at batch 1 and
 # 8) and yolov8s-ghost-p2 (batch 8): the kernel and float32 checks and 5 bf16 steps. The 16 others: predict at batch 8
-# and 2 bf16 steps (3 before the v10 phase), their stride-2 calls timed against the plain version and cuDNN. Every
+# and 1 bf16 step (3 before the v10 phase, 2 before the export phase; yolov9c's 10 + 10 steps 5 + 5 since then), their
+# stride-2 calls timed against the plain version and cuDNN. Every
 # model: both train kernels against their plain versions at each site and BN input shape not checked at an earlier
 # model. Every detection model: one float32 backward with both kernels and one stock, each against a float64 one
 ZOO_CELL = dict(nc=80, batch=8, seed=31, conf=0.25, cls_gain=30.0, share_above_conf=0.002, task_share_above_conf=0.02,
                 workers=4,
-                main=("yolov9c.yaml", 640, FRAME_HW, (1, 8), 10), n_train=8, n_val=8, data_nc=6, obj_px=(6, 24),
+                main=("yolov9c.yaml", 640, FRAME_HW, (1, 8), 5), n_train=8, n_val=8, data_nc=6, obj_px=(6, 24),
                 checked=(("yolov8s-p6.yaml", 1280, (1080, 1920), (1, 8), 5), ("yolov8s-ghost-p2.yaml", 640, FRAME_HW,
                                                                                (8,), 5)),
                 others=tuple((name, 1280 if "p6" in name else 640) for name in (
                     "yolov3-tiny.yaml", "yolov3.yaml", "yolov3-spp.yaml", "yolov5s.yaml", "yolov5s-p6.yaml",
                     "yolov6s.yaml", "yolov8s-ghost.yaml", "yolov8s-ghost-p6.yaml", "yolov8s-pose-p6.yaml",
                     "yolov8s-seg-p6.yaml", "yolov9t.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9e.yaml",
-                    "yolov9c-seg.yaml", "yolov9e-seg.yaml")), other_steps=2, frames=8)
+                    "yolov9c-seg.yaml", "yolov9e-seg.yaml")), other_steps=1, frames=8)
 # the v10 phase: YOLOv10, the NMS-free end-to-end detector (nc 80, 640 px, published widths and depths, random
 # weights from a seed). yolov10s: both train kernels against their plain versions at its 4 dense k=3 stride-2 sites
 # (layers 0, 1, 3, 17; SCDown's stride-2 convs are depthwise: cuDNN's) and its 99 BN inputs; predict with calibrated
 # weights on 720x1280 frames at batch 1 and 8 (fused, bf16), the float32 one-to-one maps and detections on the card
 # against the CPU's, 10 fixed-batch steps with both kernels and 10 stock (SGD at a constant lr), one epoch from disk
 # over 8 + 8 dense-proxy JPEGs with val of last.npz. Then yolov10n, m, b, l and x: their new site and BN shapes
-# against the plain versions, predict at batch 8 and 3 fixed-batch steps with both kernels. No NMS call anywhere
+# against the plain versions, predict at batch 8 and 2 fixed-batch steps with both kernels (3 before the export
+# phase). No NMS call anywhere
 V10_CELL = dict(model="yolov10s.yaml", others=("yolov10n.yaml", "yolov10m.yaml", "yolov10b.yaml", "yolov10l.yaml",
                                                "yolov10x.yaml"),
-                nc=80, imgsz=640, batch=8, frames=8, fixed_steps=10, other_steps=3, n_train=8, n_val=8, data_nc=6,
+                nc=80, imgsz=640, batch=8, frames=8, fixed_steps=10, other_steps=2, n_train=8, n_val=8, data_nc=6,
                 obj_px=(6, 24), seed=37, workers=4, cls_gain=30.0, share_above_conf=0.002, other_share=0.02, conf=0.25)
 V10_S2_LAYERS = ["0", "1", "3", "17"]  # every v10 scale's dense k=3 stride-2 convs
 # the draw phase: the flagship (640 px, bf16, weights calibrated so that a share of 0.004 of the anchors of the clip's
@@ -504,6 +532,16 @@ SOLUTIONS_CELL = dict(frames=2, tracker="bytetrack.yaml", share_above_conf=0.015
                       task_models={"AIGym": ("yolov8s-pose.yaml", 0.01),
                                    "InstanceSegmentation": ("yolov8s-seg.yaml", 0.004)}, app_frames=2,
                       app_hw=(720, 1280), walkers=28, gait_seed=2)
+
+# the export phase: the flagship at full width (scale s, nc 80), 640 px, batch 8, weights calibrated on the first of 8
+# 720x1280 frames (0.2% of its anchors above conf 0.25): exported to torchscript in bfloat16 (half) and in float32 and
+# to onnx, each reloaded by AutoBackend on the card; predict through YOLO(path) at batch 8; the float32 torchscript and
+# the eager model (float32, rect=False) validate 8 dense-proxy JPEGs; a local KServe-v2 REST server (stdlib
+# http.server) serves the float32 torchscript module to YOLO("http://127.0.0.1:<port>/flagship")
+EXPORT_CELL = dict(imgsz=640, batch=8, frames=8, seed=43, cls_gain=30.0, share_above_conf=0.002, conf=0.25, n_val=8,
+                   data_nc=6, obj_px=(6, 24), reps=5, endpoint="flagship")
+EXPORT_SCORE_ATOL = 1e-4  # float32 artifacts against the eager float32 forward: the class scores, absolute (boxes: BOX_ATOL_PX)
+EXPORT_MAP_ATOL = 1e-4  # the float32 torchscript's val metrics against the eager float32 model's
 
 T0 = time.perf_counter()
 
@@ -2324,7 +2362,7 @@ def run_pose(smi: str) -> dict:
             if len(m) != 9 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for k, v in m.items() if k != "fitness"):
                 raise AssertionError(f"pose {name} metrics: {m}")
 
-        # a fixed batch of the val split (letterboxed, no augmentation), 30 steps at a constant lr
+        # a fixed batch of the val split (letterboxed, no augmentation), `fixed_steps` steps at a constant lr
         info = check_det_dataset(data)
         ds = build_yolo_dataset(get_val_cfg(overrides=dict(imgsz=c["imgsz"], task="pose")), info["val"], c["batch"], info,
                                 mode="val")
@@ -2530,7 +2568,7 @@ def run_segment(smi: str) -> dict:
             if len(m) != 9 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for k, v in m.items() if k != "fitness"):
                 raise AssertionError(f"segment {name} metrics: {m}")
 
-        # a fixed batch of the val split (letterboxed, no augmentation), 30 steps at a constant lr
+        # a fixed batch of the val split (letterboxed, no augmentation), `fixed_steps` steps at a constant lr
         info = check_det_dataset(data)
         ds = build_yolo_dataset(get_val_cfg(overrides=dict(imgsz=c["imgsz"], task="segment")), info["val"], c["batch"],
                                 info, mode="val")
@@ -2745,7 +2783,7 @@ def run_obb(smi: str) -> dict:
             if len(m) != 5 or not all(math.isfinite(v) and 0.0 <= v <= 1.0 for k, v in m.items() if k != "fitness"):
                 raise AssertionError(f"obb {name} metrics: {m}")
 
-        # a fixed batch of the val split (letterboxed, no augmentation), 30 steps at a constant lr
+        # a fixed batch of the val split (letterboxed, no augmentation), `fixed_steps` steps at a constant lr
         info = check_det_dataset(data)
         ds = build_yolo_dataset(get_val_cfg(overrides=dict(imgsz=c["imgsz"], task="obb")), info["val"], c["batch"],
                                 info, mode="val")
@@ -3511,7 +3549,7 @@ def run_zoo(smi: str) -> dict:
                                                                          steps * n_bn, 0):
                 raise AssertionError(f"{name} {mode} steps: {cnt}, expected {per_step} stride-2 (k=3, k=1) and BN "
                                      "calls a step")
-            ms = float(np.median([r["ms"] for r in run[1:]]))
+            ms = float(np.median([r["ms"] for r in run[1:] or run]))  # one step: its own time, plans included
             runs[mode] = {"loss": [r["loss"] for r in run], "step_ms_median": ms, "img_per_s": c["batch"] / ms * 1e3,
                           "first_step_ms": run[0]["ms"], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                           "counts": cnt, "build_and_steps_s": time.perf_counter() - t0}
@@ -3915,7 +3953,7 @@ def run_v10(smi: str) -> dict:
         del model, last, tr
         lap(f"{stem}.epoch_and_val")
 
-        for mi, other in enumerate(c["others"]):  # the other scales: predict at batch 8, 3 steps with both kernels
+        for mi, other in enumerate(c["others"]):  # the other scales: predict at batch 8, 2 steps with both kernels
             ostem = Path(other).stem
             probe, sites, bn = probe_sites(other)
             orow = {"s2_sites": [(s["name"], s["k"], s["x"], s["w"][0]) for s in sites], "bn_inputs": len(bn),
@@ -4284,6 +4322,242 @@ def run_solutions(smi: str) -> dict:
             "frames_cut": f"{len(frames)} of the track cell's {tc['frames']} frames ({h}x{w})", "solutions": results,
             "nms_keep_checks": {"calls": len(checks), "all_equal_plain": True}, "nms_calls": nms_calls,
             "nms_launches": 2 * nms_calls, "gait": gait, "phase_s": time.perf_counter() - t_phase}
+
+
+
+def kserve_server(module, meta: dict, endpoint: str, device: torch.device):
+    """A local KServe-v2 REST server (stdlib `http.server`, threaded) for one TorchScript module on the card: the config
+    at GET /v2/models/<endpoint>/config (the artifact's sidecar as `parameters.metadata`), binary-extension inference at
+    POST /v2/models/<endpoint>/infer, the outputs in the ONNX artifact's layout (B, 4 + nc, A), as a Triton server of
+    the exported model answers. Returns (the server, its count of infer requests); the caller shuts it down."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    config = json.dumps({"input": [{"name": "images", "data_type": "TYPE_FP32", "dims": meta["input"]}],
+                         "output": [{"name": "output0", "data_type": "TYPE_FP32", "dims": [-1]}],
+                         "parameters": {"metadata": {"string_value": json.dumps(meta)}}}).encode()
+    served = {"requests": 0}
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def reply(self, body: bytes, header_len: int | None = None):
+            self.send_response(200)
+            if header_len is not None:
+                self.send_header("Inference-Header-Content-Length", str(header_len))
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path.rstrip("/") != f"/v2/models/{endpoint}/config":
+                self.send_error(404)
+                return
+            self.reply(config)
+
+        def do_POST(self):
+            if self.path != f"/v2/models/{endpoint}/infer":
+                self.send_error(404)
+                return
+            hlen = int(self.headers["Inference-Header-Content-Length"])
+            raw = self.rfile.read(int(self.headers["Content-Length"]))
+            req = json.loads(raw[:hlen])
+            x = torch.frombuffer(bytearray(raw[hlen:]), dtype=torch.float32).reshape(req["inputs"][0]["shape"])
+            with torch.inference_mode():
+                y = module(x.to(device)).float().transpose(1, 2).contiguous().cpu().numpy()
+            blob = y.tobytes()
+            hdr = json.dumps({"outputs": [{"name": "output0", "datatype": "FP32", "shape": list(y.shape),
+                                           "parameters": {"binary_data_size": len(blob)}}]}).encode()
+            served["requests"] += 1
+            self.reply(hdr + blob, len(hdr))
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, served
+
+
+def run_export(smi: str) -> dict:
+    """Phase 22: export and AutoBackend on the card (see the module docstring), its checks and its numbers."""
+    from drone_yolo_tpu_torch import YOLO
+    from drone_yolo_tpu_torch.nn.autobackend import ArtifactModel, AutoBackend
+    from drone_yolo_tpu_torch.ops import cuda_nms
+    from drone_yolo_tpu_torch.ops import nms as nms_ops
+
+    c = EXPORT_CELL
+    out = {"cell": dict(c), "nvidia_smi": smi, "stage_s": {}, "score_atol": EXPORT_SCORE_ATOL,
+           "box_atol_px": BOX_ATOL_PX, "map_atol": EXPORT_MAP_ATOL}
+    t_stage = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["stage_s"][name] = now - t_stage[0]
+        t_stage[0] = now
+        print(f"export: {name} {out['stage_s'][name]:.2f} s", file=sys.stderr, flush=True)
+
+    checks, kernel_keep = [], nms_ops.greedy_keep
+
+    def checked_keep(boxes, valid, iou_thres):  # every keep mask of the phase against the plain keep
+        keep = kernel_keep(boxes, valid, iou_thres)
+        checks.append({"K": int(boxes.shape[1]), "equal": bool(torch.equal(keep, nms_ops.greedy_keep_reference(
+            boxes, valid, iou_thres)))})
+        return keep
+
+    def nms_counts() -> dict:
+        return {"calls": cuda_nms.greedy_keep_cuda.calls, "launches": cuda_nms.greedy_keep_cuda.launches}
+
+    def per_image_ms(fn, x) -> float:
+        """The median host milliseconds of `fn(x)` (synchronised) over `reps` calls after two, per image."""
+        for _ in range(2):
+            fn(x)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(c["reps"]):
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls)) * 1e3 / x.shape[0]
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    writer = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    nms_ops.greedy_keep = checked_keep
+    server = None
+    try:
+        dense = writer.submit(write_dense_dataset, tmp / "dense", 1, c["n_val"], c["imgsz"], c["seed"], c["data_nc"],
+                              c["obj_px"])
+        frames = moving_frames(np.random.default_rng(c["seed"]), c["frames"], FRAME_HW, 60)
+        model = YOLO(FLAGSHIP)
+        out["cls_bias"] = calibrated_weights(model, frames[0], c["seed"], c["cls_gain"], c["share_above_conf"],
+                                             c["conf"], c["imgsz"])
+        model.predict(frames, imgsz=c["imgsz"], conf=c["conf"], batch=c["batch"], verbose=False)  # the eager bf16 predictor
+        lap("weights")
+        paths, out["artifacts"] = {}, {}
+        for name, fmt, half in (("torchscript_bf16", "torchscript", True), ("torchscript_f32", "torchscript", False),
+                                ("onnx", "onnx", False)):
+            t0 = time.perf_counter()
+            paths[name] = model.export(format=fmt, half=half, imgsz=c["imgsz"], batch=c["batch"], project=str(tmp / name))
+            out["artifacts"][name] = {"export_s": time.perf_counter() - t0, "bytes": Path(paths[name]).stat().st_size,
+                                      "file": Path(paths[name]).name}
+        lap("export")
+        backends = {name: AutoBackend(p) for name, p in paths.items()}
+        for name, b in backends.items():
+            if b.device != model.device or b.input_shape != [c["batch"], 3, c["imgsz"], c["imgsz"]] or b.nc != 80:
+                raise AssertionError(f"{name}: backend on {b.device}, input {b.input_shape}, nc {b.nc}")
+            out["artifacts"][name]["kind"] = b.kind
+        pred = model.predictor
+        x = pred.preprocess(frames)
+        with torch.inference_mode():  # the eager fused float32 forward, TF32 off
+            eager32 = ArtifactModel(copy.deepcopy(model.model).eval().float().fuse())
+            want = eager32(x.float())
+            out["fp32"] = {}
+            for name in ("torchscript_f32", "onnx"):
+                got = backends[name](x)
+                box = float((got[..., :4] - want[..., :4]).abs().max())
+                score = float((got[..., 4:] - want[..., 4:]).abs().max())
+                if got.shape != want.shape or not (box <= BOX_ATOL_PX and score <= EXPORT_SCORE_ATOL):
+                    raise AssertionError(f"{name} float32 against the eager forward: {tuple(got.shape)} box err {box} "
+                                         f"px, score err {score}")
+                out["fp32"][name] = {"box_err_px": box, "score_err": score}
+            got16, want16 = backends["torchscript_bf16"](x), pred.model(x)[0].float()
+            if not bool(torch.isfinite(got16).all()):
+                raise AssertionError("the bf16 torchscript artifact gave non-finite predictions")
+            out["bf16_vs_eager_bf16"] = {"box_err_px": float((got16[..., :4] - want16[..., :4]).abs().max()),
+                                         "score_err": float((got16[..., 4:] - want16[..., 4:]).abs().max())}
+        del eager32, want, got, got16, want16
+        lap("fp32_checks")
+
+        out["predict"], results = {}, {}
+        for name, p in paths.items():  # YOLO(path).predict at batch 8: one NMS call, two launches
+            art = YOLO(p)
+            for _ in range(3):  # warm-up: TorchScript's profiling executor optimizes the graph over its first calls
+                art.predict(frames, conf=c["conf"], batch=c["batch"], verbose=False)
+            n_checks = len(checks)
+            cuda_nms.reset_counts()
+            t0 = time.perf_counter()
+            results[name] = art.predict(frames, conf=c["conf"], batch=c["batch"], verbose=False)
+            wall = time.perf_counter() - t0
+            cnt = nms_counts()
+            n_det = [len(r.boxes) for r in results[name]]
+            if cnt != {"calls": 1, "launches": 2} or len(checks) - n_checks != 1 or not sum(n_det) or not all(
+                    np.isfinite(r.boxes.data).all() for r in results[name]):
+                raise AssertionError(f"YOLO({name}).predict: NMS {cnt}, {len(checks) - n_checks} checked, detections "
+                                     f"{n_det}")
+            out["predict"][name] = {"img_per_s": c["batch"] / wall, "n_det": n_det, "nms": cnt,
+                                    "speed_ms_per_img": results[name][0].speed}
+        lap("predict")
+
+        meta = json.loads(Path(paths["torchscript_f32"] + ".json").read_text())
+        module = torch.jit.load(paths["torchscript_f32"], map_location=model.device).eval()
+        server, served = kserve_server(module, meta, c["endpoint"], model.device)
+        url = f"http://127.0.0.1:{server.server_address[1]}/{c['endpoint']}"
+        remote = YOLO(url)
+        if remote.backend.kind != "triton" or remote.task != "detect" or remote.overrides.get("imgsz") != c["imgsz"]:
+            raise AssertionError(f"YOLO({url}): {remote.backend.kind}, task {remote.task}, {remote.overrides}")
+        for _ in range(3):  # warm-up, as the direct call's
+            remote.predict(frames, conf=c["conf"], batch=c["batch"], verbose=False)
+        cuda_nms.reset_counts()
+        t0 = time.perf_counter()
+        res_url = remote.predict(frames, conf=c["conf"], batch=c["batch"], verbose=False)
+        wall = time.perf_counter() - t0
+        cnt = nms_counts()
+        same = [bool(np.array_equal(a.boxes.data, b.boxes.data)) for a, b in zip(res_url, results["torchscript_f32"])]
+        if cnt != {"calls": 1, "launches": 2} or not all(same):
+            raise AssertionError(f"YOLO(url).predict: NMS {cnt}, detections equal to the direct call's: {same}")
+        out["served"] = {"url": url, "img_per_s": c["batch"] / wall, "nms": cnt, "equal_to_direct": True,
+                         "n_det": [len(r.boxes) for r in res_url]}
+        lap("served")
+
+        with torch.inference_mode():  # the forward alone (the served one with its HTTP round trip), per image
+            out["ms_per_img_batch8"] = {
+                "eager_bf16": per_image_ms(pred.model, x),
+                "torchscript_bf16": per_image_ms(backends["torchscript_bf16"], x),
+                "torchscript_f32": per_image_ms(backends["torchscript_f32"], x),
+                "onnx_runner_f32": per_image_ms(backends["onnx"], x),
+                "served_round_trip_f32": per_image_ms(remote.backend, x),
+                "nvidia_smi": smi}
+        out["served"]["requests"] = served["requests"]
+        lap("timing")
+
+        data = dense.result()[0]
+        lap("dataset_wait")
+        cuda_nms.reset_counts()
+        n_checks = len(checks)
+        eager_val = model.val(data=str(data), rect=False, dtype="float32", batch=c["batch"], imgsz=c["imgsz"],
+                              plots=False, verbose=False)
+        art = YOLO(paths["torchscript_f32"])
+        art_val = art.val(data=str(data), plots=False, verbose=False)
+        cnt = nms_counts()
+        n_batches = 2 * math.ceil(c["n_val"] / c["batch"])
+        diff = {k: abs(art_val[k] - eager_val[k]) for k in eager_val}
+        # the random weights score no true positive, so the detections themselves are compared: their scores and
+        # classes, image by image as the validators accumulated them
+        det = {k: [np.concatenate(v.validator.stats[k]) for v in (model, art)] for k in ("conf", "pred_cls")}
+        same_dets = (det["conf"][0].shape == det["conf"][1].shape and len(det["conf"][0]) > 0
+                     and np.array_equal(det["pred_cls"][0], det["pred_cls"][1])
+                     and float(np.abs(det["conf"][0] - det["conf"][1]).max()) <= EXPORT_SCORE_ATOL)
+        if (cnt != {"calls": n_batches, "launches": 2 * n_batches} or len(checks) - n_checks != n_batches
+                or art.validator.args.rect or max(diff.values()) > EXPORT_MAP_ATOL or not same_dets
+                or not all(0.0 <= v <= 1.0 for v in art_val.values())):
+            raise AssertionError(f"val: eager {eager_val}, torchscript {art_val}, NMS {cnt}, rect "
+                                 f"{art.validator.args.rect}, detections equal {same_dets}")
+        out["val"] = {"eager_f32": eager_val, "torchscript_f32": art_val, "max_abs_diff": max(diff.values()),
+                      "n_det": len(det["conf"][0]), "det_conf_max_abs_diff":
+                          float(np.abs(det["conf"][0] - det["conf"][1]).max()), "nms": cnt}
+        lap("val")
+    finally:
+        nms_ops.greedy_keep = kernel_keep
+        writer.shutdown(cancel_futures=True)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(ch["equal"] for ch in checks):
+        raise AssertionError(f"export: keep masks unequal to the plain keep: {[ch for ch in checks if not ch['equal']]}")
+    out["nms_keep_checks"] = {"calls": len(checks), "all_equal_plain": True, "K": sorted({ch["K"] for ch in checks})}
+    counted = [v["nms"] for v in out["predict"].values()] + [out["served"]["nms"], out["val"]["nms"]]
+    out["nms_calls"], out["nms_launches"] = sum(n["calls"] for n in counted), sum(n["launches"] for n in counted)
+    return out
 
 
 def main() -> None:
@@ -4844,7 +5118,15 @@ def main() -> None:
     nms_row["launches_by_path"]["solutions"] = sol["nms_launches"]
     emit("solutions", t, **sol)
 
-    # 22. imports ---------------------------------------------------------------
+    # 22. export: torchscript and onnx artifacts of the flagship, AutoBackend, a served model -------------------------
+    t = time.perf_counter()
+    exp = run_export(smi)
+    nms_row["launches"] += exp["nms_launches"]
+    nms_row["calls"] += exp["nms_calls"]
+    nms_row["launches_by_path"]["export"] = exp["nms_launches"]
+    emit("export", t, **exp)
+
+    # 23. imports ---------------------------------------------------------------
     t = time.perf_counter()
     import drone_yolo_tpu_torch.apps  # noqa: F401  (the modules of every path, imported by now)
     import drone_yolo_tpu_torch.data.loaders  # noqa: F401
@@ -4856,6 +5138,9 @@ def main() -> None:
     import drone_yolo_tpu_torch.ops.rotated  # noqa: F401  (min_area_rect, OpenCV's without cv2)
     import drone_yolo_tpu_torch.solutions  # noqa: F401  (the analytics apps and the browser app)
     import drone_yolo_tpu_torch.trackers  # noqa: F401
+    import drone_yolo_tpu_torch.export.onnx_export  # noqa: F401  (the ONNX writer, no onnx and no google.protobuf)
+    import drone_yolo_tpu_torch.nn.onnx_graph  # noqa: F401  (the ONNX reader and runner)
+    import drone_yolo_tpu_torch.utils.triton  # noqa: F401  (the KServe-v2 client; grpc only inside its gRPC transport)
     from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
     if {TASK_MAP["pose"][k].__name__ for k in ("trainer", "validator")} != {"PoseTrainer", "PoseValidator"}:
@@ -4869,7 +5154,8 @@ def main() -> None:
                                                                 "ClassificationPredictor"]:
         raise AssertionError(f"TASK_MAP['classify'] = {TASK_MAP['classify']}")
 
-    absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib", "streamlit"]
+    absent = ["jax", "jaxlib", "drone_yolo_tpu", "cv2", "PIL", "yaml", "sklearn", "matplotlib", "streamlit",
+              "google.protobuf", "onnx", "grpc"]
     loaded = sorted(m for m in absent if m in sys.modules)
     if loaded:
         raise AssertionError(f"the port imported {loaded}")

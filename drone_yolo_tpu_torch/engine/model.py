@@ -1,4 +1,5 @@
-"""`YOLO` facade: build from a model yaml or load a `drone_yolo_tpu.v1` npz, then predict, track, train or validate.
+"""`YOLO` facade: build from a model yaml or load a `drone_yolo_tpu.v1` npz, then predict, track, train, validate or
+export; or wrap an export artifact or a serving URL, then predict and validate through it.
 
 Counterpart of `drone_yolo_tpu/engine/model.py` (YOLO) for detect, segment, pose, obb and classify models: predict,
 track (not of an obb or classify model), train and val (the predictor, trainer and validator chosen by the task), `save`, `load` (a
@@ -10,8 +11,11 @@ passes `device="cpu"`; asking for CUDA where there is none is an error.
 `overrides` holds the arguments every mode starts from, as the JAX facade's: the model
 and task, and for a checkpoint its `train_args`, so that `imgsz` and every other train key
 carry into predict and val. Each mode lays its defaults over them (predict: conf 0.25,
-batch 1, save False; val: rect True), then the call's arguments. `tune`, `benchmark` and
-`export` are not ported and are refused by name; so are export artifacts and URLs as models.
+batch 1, save False; val: rect True), then the call's arguments. `export` writes an npz, TorchScript or ONNX
+artifact (`engine/exporter.py`). A `.torchscript` or `.onnx` artifact or a KServe-v2 URL as the model
+(`YOLO("best.onnx")`) runs through `nn/autobackend.py:AutoBackend`: `model` is None, `backend` is set, the task and
+the artifact's input size come from it, and predict and val run through it (train, export and the weight methods are
+refused). `tune` and `benchmark` are not ported and are refused by name.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from drone_yolo_tpu_torch.cfg import check_ported, get_cfg, get_save_dir
 from drone_yolo_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
 from drone_yolo_tpu_torch.nn import modules as M
+from drone_yolo_tpu_torch.nn.autobackend import is_artifact
 from drone_yolo_tpu_torch.nn.model import TASK2MODELCLASS, DetectionModel, guess_model_task
 
 LOGGER = logging.getLogger("drone_yolo_tpu_torch")
@@ -57,6 +62,10 @@ class YOLO:
         self.callbacks = defaultdict(list)  # user callbacks, forwarded to what the facade makes
         model = str(model).strip()
         self.model_name = model
+        self.backend = None
+        if is_artifact(model):
+            self._load_backend(model, task)
+            return
         if model.endswith((".yaml", ".yml")):
             self.task = task or guess_model_task(model)
             self.model = _model_class(self.task)(model)
@@ -68,12 +77,30 @@ class YOLO:
             self.initialized = True
             self.overrides = {**self.ckpt.get("train_args", {}), "model": model, "task": self.task}
         else:
-            raise ValueError(f"model must be a .yaml or a drone_yolo_tpu.v1 .npz checkpoint, got {model!r} (export "
-                             "artifacts and serving URLs need AutoBackend, which is not ported yet)")
+            raise ValueError(f"model must be a .yaml, a drone_yolo_tpu.v1 .npz checkpoint, a .torchscript or .onnx "
+                             f"artifact or a serving URL, got {model!r}")
         self.model.to(self.device)
+
+    def _load_backend(self, path: str, task: str | None = None) -> None:
+        """Wrap an export artifact or a serving URL (`AutoBackend`): predict and val run through it."""
+        from drone_yolo_tpu_torch.nn.autobackend import AutoBackend
+
+        self.backend = AutoBackend(path, self.device)
+        self.model = None
+        self.task = task or self.backend.task
+        self.initialized = True
+        self.overrides = {"model": path, "task": self.task}
+        if self.backend.input_shape:  # a fixed-shape artifact predicts and validates at its own size
+            self.overrides["imgsz"] = self.backend.input_shape[-1]
+
+    def _needs_model(self, what: str) -> None:
+        if self.backend is not None:
+            raise NotImplementedError(f"{what} needs the model's weights: {self.model_name} is an export artifact or a "
+                                      "serving URL, which predicts and validates only")
 
     def ensure_variables(self, imgsz: int = 640, seed: int = 0) -> DetectionModel:
         """Initialize the weights from `seed` unless they are set; bias priors follow `imgsz`."""
+        self._needs_model("ensure_variables")
         if not self.initialized:
             self.model.init(seed, imgsz=imgsz)
             self.initialized = True
@@ -81,11 +108,11 @@ class YOLO:
 
     @property
     def names(self) -> dict:
-        return self.model.names
+        return self.backend.names if self.backend is not None else self.model.names
 
     @property
     def stride(self) -> list:
-        return self.model.head.stride
+        return self.backend.stride if self.backend is not None else self.model.head.stride
 
     # -- callbacks ---------------------------------------------------------------------------------
     def add_callback(self, event: str, func) -> None:
@@ -112,6 +139,7 @@ class YOLO:
 
     def reset_weights(self) -> YOLO:
         """Forget the weights: the next use draws a new init (a model loaded fused is rebuilt from its yaml)."""
+        self._needs_model("reset_weights")
         if not any(isinstance(m, M.BatchNorm2d) for m in self.model.modules()):
             names, stride = self.model.names, self.model.head.stride
             self.model = type(self.model)(self.model.yaml).to(self.device)
@@ -129,6 +157,7 @@ class YOLO:
     def load(self, weights) -> YOLO:
         """Copy the weights of the checkpoint `weights` whose name and shape match into this model; the rest keep
         theirs (a transfer across heads or class counts)."""
+        self._needs_model("load")
         src, self.ckpt = load_checkpoint(weights)
         dst = self.ensure_variables().state_dict()
         same = {k: v for k, v in src.state_dict().items() if k in dst and v.shape == dst[k].shape}
@@ -138,6 +167,7 @@ class YOLO:
         return self
 
     def info(self, verbose: bool = True) -> str:
+        self._needs_model("info")
         msg = (f"{type(self.model).__name__}: {len(self.model.model)} layers, {self.model.param_count():,} parameters, "
                f"task={self.task}")
         if verbose:
@@ -226,6 +256,7 @@ class YOLO:
         `models/yolo/classify.py`), then take over the best EMA weights; returns the last epoch's validation metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
+        self._needs_model("train")
         overrides = {**self.overrides, "device": str(self.device), **kwargs, "mode": "train"}
         if data is not None:
             overrides["data"] = str(data)
@@ -245,7 +276,8 @@ class YOLO:
         """Validate on the val split of the dataset yaml `data` with the task's validator (`engine/validator.py`,
         `models/yolo/segment.py`, `models/yolo/pose.py`, `models/yolo/obb.py`, `models/yolo/classify.py`) in
         rectangular batches (rect=True unless the call says otherwise, as the JAX facade; a classifier's validator
-        crops every image square); returns the metrics."""
+        crops every image square; an artifact validates in square batches at its own batch and size); returns the
+        metrics."""
         from drone_yolo_tpu_torch.models.yolo import TASK_MAP
 
         args = {**self.overrides, "rect": True, "mode": "val", "device": str(self.device), **kwargs}
@@ -259,11 +291,19 @@ class YOLO:
         return self.metrics
 
     def tune(self, *args, **kwargs):
-        raise NotImplementedError("tune (the hyperparameter tuner) is not ported yet (ROADMAP.md queue 1 item 2)")
+        raise NotImplementedError("tune (the hyperparameter tuner) is not ported yet (ROADMAP.md queue 1 item 2, the "
+                                  "next slice)")
 
     def benchmark(self, *args, **kwargs):
         raise NotImplementedError("benchmark (export formats' speed and accuracy) is not ported yet (ROADMAP.md queue 1 "
-                                  "item 2)")
+                                  "item 2, the next slice)")
 
-    def export(self, *args, **kwargs):
-        raise NotImplementedError("export is not ported yet (ROADMAP.md queue 1 item 5: TorchScript first)")
+    def export(self, **kwargs) -> str:
+        """Write the fused model as `format` (npz, torchscript, onnx; stablehlo, the configuration's default, is
+        written as torchscript) at imgsz and batch, with the npz always; returns the last path written."""
+        from drone_yolo_tpu_torch.engine.exporter import Exporter
+
+        self._needs_model("export")
+        exporter = Exporter(overrides={**self.overrides, **kwargs, "mode": "export"})
+        self._forward_callbacks(exporter)
+        return exporter(self)

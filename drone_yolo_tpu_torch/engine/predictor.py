@@ -16,7 +16,10 @@ have), closed when the stream ends. `show` needs a display and is refused by nam
 
 Per batch only the (B, max_det, 6 [+ extra]) detections and the (B,) counts
 leave the device. The model runs fused, in the configured dtype (bfloat16 by
-default); decode and NMS run in float32.
+default); decode and NMS run in float32. A facade that wraps an export artifact or a
+serving URL (`nn/autobackend.py:AutoBackend`) runs through it instead, at the artifact's
+input size, and NMS (the greedy-NMS kernel on the card, `multi_label=False` as in the JAX
+predictor) runs over its output, a YOLOv10 artifact's decoded one-to-one predictions too.
 
 Callbacks (`utils/callbacks.py`) run at `on_predict_start`, `on_predict_batch_start`,
 `on_predict_postprocess_end` (where the tracker rewrites `self.results`),
@@ -77,7 +80,7 @@ class DetectionPredictor(CallbackMixin):
         if self.args.conf is None:
             self.args.conf = 0.25
         self.save_dir = get_save_dir(self.args)
-        self.model = None
+        self.model = self.backend = self.net = None  # `net`: the model, or the artifact's `AutoBackend.model_output`
         self.results = None
         self.frames = None  # the batch's BGR uint8 frames on the device, as `preprocess` uploaded them
         self.dataset = None
@@ -86,13 +89,24 @@ class DetectionPredictor(CallbackMixin):
         self.callbacks = get_default_callbacks()
 
     def setup_model(self, facade) -> None:
-        """Take a fused copy of the facade's model, in the compute dtype, on the facade's device."""
+        """Take a fused copy of the facade's model, in the compute dtype, on the facade's device; or the facade's
+        AutoBackend, whose artifact sets the input size."""
+        self.device = facade.device
+        self.backend = facade.backend
+        if self.backend is not None:
+            shape = self.backend.input_shape
+            if shape and self.imgsz != tuple(shape[2:]):
+                LOGGER.info(f"imgsz={self.args.imgsz} -> {shape[-1]}: the artifact's fixed input size")
+                self.args.imgsz = shape[-1]
+            self.names, self.nc, self.kpt_shape = self.backend.names, self.backend.nc, self.backend.kpt_shape
+            self.net = self.backend.model_output
+            return
         imgsz = self.args.imgsz if isinstance(self.args.imgsz, int) else max(self.args.imgsz)
         facade.ensure_variables(imgsz=imgsz)
-        self.device = facade.device
         self.dtype = torch.bfloat16 if self.args.dtype == "bfloat16" or self.args.half else torch.float32
-        self.model = copy.deepcopy(facade.model).fuse().to(self.device, self.dtype)
-        self.names = self.model.names
+        self.net = self.model = copy.deepcopy(facade.model).fuse().to(self.device, self.dtype)
+        self.names, self.nc = self.model.names, self.model.nc
+        self.kpt_shape = getattr(self.model.head, "kpt_shape", None)
 
     @property
     def imgsz(self) -> tuple[int, int]:
@@ -119,14 +133,15 @@ class DetectionPredictor(CallbackMixin):
     @torch.inference_mode()
     def inference(self, x: torch.Tensor):
         """The step on the device: forward, DFL decode, NMS -> (dets (B, max_det, 6 + extra), n_valid (B,)). YOLOv10's
-        NMS-free head gives its detections sorted: `end2end_detections` cuts them, and no NMS runs."""
-        preds, _ = self.model(x)
-        if isinstance(self.model.head, v10Detect):
+        NMS-free head gives its detections sorted: `end2end_detections` cuts them, and no NMS runs (over a YOLOv10
+        artifact NMS runs, as in the JAX predictor)."""
+        preds, _ = self.net(x)
+        if self.backend is None and isinstance(self.model.head, v10Detect):
             return end2end_detections(preds, self.args.conf, self.args.max_det, self.args.classes)
         return non_max_suppression(
             preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
             pre_topk=min(self.args.pre_nms_topk, 1024), classes=self.args.classes, agnostic=self.args.agnostic_nms,
-            nc=self.model.nc)
+            nc=self.nc)
 
     def postprocess(self, dets, n_valid, x_shape, orig_imgs, paths):
         """Detections -> Results with boxes rescaled to the original frames."""

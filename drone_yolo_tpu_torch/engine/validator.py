@@ -14,6 +14,11 @@ P, R, mAP50 and mAP50-95 with `utils/metrics.py`. A task validator sets `task`, 
 `stat_keys` (the arguments of its metrics' `process`, in order) and `print_cols`, and overrides
 `update_metrics`.
 
+Given a facade that wraps an export artifact or a serving URL (`nn/autobackend.py:AutoBackend`, which
+`YOLO("best.onnx").val(...)` passes), the validator runs through it: the stride, the names and nc come from
+the artifact, and a fixed-shape artifact validates in square batches (`rect` off, logged) at its own batch
+and imgsz; multi-label NMS runs over its output, a YOLOv10 artifact's decoded one-to-one predictions too.
+
 `dataloader` is any iterable of batches in the collate format
 (`drone_yolo_tpu/data/dataset.py:YOLODataset.collate`): `img` (B, H, W, 3) uint8 RGB,
 `cls` (B, M), `bboxes` (B, M, 4) letterboxed pixel xyxy, `mask` (B, M), and per image
@@ -70,32 +75,50 @@ class BaseValidator(CallbackMixin):
         self.iouv = np.linspace(0.5, 0.95, 10)
         self.metrics = self.metrics_class()
         self.speed = {}
-        self.model = None
+        self.model = self.backend = self.net = None  # `net`: the model, or the artifact's `AutoBackend.model_output`
         self.callbacks = get_default_callbacks()
 
     def setup_model(self, model, ema_state: dict | None = None) -> None:
         """An eval-mode, fused copy of `model` (a YOLO facade or a DetectionModel), with the weights of
         `ema_state` (a full state dict by name, such as `ModelEMA.state`) when given, in the compute
-        dtype on the device."""
-        if hasattr(model, "ensure_variables"):  # the facade
-            model.ensure_variables(imgsz=self.args.imgsz)
-            model = model.model
-        net = copy.deepcopy(model)
-        if ema_state is not None:
-            net.load_state_dict(ema_state, strict=True)
-        self.model = net.eval().to(self.device, torch.float32).fuse().to(self.dtype)
-        self.nc = self.model.nc
+        dtype on the device; or the AutoBackend of a facade that wraps an artifact (or the AutoBackend itself)."""
+        from drone_yolo_tpu_torch.nn.autobackend import AutoBackend
+
+        self.backend = model if isinstance(model, AutoBackend) else getattr(model, "backend", None)
+        if self.backend is not None:
+            self.setup_backend()
+        else:
+            if hasattr(model, "ensure_variables"):  # the facade
+                model.ensure_variables(imgsz=self.args.imgsz)
+                model = model.model
+            net = copy.deepcopy(model)
+            if ema_state is not None:
+                net.load_state_dict(ema_state, strict=True)
+            self.net = self.model = net.eval().to(self.device, torch.float32).fuse().to(self.dtype)
+            head = self.model.head
+            self.nc, self.stride, self.kpt_shape = self.model.nc, head.stride, getattr(head, "kpt_shape", None)
         if self.dataloader is None:
             self.data, self.dataloader = self.build_loader()
-        self.names = self.data["names"] if self.data else self.model.names
+        self.names = self.data["names"] if self.data else (self.model if self.backend is None else self.backend).names
         self.metrics = self.metrics_class(self.names)  # a fresh one per call: a reused validator reports no stale metrics
         self.confusion_matrix = ConfusionMatrix(nc=self.nc, conf=self.args.conf)
+
+    def setup_backend(self) -> None:
+        """Validate through `self.backend`: its stride, nc and keypoint shape; a fixed-shape artifact's batch and
+        imgsz, in square batches."""
+        b = self.backend
+        self.net, self.nc, self.stride, self.kpt_shape = b.model_output, b.nc, b.stride, b.kpt_shape
+        if b.input_shape:
+            self.args.batch, self.args.imgsz = b.input_shape[0], b.input_shape[-1]
+            if self.args.rect:  # a fixed-shape artifact takes one input shape: rect batches would feed others
+                LOGGER.info("rect=True disabled for a fixed-shape artifact (square letterbox val)")
+                self.args.rect = False
 
     def build_loader(self) -> tuple[dict, object]:
         """(the dataset yaml's contents, a loader over its val split in order, every image)."""
         data = check_det_dataset(self.args.data)
         dataset = build_yolo_dataset(self.args, data["val"], self.args.batch, data, mode="val",
-                                     stride=int(max(self.model.head.stride)))
+                                     stride=int(max(self.stride)))
         return data, build_dataloader(dataset, self.args.batch, self.args.workers, shuffle=False, drop_last=False)
 
     def preprocess(self, batch: dict) -> torch.Tensor:
@@ -106,14 +129,14 @@ class BaseValidator(CallbackMixin):
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Decoded predictions (B, A, 4 + nc [+ extra]), float32."""
-        return self.model(x)[0]
+        return self.net(x)[0]
 
     @torch.inference_mode()
     def postprocess(self, preds: torch.Tensor):
         """Multi-label NMS over the top `pre_nms_topk` candidates -> (dets (B, max_det, 6 + extra), n_valid (B,)); the
         columns after the nc scores (a pose model's keypoints) ride with their candidates. YOLOv10's NMS-free head
         gives its detections sorted (`v10Detect`): they are cut to `max_det` and `conf`, with no NMS."""
-        if isinstance(self.model.head, v10Detect):
+        if self.backend is None and isinstance(self.model.head, v10Detect):
             return end2end_detections(preds, self.args.conf, self.args.max_det)
         return non_max_suppression(preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
                                    pre_topk=self.args.pre_nms_topk, multi_label=True, nc=self.nc)

@@ -36,11 +36,14 @@ class ClassificationPredictor(DetectionPredictor):
     """Softmax probabilities per image: Results with `probs` (nc,)."""
 
     def setup_model(self, facade) -> None:
+        """The fused float32 model, or the facade's AutoBackend."""
+        if facade.backend is not None:
+            return super().setup_model(facade)
         facade.ensure_variables(imgsz=self.imgsz[0])
         self.device = facade.device
         self.dtype = torch.float32
-        self.model = copy.deepcopy(facade.model).eval().to(self.device, torch.float32).fuse()
-        self.names = self.model.names
+        self.net = self.model = copy.deepcopy(facade.model).eval().to(self.device, torch.float32).fuse()
+        self.names, self.nc = self.model.names, self.model.nc
 
     def preprocess(self, imgs) -> torch.Tensor:
         """BGR frames -> (B, 3, imgsz, imgsz) RGB float32 in [0, 1] on the device: each frame uploaded as uint8, its
@@ -58,7 +61,7 @@ class ClassificationPredictor(DetectionPredictor):
     @torch.inference_mode()
     def inference(self, x: torch.Tensor):
         """(probs (B, nc) float32, zeros (B,)): the predictor's (detections, counts) pair."""
-        return self.model(x), torch.zeros(x.shape[0], dtype=torch.int32)
+        return self.net(x), torch.zeros(x.shape[0], dtype=torch.int32)
 
     def postprocess(self, probs, n_valid, x_shape, orig_imgs, paths):
         probs = probs.float().cpu().numpy()
@@ -93,7 +96,7 @@ class ClassificationValidator(BaseValidator):
             with dt[0]:
                 x = self.preprocess(batch)
             with dt[1], torch.inference_mode():  # a stable sort: the lower class index first among equal ones
-                top = torch.sort(self.model(x), dim=1, descending=True, stable=True).indices[:, :k].cpu().numpy()
+                top = torch.sort(self.net(x), dim=1, descending=True, stable=True).indices[:, :k].cpu().numpy()
             with dt[2]:
                 self.pred.append(top)
                 self.targets.append(np.asarray(batch["cls"]))

@@ -59,9 +59,9 @@ class OBBPredictor(DetectionPredictor):
     def inference(self, x: torch.Tensor):
         """Forward, decode and rotated NMS over the top min(pre_nms_topk, 1024) anchors -> (dets (B, max_det, 7),
         n_valid (B,)), on the device."""
-        preds, _ = self.model(x)
+        preds, _ = self.net(x)
         return nms_rotated(preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
-                           pre_topk=min(self.args.pre_nms_topk, 1024), nc=self.model.nc, classes=self.args.classes)
+                           pre_topk=min(self.args.pre_nms_topk, 1024), nc=self.nc, classes=self.args.classes)
 
     def postprocess(self, dets, n_valid, x_shape, orig_imgs, paths):
         """Detections to the host, cx, cy less the letterbox's pad and cx, cy, w, h over its gain; the angle stays."""

@@ -45,7 +45,7 @@ class PosePredictor(DetectionPredictor):
 
     def postprocess(self, dets, n_valid, x_shape, orig_imgs, paths):
         dets = dets.float().cpu()
-        nk, nd = self.model.head.kpt_shape
+        nk, nd = self.kpt_shape
         results = []
         for i, (im0, path) in enumerate(zip(orig_imgs, paths)):
             n = int(n_valid[i])
@@ -70,7 +70,7 @@ class PoseValidator(BaseValidator):
     def update_metrics(self, dets: np.ndarray, n_valid: np.ndarray, batch: dict, in_shape) -> None:
         """Per image: boxes and keypoints of the detections and the GT back to the original frame, TP by box IoU and
         by OKS, accumulated."""
-        nk, nd = self.model.head.kpt_shape
+        nk, nd = self.kpt_shape
         sigmas = kpt_sigmas(nk)
         for i in range(len(dets)):
             self.seen += 1

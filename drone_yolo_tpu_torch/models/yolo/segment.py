@@ -35,11 +35,12 @@ class SegmentationPredictor(DetectionPredictor):
     def inference(self, x: torch.Tensor):
         """Forward, decode and NMS over the top min(pre_nms_topk, 1024) candidates, the coefficients riding as extra
         columns -> ((dets (B, max_det, 6 + nm), protos (B, nm, Hm, Wm)), n_valid (B,)), on the device."""
-        preds, (_, _, protos) = self.model(x)
+        preds, aux = self.net(x)
+        protos = aux[-1]  # the model's (maps, coefficients, protos), an artifact's (protos,)
         dets, n_valid = non_max_suppression(
             preds, conf_thres=self.args.conf, iou_thres=self.args.iou, max_det=self.args.max_det,
             pre_topk=min(self.args.pre_nms_topk, 1024), classes=self.args.classes, agnostic=self.args.agnostic_nms,
-            nc=self.model.nc)
+            nc=self.nc)
         return (dets, protos), n_valid
 
     def postprocess(self, out, n_valid, x_shape, orig_imgs, paths):
@@ -74,7 +75,8 @@ class SegmentationValidator(BaseValidator):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Decoded predictions (B, A, 4 + nc + nm); the batch's prototypes stay on the device in `protos` for
         `update_metrics`."""
-        preds, (_, _, self.protos) = self.model(x)
+        preds, aux = self.net(x)
+        self.protos = aux[-1]  # the model's (maps, coefficients, protos), an artifact's (protos,)
         return preds
 
     def update_metrics(self, dets: np.ndarray, n_valid: np.ndarray, batch: dict, in_shape) -> None:

@@ -1,8 +1,8 @@
 """The callback bus: named lifecycle events of the trainer, validator and predictor, each a list of functions.
 
 Counterpart of `drone_yolo_tpu/utils/callbacks.py` (EVENTS, get_default_callbacks,
-CallbackMixin) without the logger integrations. A function gets the trainer, validator or
-predictor that fires the event; `YOLO.add_callback` forwards to every one a facade makes.
+CallbackMixin) without the logger integrations. A function gets the trainer, validator,
+predictor or exporter that fires the event; `YOLO.add_callback` forwards to every one a facade makes.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ EVENTS = [
     # predictor
     "on_predict_start", "on_predict_batch_start", "on_predict_postprocess_end", "on_predict_batch_end",
     "on_predict_end",
+    # exporter
+    "on_export_start", "on_export_end",
 ]
 
 

@@ -168,9 +168,11 @@ def test_refusals_by_name(ckpt, tmp_path):
         m.train(data="d.yaml", device_aug=True)
     with pytest.raises(KeyError, match="unsupported arguments"):
         m.predict(str(imgs), no_such_key=1)
-    for mode in ("tune", "benchmark", "export"):
+    for mode in ("tune", "benchmark"):
         with pytest.raises(NotImplementedError, match=f"{mode}.*not ported"):
             getattr(m, mode)()
+    with pytest.raises(NotImplementedError, match="format 'tflite'.*TensorFlow"):  # export is ported: npz,
+        m.export(format="tflite", project=str(tmp_path))  # torchscript and onnx (tests/test_torch_export.py)
     orb = tmp_path / "orb.yaml"  # BoT-SORT is ported with sparseOptFlow motion compensation; ORB's is not
     orb.write_text((port_cfg.TRACKER_CFG_DIR / "botsort.yaml").read_text().replace("sparseOptFlow #", "orb #"))
     with pytest.raises(NotImplementedError, match="gmc_method 'orb' is not ported"):

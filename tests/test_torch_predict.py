@@ -269,5 +269,5 @@ def test_port_package_holds_sources_only():
         data = p.read_bytes()
         assert b"\0" not in data and len(data) <= 64 * 1024, p
         data.decode("utf-8")
-    assert sum(p.stat().st_size for p in files) < 797 * 1024  # 782 KB with YOLOv10 (its 7 yamls 10.4 KB)
+    assert sum(p.stat().st_size for p in files) < 877 * 1024  # 876.1 KiB with export and AutoBackend (96,100 bytes)
     assert "build/" in (REPO / ".gitignore").read_text().split()
